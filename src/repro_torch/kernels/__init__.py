@@ -1,0 +1,11 @@
+"""Hand-written CUDA kernels of the port (``csrc/``), their wrappers, their
+plain PyTorch versions (``ref``) and the dispatch by device (``ops``).
+
+| kernel          | replaces                                      |
+|-----------------|-----------------------------------------------|
+| ``frame_accum`` | ``repro/kernels/frame_accum.py::frame_accum`` |
+| ``bfs_frontier``| ``repro/kernels/bfs_frontier.py::bfs_frontier``|
+"""
+from . import ops, ref  # noqa: F401
+
+__all__ = ["ops", "ref"]
