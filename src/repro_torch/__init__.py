@@ -1,7 +1,7 @@
 """PyTorch/CUDA port of the adaptive-sampling system in :mod:`repro`.
 
 The layout mirrors :mod:`repro` module for module (``core/``, ``graphs/``,
-``kernels/``, ``configs/``), so each port module has one reference module it
+``sampling/``, ``optim/``, ``kernels/``, ``configs/``), so each port module has one reference module it
 is tested against.  The port imports ``torch`` and numpy and never ``jax``
 or any module of :mod:`repro`.
 

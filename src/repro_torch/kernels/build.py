@@ -39,6 +39,9 @@ SIGNATURES = {
     "bfs_frontier": {
         "bfs_frontier_f32": [_P, _P, _P, _P, _I, _P, _L, _I, _P],
     },
+    "alias_draw": {
+        "alias_draw_f32": [_P, _P, _P, _P, _P, _I, _L, _P],
+    },
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from . import ref
+from .alias_draw import alias_draw as _alias_kernel
 from .bfs_frontier import bfs_frontier as _bfs_kernel
 from .frame_accum import frame_accum as _accum_kernel
 
@@ -30,3 +31,11 @@ def bfs_frontier(indptr: torch.Tensor, indices: torch.Tensor,
     if sigma.device.type == "cpu":
         return ref.bfs_frontier_ref(src, dst, sigma, dist, level)
     return _bfs_kernel(indptr, indices, sigma, dist, level)
+
+
+def alias_draw(prob: torch.Tensor, alias: torch.Tensor, u1: torch.Tensor,
+               u2: torch.Tensor) -> torch.Tensor:
+    """(b,) alias-table draws → (b,) int32 item indices."""
+    if u1.device.type == "cpu":
+        return ref.alias_draw_ref(prob, alias, u1, u2)
+    return _alias_kernel(prob, alias, u1, u2)

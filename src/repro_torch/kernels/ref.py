@@ -28,3 +28,19 @@ def bfs_frontier_ref(src: torch.Tensor, dst: torch.Tensor, sigma: torch.Tensor,
     contrib = torch.where(dist[:, src] == level, sigma.float()[:, src], 0.0)
     agg = torch.zeros(sigma.shape, dtype=torch.float32, device=sigma.device)
     return agg.index_add_(1, dst.long(), contrib)
+
+
+def alias_draw_ref(prob: torch.Tensor, alias: torch.Tensor, u1: torch.Tensor,
+                   u2: torch.Tensor) -> torch.Tensor:
+    """Batched alias-table draw: keep bucket ``min(⌊u₁·n⌋, n−1)`` if
+    u₂ < prob[bucket], else take alias[bucket].  The product is one f32
+    multiply, truncated toward zero, as the reference's
+    ``(u1 * n).astype(int32)``; the lower clamp at 0 only guards the gathers
+    against uniforms outside [0, 1).
+
+    prob (n,) f32, alias (n,) int32, u1/u2 (b,) f32 → idx (b,) int32.
+    """
+    n = prob.shape[0]
+    bucket = (u1.float() * n).to(torch.int32).clamp(0, n - 1).long()
+    return torch.where(u2 < prob[bucket], bucket, alias[bucket].long()
+                       ).to(torch.int32)

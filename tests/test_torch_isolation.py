@@ -21,6 +21,9 @@ g = erdos_renyi(40, 100, seed=0, device="cpu")
 b, res, pre = run_kadabra(g, KadabraParams(eps=0.1, batch=8), world=2,
                           strategy=FrameStrategy.SHARED_FRAME, device="cpu")
 assert res.stopped and b.shape == (40,)
+from repro_torch.core.instances import run_instance
+est, res, built = run_instance("wrs", device="cpu")
+assert res.stopped and abs(est[0] - built.oracle[0]) <= built.eps
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LEAKED", bad)
 """

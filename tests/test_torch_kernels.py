@@ -1,7 +1,7 @@
 """The port's kernels (plain versions on the CPU) against the JAX Pallas
-kernels run in interpret mode, on the same numpy inputs; the dispatch by
-device; and, on a CUDA card only, each CUDA kernel against its plain
-version."""
+kernels run in interpret mode, on the same numpy inputs, and the dispatch
+by device.  The CUDA kernels against their plain versions on a card are in
+``test_torch_cuda.py``."""
 
 import pytest
 
@@ -98,29 +98,3 @@ def test_kernel_wrappers_refuse_cpu_tensors(monkeypatch):
     with pytest.raises(ValueError, match="CUDA"):
         bfs_mod.bfs_frontier(z, z, torch.zeros((1, 3)),
                              torch.zeros((1, 3), dtype=torch.int32), 0)
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
-    return torch.device("cuda")
-
-
-@pytest.mark.parametrize("dtype", [torch.int32, torch.float32, torch.bfloat16])
-def test_frame_accum_kernel_on_card(cuda_device, dtype):
-    x = (torch.arange(4 * 5000, device=cuda_device) % 97).reshape(4, 5000).to(dtype)
-    got = accum_mod.frame_accum(x)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(got, ref.frame_accum_ref(x), rtol=1e-6, atol=0.0)
-
-
-def test_bfs_frontier_kernel_on_card(cuda_device):
-    g, dist, sigma = _bfs_state(200, 600, lanes=4, seed=2)
-    t = [torch.from_numpy(np.array(a)).to(cuda_device) for a in
-         (g.indptr, g.indices_padded, g.src, g.dst)]
-    s, d = torch.from_numpy(sigma).to(cuda_device), torch.from_numpy(dist).to(cuda_device)
-    got = bfs_mod.bfs_frontier(t[0], t[1], s, d, 2)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(got, ref.bfs_frontier_ref(t[2], t[3], s, d, 2),
-                               rtol=1e-5, atol=0.0)
