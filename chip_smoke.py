@@ -7,7 +7,7 @@ Phases, each printing JSON lines (``{"phase": ...}``); any failure raises
 and the script exits non-zero:
 
 1. device      — the card (nvidia-smi name and power limit), torch and CUDA.
-2. build       — nvcc builds the three kernels from
+2. build       — nvcc builds the five kernels from
                  ``src/repro_torch/kernels/csrc``, all at once.
 3. wrs table   — the 2**24-item alias table of the wrs full-size run
                  (Pareto(1.5) weights, the host's Vose loop, then the card).
@@ -18,7 +18,10 @@ and the script exits non-zero:
                  path's (4, 2**24) and (4, 1) int32 frames; ``alias_draw``
                  exactly (``torch.equal``) at n = 2**24 with b = 262,144,
                  65,536 and 2**24 draws, and on the edge uniforms 0 and
-                 1−2⁻²⁴ at n = 1000.
+                 1−2⁻²⁴ at n = 1000; ``flash_attention`` at recurrentgemma's
+                 prefill shape q (2, 10, 4096, 256), k/v (2, 1, 4096, 256),
+                 window 2048, in bf16 and f32, and at S = 100 and window 0;
+                 ``rglru_scan`` exactly at (2, 4096, 2560).
 5. accuracy    — KADABRA on erdos_renyi(1000, 5000) for all five strategies
                  within ε of exact Brandes; INDEXED_FRAME bit-identical for
                  W ∈ {1, 2, 4}; τ a whole number of frame units; SHARED == LOCAL.
@@ -31,10 +34,18 @@ and the script exits non-zero:
                  batch 65,536 per worker, LOCAL and SHARED at W = 4 and
                  INDEXED at W = 1 and 4: within 2·rtol·μ of the exact mean,
                  SHARED == LOCAL, INDEXED W = 1 == W = 4.
-9. kernels     — every kernel with its launches on the three paths (phases
-                 5–6, 7 and 8), each counted from 0 just before its path.
+9. rg serve    — recurrentgemma-2b at full width (26 layers, d 2560, vocab
+                 256,000, bf16, random weights from seed 0) through the
+                 port's serving entry points: ``make_prefill_step`` on
+                 B = 2, S = 4096 (twice the local window) with a profile;
+                 ``generate`` at B = 4, prompt 32, gen 16, with a profile;
+                 prefill's last logits against 32 decode steps of the same
+                 prompt, in bf16 and in f32; ``adaptive_eval`` at B = 4,
+                 seq 64, ε = 0.5, δ = 0.1, and a profile of one sample.
+10. kernels    — every kernel with its launches on the four paths (phases
+                 5–6, 7, 8 and 9), each counted from 0 just before its path.
 
-While phases 5–8 run, the kernels behind ``kernels.ops`` are wrapped so
+While phases 5–9 run, the kernels behind ``kernels.ops`` are wrapped so
 that their calls are held against the plain versions on the same tensors:
 every call on the conformance path, and elsewhere each call whose kernel,
 shapes and types phase 4 or an earlier call has not compared yet.
@@ -58,6 +69,7 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
 
 FULL_N = 2 ** 20
 FULL_M = 8 * 2 ** 20
@@ -66,6 +78,11 @@ LANES = 256                 # W · batch of the full-size run
 WRS_ITEMS = 2 ** 24
 WRS_WORLD = 4
 WRS_BATCH = 65_536          # draws per worker per round
+
+RG_ARCH = "recurrentgemma-2b"
+RG_PREFILL = (2, 4096)      # batch, prompt length: twice the local window
+RG_GEN = (4, 32, 16)        # the serving CLI's defaults: batch, prompt, gen
+RG_EVAL = {"batch": 4, "seq": 64, "eps": 0.5, "delta": 0.1}
 
 
 def emit(obj) -> None:
@@ -79,9 +96,9 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def bound_ms(nbytes: float, ops: float):
+def bound_ms(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -120,14 +137,21 @@ class PlainCheck:
     kernel still runs once a call; the plain versions launch none of the
     port's kernels, so they move no count."""
 
-    NAMES = ("frame_accum", "bfs_frontier", "alias_draw")
+    NAMES = ("frame_accum", "bfs_frontier", "alias_draw", "flash_attention",
+             "rglru_scan")
     TOLERANCE = {
         "frame_accum": "int32 exact; float32 rtol 1e-6 atol 1e-6; "
                        "bfloat16 rtol 2e-2 atol 1e-2",
         # the plain version sums with atomics in arrival order
         "bfs_frontier": "rtol 1e-5, {agg > 0} equal",
         "alias_draw": "exact (torch.equal)",
+        # f32 in both, summed in other orders; bf16: one rounding of the
+        # f32 output (the reference's kernel tests use 2e-5 and 2e-2)
+        "flash_attention": "float32 rtol 1e-5 atol 1e-5; "
+                           "bfloat16 rtol 2e-2 atol 2e-2",
+        "rglru_scan": "exact (torch.equal; one FMA a step in both)",
     }
+    FLASH_TOL = {"torch.float32": 1e-5, "torch.bfloat16": 2e-2}
 
     def __init__(self, torch):
         self.torch = torch
@@ -191,6 +215,35 @@ class PlainCheck:
         self._done("alias_draw", ("alias_draw", prob.numel(), u1.numel()),
                    got, exp)
 
+    @staticmethod
+    def flash_key(q, k, v, window):
+        return ("flash_attention", str(q.dtype), tuple(q.shape),
+                tuple(k.shape), window)
+
+    def compare_flash(self, q, k, v, window, got):
+        from repro_torch.kernels import ref
+        torch = self.torch
+        exp = ref.flash_attention_ref(q, k, v, window=window)
+        torch.cuda.synchronize()
+        tol = self.FLASH_TOL[str(q.dtype)]
+        torch.testing.assert_close(got, exp, rtol=tol, atol=tol,
+                                   msg=lambda m: f"flash_attention q "
+                                                 f"{tuple(q.shape)} k "
+                                                 f"{tuple(k.shape)} {q.dtype} "
+                                                 f"window {window}: {m}")
+        self._done("flash_attention", self.flash_key(q, k, v, window), got, exp)
+
+    def compare_rglru(self, a, b, got):
+        from repro_torch.kernels import ref
+        torch = self.torch
+        exp = ref.rglru_scan_ref(a, b)
+        torch.cuda.synchronize()
+        if not torch.equal(got, exp):
+            raise AssertionError(f"rglru_scan differs from its plain version "
+                                 f"at {tuple(a.shape)}: "
+                                 f"{int((got != exp).sum())} values")
+        self._done("rglru_scan", ("rglru_scan", tuple(a.shape)), got, exp)
+
     @contextlib.contextmanager
     def installed(self, every: bool):
         """Compare the kernels' calls while the block runs; yields the
@@ -199,14 +252,17 @@ class PlainCheck:
         torch = self.torch
         kernels = {"frame_accum": ops._accum_kernel,
                    "bfs_frontier": ops._bfs_kernel,
-                   "alias_draw": ops._alias_kernel}
+                   "alias_draw": ops._alias_kernel,
+                   "flash_attention": ops._flash_kernel,
+                   "rglru_scan": ops._rglru_kernel}
         made = dict.fromkeys(self.NAMES, 0)
 
         def wrap(name, key_of, compare):
             kernel = kernels[name]
 
-            def call(*args):
-                got = kernel(*args)
+            def call(*args, **kwargs):
+                got = kernel(*args, **kwargs)
+                args = args + tuple(kwargs.values())
                 if every or key_of(*args) not in self.seen:
                     compare(*args, got)
                     made[name] += 1
@@ -227,6 +283,11 @@ class PlainCheck:
                 "alias_draw",
                 lambda p, a, u1, u2: ("alias_draw", p.numel(), u1.numel()),
                 self.compare_alias),
+            "_flash_kernel": wrap("flash_attention", self.flash_key,
+                                  self.compare_flash),
+            "_rglru_kernel": wrap(
+                "rglru_scan", lambda a, b: ("rglru_scan", tuple(a.shape)),
+                self.compare_rglru),
         }
         saved = {attr: getattr(ops, attr) for attr in patched}
         for attr, fn in patched.items():
@@ -351,7 +412,109 @@ def phase_kernels(torch, timer, check, g, table):
     del adj, masked_t, dist, sigma, front
     torch.cuda.empty_cache()
     rows["alias_draw"] = kernel_alias_draw(torch, timer, check, gen, table)
+    rows["flash_attention"] = kernel_flash_attention(torch, timer, check, gen)
+    rows["rglru_scan"] = kernel_rglru_scan(torch, timer, check, gen)
     return rows
+
+
+def attention_pairs(S: int, window: int) -> int:
+    """Admissible (q, k) pairs of one (batch, head): k ≤ q, and
+    k > q − window with a window."""
+    if window <= 0:
+        return S * (S + 1) // 2
+    w = min(window, S)
+    return w * (w + 1) // 2 + (S - w) * w
+
+
+def kernel_flash_attention(torch, timer, check, gen):
+    """``flash_attention`` against its plain version at recurrentgemma-2b's
+    prefill shape (MQA, hd 256, window 2048) in bf16 and f32, then at
+    S = 100 (ragged tiles) and with window 0; the bf16 and f32 full shapes
+    timed beside the bound and ``scaled_dot_product_attention`` with the
+    same boolean mask."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    B, S = RG_PREFILL
+    H, KV, hd, window = 10, 1, 256, 2048
+
+    def qkv(b, s, dtype):
+        # the model's (B, S, heads, hd) layout, as (B, heads, S, hd) views
+        return [torch.randn((b, s, n, hd), generator=gen, device="cuda")
+                .to(dtype).transpose(1, 2) for n in (H, KV, KV)]
+
+    row, timed = None, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = qkv(B, S, dtype)
+        check.compare_flash(q, k, v, window, flash_attention(q, k, v, window=window))
+        es = q.element_size()
+        pairs = B * H * attention_pairs(S, window)
+        nbytes = es * (2 * q.numel() + k.numel() + v.numel())
+        ops = 4 * hd * pairs
+        rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
+        t_bound, by = bound_ms(nbytes, ops, rate)
+        pos = torch.arange(S, device="cuda")
+        mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+        ke, ve = k.expand(B, H, S, hd), v.expand(B, H, S, hd)
+        timed[str(dtype)] = {
+            "ms": timer(lambda: flash_attention(q, k, v, window=window)),
+            "plain_ms": timer(lambda: ref.flash_attention_ref(q, k, v, window=window),
+                              reps=5, warmup=1),
+            "bound_ms": t_bound, "bound_by": by,
+            "library_ms": timer(lambda: F.scaled_dot_product_attention(
+                q, ke, ve, attn_mask=mask)),
+        }
+        emit({"phase": "kernels", "kernel": "flash_attention",
+              "dtype": str(dtype).split(".")[-1],
+              "shape": {"q": list(q.shape), "kv": list(k.shape), "window": window,
+                        "layout": "(B, S, heads, hd) memory as (B, heads, S, hd) views"},
+              "admissible_pairs": pairs, "flops": ops, "bytes": nbytes,
+              "f32_core_bound_ms": ops / F32_OPS_PER_S * 1e3,
+              "max_abs_err": check.max_err["flash_attention"],
+              "tolerance": check.TOLERANCE["flash_attention"],
+              "library": "F.scaled_dot_product_attention(q, k, v expanded to H "
+                         "heads, boolean window mask)",
+              **timed[str(dtype)]})
+        del q, k, v, ke, ve, mask
+        torch.cuda.empty_cache()
+    row = dict(timed["torch.bfloat16"])
+    row.update({f"{key}_f32": val for key, val in timed["torch.float32"].items()
+                if key != "bound_by"})
+    checked = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for s, w in ((100, window), (100, 0), (100, 32), (S, 0)):
+            q, k, v = qkv(1 if s == S else B, s, dtype)
+            check.compare_flash(q, k, v, w, flash_attention(q, k, v, window=w))
+            checked.append([str(dtype).split(".")[-1], list(q.shape), w])
+    emit({"phase": "kernels", "kernel": "flash_attention", "checked": checked,
+          "max_abs_err": check.max_err["flash_attention"]})
+    torch.cuda.empty_cache()
+    return row
+
+
+def kernel_rglru_scan(torch, timer, check, gen):
+    """``rglru_scan`` exactly against its plain version at the full-width
+    prefill's (2, 4096, 2560), and at a ragged (3, 100, 1000)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rglru_scan import rglru_scan
+
+    for shape in ((3, 100, 1000), (RG_PREFILL[0], RG_PREFILL[1], 2560)):
+        a = torch.rand(shape, generator=gen, device="cuda") * 0.75 + 0.2
+        b = torch.randn(shape, generator=gen, device="cuda")
+        check.compare_rglru(a, b, rglru_scan(a, b))
+    t_bound, by = bound_ms(3 * 4 * a.numel(), 2 * a.numel())
+    row = {"ms": timer(lambda: rglru_scan(a, b)),
+           "plain_ms": timer(lambda: ref.rglru_scan_ref(a, b), reps=3, warmup=1),
+           "bound_ms": t_bound, "bound_by": by, "library_ms": None}
+    emit({"phase": "kernels", "kernel": "rglru_scan", "shape": list(shape),
+          "checked": [[3, 100, 1000], list(shape)],
+          "max_abs_err": check.max_err["rglru_scan"],
+          "tolerance": check.TOLERANCE["rglru_scan"],
+          "library": "none (no single PyTorch call runs a linear recurrence)",
+          **row})
+    return row
 
 
 def kernel_alias_draw(torch, timer, check, gen, table):
@@ -633,6 +796,147 @@ def phase_wrs_full(torch, inst, table_build_s):
           "indexed_bit_identical_W14": True})
 
 
+def rg_model(torch):
+    """recurrentgemma-2b at full width, random weights drawn on the card
+    from seed 0 by the port's own initialiser."""
+    from repro_torch.models import Model, resolve_config
+
+    cfg = resolve_config(RG_ARCH)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    model = Model(cfg, device="cuda").init(gen)
+    torch.cuda.synchronize()
+    params = list(model.parameters())
+    emit({"phase": "rg weights", "arch": cfg.name, "layers": cfg.n_layers,
+          "d_model": cfg.d_model, "vocab": cfg.vocab,
+          "params": sum(p.numel() for p in params),
+          "param_count_formula": cfg.param_count(),
+          "weight_gb": sum(p.numel() * p.element_size() for p in params) / 1e9,
+          "init_s": time.time() - t0})
+    return model
+
+
+def decode_prompt(torch, model, prompts):
+    """Feed a (B, P) prompt through ``decode_step`` one token at a time, as
+    ``generate`` does; → the logits after its last token."""
+    B, P = prompts.shape
+    cache = model.init_cache(B, P)
+    for t in range(P):
+        cache, logits = model.decode_step(cache, {
+            "tokens": prompts[:, t],
+            "pos": torch.full((B,), t, dtype=torch.int32, device="cuda")})
+    return logits
+
+
+def phase_rg_serve(torch, model):
+    """recurrentgemma-2b's serving path at full width: prefill, greedy
+    generation, prefill against decode, adaptive evaluation."""
+    import math
+
+    from repro_torch.data import TokenStream
+    from repro_torch.launch.serve import adaptive_eval, generate
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import Model
+
+    cfg = model.cfg
+    with torch.inference_mode():
+        # 1. prefill: B = 2, S = 4096 = twice the local window
+        B, S = RG_PREFILL
+        batch = TokenStream(vocab=cfg.vocab, seq_len=S, batch=B,
+                            seed=0).batch_at(0, device="cuda")
+        prefill = make_prefill_step(model)
+        walls = []
+        for _ in range(3):
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            logits = prefill(batch)
+            torch.cuda.synchronize()
+            walls.append(time.time() - t0)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        finite = bool(torch.isfinite(logits).all())
+        emit({"phase": "rg serve", "step": "prefill", "batch": B, "seq": S,
+              "window": cfg.local_window, "wall_s": walls,
+              "tokens_per_s": B * S / min(walls[1:]), "peak_mem_gb": peak,
+              "logits_shape": list(logits.shape), "finite": finite})
+        if not finite or tuple(logits.shape) != (B, cfg.padded_vocab):
+            raise AssertionError(f"rg prefill: logits {tuple(logits.shape)}, "
+                                 f"finite {finite}")
+        prof = profiled(torch, lambda: prefill(batch))
+        emit({"phase": "rg serve", "step": "prefill", "profile": prof})
+        del logits
+
+        # 2. greedy generation with the serving CLI's defaults
+        Bg, P, G = RG_GEN
+        prompts = TokenStream(vocab=cfg.vocab, seq_len=P, batch=Bg,
+                              seed=0).batch_at(0, device="cuda")["tokens"]
+        generate(model, prompts[:, :4], 2)          # warm-up
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = generate(model, prompts, G)
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        ok = tuple(out.shape) == (Bg, P + G) and torch.equal(out[:, :P], prompts) \
+            and int(out.min()) >= 0 and int(out.max()) < cfg.padded_vocab
+        emit({"phase": "rg serve", "step": "generate", "batch": Bg,
+              "prompt": P, "gen": G, "wall_s": dt,
+              "decode_steps": P + G - 1,
+              "new_tokens_per_s": Bg * G / dt,
+              "tokens_per_s_incl_prompt": Bg * (P + G - 1) / dt,
+              "sample_row": out[0, -G:].tolist()})
+        if not ok:
+            raise AssertionError("rg generate: bad output tokens")
+        prof = profiled(torch, lambda: generate(model, prompts, G))
+        emit({"phase": "rg serve", "step": "generate", "profile": prof})
+
+        # 3. prefill's last logits against decoding the same prompt token by
+        # token.  Gates, as |Δ|max / |logit|max: f32 1e-3 (5e-7 measured on
+        # the reduced config on the CPU; a wrong kernel moves the logits by
+        # their own size); bf16 0.15 (1.9e-2 on the reduced config: the two
+        # paths round at other places, over 26 layers here)
+        m32 = Model(cfg, device="cuda").float()
+        m32.load_state_dict(model.state_dict())
+        for m, gate in ((model, 0.15), (m32, 1e-3)):
+            full = make_prefill_step(m)({"tokens": prompts}).float()
+            dec = decode_prompt(torch, m, prompts).float()
+            err = float((full - dec).abs().max())
+            rel = err / float(full.abs().max())
+            agree = float((full.argmax(-1) == dec.argmax(-1)).float().mean())
+            emit({"phase": "rg serve", "step": "prefill vs decode",
+                  "dtype": str(m.dtype).split(".")[-1], "batch": Bg, "prompt": P,
+                  "max_abs_err": err, "max_abs_logit": float(full.abs().max()),
+                  "rel_err": rel, "gate_rel": gate, "argmax_agree": agree})
+            if not (math.isfinite(rel) and rel <= gate):
+                raise AssertionError(f"rg prefill vs decode ({m.dtype}): "
+                                     f"relative error {rel} > {gate}")
+        del m32, full, dec
+        torch.cuda.empty_cache()
+
+        # 4. adaptive evaluation of the mean per-token loss
+        e = RG_EVAL
+        stream = TokenStream(vocab=cfg.vocab, seq_len=e["seq"], batch=e["batch"],
+                             seed=0)
+        t0 = time.time()
+        mean, res = adaptive_eval(model, stream, eps=e["eps"], delta=e["delta"])
+        dt = time.time() - t0
+        emit({"phase": "rg serve", "step": "adaptive eval", **e,
+              "value_range": 15.0, "strategy": "local", "rounds_per_epoch": 2,
+              "max_epochs": 200, "mean_loss": mean, "tau": res.num,
+              "epochs": res.epochs, "stopped": res.stopped,
+              "half_width": float(res.aux["half_width"]),
+              "tau_predicted": "308-312", "wall_s": dt,
+              "samples_per_s": res.num / dt})
+        if not (res.stopped and math.isfinite(mean) and 0.0 < mean < 15.0):
+            raise AssertionError(f"rg adaptive eval: stopped={res.stopped}, "
+                                 f"mean {mean}")
+        one = stream.batch_at(1, device="cuda")
+        prof = profiled(torch, lambda: model.train_loss(one))
+        emit({"phase": "rg serve", "step": "adaptive eval",
+              "profile_of_one_sample": prof})
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this script",
@@ -648,10 +952,16 @@ def main() -> int:
     emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "python": sys.version.split()[0]})
 
+    # a reference states and sets both: float32 products in full float32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
     from repro_torch.kernels import alias_draw as alias_mod
     from repro_torch.kernels import bfs_frontier as bfs_mod
     from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as flash_mod
     from repro_torch.kernels import frame_accum as accum_mod
+    from repro_torch.kernels import rglru_scan as rglru_mod
     t0 = time.time()
     build.build_all()
     emit({"phase": "build", "nvcc_s": time.time() - t0,
@@ -670,7 +980,8 @@ def main() -> int:
     rows = phase_kernels(torch, Timer(torch), check, g, table)
 
     mods = {"frame_accum": accum_mod, "bfs_frontier": bfs_mod,
-            "alias_draw": alias_mod}
+            "alias_draw": alias_mod, "flash_attention": flash_mod,
+            "rglru_scan": rglru_mod}
 
     def drive(path, run, needs, every=False):
         """Run one path with every count set to 0 just before it and read
@@ -695,11 +1006,17 @@ def main() -> int:
                                              phase_full(torch, g)),
                          ("frame_accum", "bfs_frontier")),
         "conformance": drive("conformance", lambda: phase_conformance(torch),
-                             tuple(mods), every=True),
+                             ("frame_accum", "bfs_frontier", "alias_draw"),
+                             every=True),
         "wrs full": drive("wrs full",
                           lambda: phase_wrs_full(torch, wrs, table_build_s),
                           ("frame_accum", "alias_draw")),
     }
+    del g, table, wrs
+    torch.cuda.empty_cache()
+    model = rg_model(torch)
+    by_path["rg serve"] = drive("rg serve", lambda: phase_rg_serve(torch, model),
+                                ("flash_attention", "rglru_scan"))
 
     meta = {
         "frame_accum": ("src/repro_torch/kernels/csrc/frame_accum.cu",
@@ -708,6 +1025,10 @@ def main() -> int:
                          "src/repro/kernels/bfs_frontier.py:40"),
         "alias_draw": ("src/repro_torch/kernels/csrc/alias_draw.cu",
                        "src/repro/kernels/alias_draw.py:33"),
+        "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:81"),
+        "rglru_scan": ("src/repro_torch/kernels/csrc/rglru_scan.cu",
+                       "src/repro/kernels/rglru_scan.py:24"),
     }
     kernels = [{"name": name, "route": "cuda", "source": meta[name][0],
                 "replaces": meta[name][1],

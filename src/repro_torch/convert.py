@@ -1,7 +1,7 @@
 """The state carried across from the reference: turn arrays that a test
 read out of :mod:`repro` as numpy into the port's objects, so that both
-packages compute on the same graph, frames, preprocessing, alias tables
-and workload inputs."""
+packages compute on the same graph, frames, preprocessing, alias tables,
+workload inputs and model weights."""
 
 from __future__ import annotations
 
@@ -58,3 +58,43 @@ def instance_inputs_from_numpy(device=None, **arrays) -> dict:
         return torch.from_numpy(a.copy()).to(device)
 
     return {name: tensor(a) for name, a in arrays.items()}
+
+
+def _tensor_keep_dtype(a) -> torch.Tensor:
+    """A numpy array as a tensor of the same dtype; bfloat16 (numpy's
+    ``ml_dtypes`` extension type) goes through its 16-bit pattern, bit for
+    bit."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def model_params_from_numpy(cfg, tree, device=None) -> dict:
+    """The reference model's parameter tree (``Model(cfg).init(key)``, its
+    leaves as numpy arrays) as a state dict of the port's ``Model``:
+    nested keys joined by dots, the stacked leading ``layers`` dimension of
+    ``units`` split into ``units.<i>``, every dtype kept.  Load it with
+    ``model.load_state_dict(state, assign=True)``."""
+    device = resolve_device(device)
+    state = {}
+
+    def walk(prefix, node):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(f"{prefix}.{k}" if prefix else k, v)
+            return
+        t = _tensor_keep_dtype(node).to(device)
+        if prefix.startswith("units."):
+            _, rest = prefix.split(".", 1)
+            for i in range(t.shape[0]):
+                state[f"units.{i}.{rest}"] = t[i].clone()
+        else:
+            state[prefix] = t
+
+    if cfg.family != "hybrid":
+        raise NotImplementedError(f"model_params_from_numpy: the {cfg.family} "
+                                  "family is still to port (ROADMAP queue 1 "
+                                  "item 10)")
+    walk("", tree)
+    return state

@@ -1,0 +1,50 @@
+"""Deterministic synthetic token stream.
+
+Port of :mod:`repro.data.pipeline`'s ``TokenStream``: every batch is a pure
+function of ``(seed, step, shard, n_shards)``, with zipf-ish tokens
+(log-uniform ranks, exponent ≈ 1) in EOS-separated pseudo-documents and
+next-token labels.  Row r of a step draws from a CPU ``torch.Generator``
+seeded by a fixed mix of (seed, step, global row), so a row does not depend
+on the shard count, and the same tokens come out on every device.  The bits
+differ from the reference's threefry draws; the distribution is the same.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict
+
+import torch
+
+from ..core.epoch import make_generator
+from ..device import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class TokenStream:
+    vocab: int
+    seq_len: int
+    batch: int                 # global batch (over all shards)
+    seed: int = 0
+    mean_doc_len: int = 512
+    eos: int = 0
+
+    def batch_at(self, step: int, shard: int = 0, n_shards: int = 1,
+                 device=None) -> Dict[str, torch.Tensor]:
+        """→ {"tokens": (B/n_shards, S), "labels": same} int32 for this
+        shard, on ``device`` (``None`` → the CUDA card)."""
+        rows = self.batch // n_shards
+        n = self.seq_len + 1
+        toks = []
+        for r in range(rows):
+            gen = make_generator(torch.device("cpu"), self.seed, int(step),
+                                 shard * rows + r)
+            u = torch.rand(n, generator=gen) * (1.0 - 1e-6) + 1e-6
+            # log-uniform ranks ≈ zipf(1); keep 0 reserved for EOS
+            ranks = torch.exp(u * math.log(self.vocab - 1.0)).to(torch.int32)
+            t = torch.clamp(ranks, 1, self.vocab - 1)
+            de = torch.rand(n, generator=gen)
+            toks.append(torch.where(de < 1.0 / self.mean_doc_len, self.eos, t))
+        toks = torch.stack(toks).to(torch.int32).to(resolve_device(device))
+        return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}

@@ -30,6 +30,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # ctypes signatures of every C entry point, by source.
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_LP = ctypes.POINTER(ctypes.c_longlong)
 SIGNATURES = {
     "frame_accum": {
         "frame_accum_i32": [_P, _P, _I, _L, _P],
@@ -41,6 +42,13 @@ SIGNATURES = {
     },
     "alias_draw": {
         "alias_draw_f32": [_P, _P, _P, _P, _P, _I, _L, _P],
+    },
+    "flash_attention": {
+        "flash_attention_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LP, _P],
+        "flash_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LP, _P],
+    },
+    "rglru_scan": {
+        "rglru_scan_f32": [_P, _P, _P, _I, _I, _I, _P],
     },
 }
 

@@ -12,7 +12,9 @@ import torch
 from . import ref
 from .alias_draw import alias_draw as _alias_kernel
 from .bfs_frontier import bfs_frontier as _bfs_kernel
+from .flash_attention import flash_attention as _flash_kernel
 from .frame_accum import frame_accum as _accum_kernel
+from .rglru_scan import rglru_scan as _rglru_kernel
 
 
 def frame_accum(frames: torch.Tensor) -> torch.Tensor:
@@ -39,3 +41,19 @@ def alias_draw(prob: torch.Tensor, alias: torch.Tensor, u1: torch.Tensor,
     if u1.device.type == "cpu":
         return ref.alias_draw_ref(prob, alias, u1, u2)
     return _alias_kernel(prob, alias, u1, u2)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    window: int = 0) -> torch.Tensor:
+    """Causal GQA attention, q (B, H, S, hd), k/v (B, KV, S, hd) →
+    (B, H, S, hd) in q's dtype; ``window > 0`` is a sliding window."""
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, window=window)
+    return _flash_kernel(q, k, v, window=window)
+
+
+def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t ⊙ h_{t−1} + b_t over (B, S, W) f32 → all h_t."""
+    if a.device.type == "cpu":
+        return ref.rglru_scan_ref(a, b)
+    return _rglru_kernel(a, b)

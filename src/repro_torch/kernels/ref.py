@@ -7,6 +7,8 @@ the same name in :mod:`repro.kernels.ref`.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -44,3 +46,54 @@ def alias_draw_ref(prob: torch.Tensor, alias: torch.Tensor, u1: torch.Tensor,
     bucket = (u1.float() * n).to(torch.int32).clamp(0, n - 1).long()
     return torch.where(u2 < prob[bucket], bucket, alias[bucket].long()
                        ).to(torch.int32)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        window: int = 0) -> torch.Tensor:
+    """Causal GQA attention with materialised f32 scores: q (B, H, S, hd),
+    k and v (B, KV, S, hd) → (B, H, S, hd) in q's dtype.  Key k is
+    admissible for query q when k ≤ q and, with a window, k > q − window."""
+    B, H, S, hd = q.shape
+    KV = k.shape[1]
+    G = H // KV
+    qg = q.reshape(B, KV, G, S, hd).float()
+    s = torch.einsum("bkgqh,bksh->bkgqs", qg, k.float()) / math.sqrt(hd)
+    qpos = torch.arange(S, device=q.device)[:, None]
+    kpos = torch.arange(S, device=q.device)[None, :]
+    mask = kpos <= qpos
+    if window > 0:
+        mask &= kpos > qpos - window
+    s = torch.where(mask, s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bksh->bkgqh", p, v.float())
+    return o.reshape(B, H, S, hd).to(q.dtype)
+
+
+def _fma_f32(a: torch.Tensor, h: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a·h + b on f32 tensors rounded once, as a fused multiply-add: the
+    product is exact in f64 (24 + 24 bits), the f64 sum is rounded to odd
+    (TwoSum gives its rounding error; an inexact sum with an even last bit
+    moves one ulp toward the exact value), and rounding a round-to-odd
+    result with 29 spare bits to f32 is the correctly rounded result."""
+    x = a.double() * h.double()
+    b = b.double()
+    s = x + b
+    bv = s - x
+    err = (x - (s - bv)) + (b - bv)
+    fix = (err != 0) & ((s.view(torch.int64) & 1) == 0)
+    toward = torch.where(err > 0, torch.inf, -torch.inf).to(s.dtype)
+    return torch.where(fix, torch.nextafter(s, toward), s).float()
+
+
+def rglru_scan_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t ⊙ h_{t−1} + b_t along dim 1 of (B, S, W), h_{−1} = 0, in
+    f32, step by step with one rounding a step (an FMA): the reference's
+    Pallas body as XLA compiles it.  (The reference's ``rglru_scan_ref`` is
+    an associative scan of the same recurrence, rounding in another order.)"""
+    a, b = a.float(), b.float()
+    h = torch.zeros_like(a[:, 0])
+    out = torch.empty_like(a)
+    for t in range(a.shape[1]):
+        h = _fma_f32(a[:, t], h, b[:, t])
+        out[:, t] = h
+    return out

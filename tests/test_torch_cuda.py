@@ -12,7 +12,9 @@ import numpy as np
 from repro_torch.graphs import erdos_renyi
 from repro_torch.kernels import alias_draw as alias_mod
 from repro_torch.kernels import bfs_frontier as bfs_mod
+from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.kernels import frame_accum as accum_mod
+from repro_torch.kernels import rglru_scan as rglru_mod
 from repro_torch.kernels import ref
 from repro_torch.sampling import build_alias_table
 
@@ -65,3 +67,35 @@ def test_alias_draw_kernel_on_card(cuda_device, n, b):
     torch.cuda.synchronize()
     assert torch.equal(got, ref.alias_draw_ref(table.prob, table.alias, u1, u2))
 
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,h,kv,s,hd,window", [
+    (1, 4, 2, 128, 64, 0),
+    (2, 4, 4, 100, 32, 0),     # ragged S
+    (1, 10, 1, 300, 256, 64),  # recurrentgemma's MQA heads, window
+    (1, 2, 1, 200, 128, 33),
+])
+def test_flash_attention_kernel_on_card(cuda_device, dtype, tol, b, h, kv, s,
+                                        hd, window):
+    """Against the materialised plain version; the model's (B, S, H, hd)
+    layout goes in as (B, H, S, hd) views."""
+    gen = torch.Generator(device=cuda_device).manual_seed(s)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda_device).to(dtype)
+               .transpose(1, 2) for shape in ((b, s, h, hd), (b, s, kv, hd),
+                                              (b, s, kv, hd)))
+    got = flash_mod.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref.flash_attention_ref(q, k, v, window=window),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("b,s,w", [(1, 64, 512), (2, 33, 1000), (2, 4096, 2560)])
+def test_rglru_scan_kernel_on_card(cuda_device, b, s, w):
+    """Exact: one FMA a step in both."""
+    gen = torch.Generator(device=cuda_device).manual_seed(w)
+    a = torch.rand((b, s, w), generator=gen, device=cuda_device) * 0.75 + 0.2
+    bb = torch.randn((b, s, w), generator=gen, device=cuda_device)
+    got = rglru_mod.rglru_scan(a, bb)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.rglru_scan_ref(a, bb))

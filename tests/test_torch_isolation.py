@@ -24,6 +24,11 @@ assert res.stopped and b.shape == (40,)
 from repro_torch.core.instances import run_instance
 est, res, built = run_instance("wrs", device="cpu")
 assert res.stopped and abs(est[0] - built.oracle[0]) <= built.eps
+from repro_torch.launch.serve import main
+assert main(["--arch", "recurrentgemma-2b-reduced", "--device", "cpu",
+             "--batch", "2", "--prompt-len", "8", "--gen", "4"]) == 0
+assert main(["--arch", "recurrentgemma-2b-reduced", "--device", "cpu",
+             "--adaptive-eval", "--eps", "2.0", "--batch", "2", "--seq", "8"]) == 0
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LEAKED", bad)
 """
@@ -51,3 +56,32 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         bfs_sssp(g, torch.tensor([0]), max_levels=4)
     with pytest.raises(RuntimeError, match="CUDA"):
         erdos_renyi(20, 40, seed=0)
+
+
+def test_model_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    """The model, the token stream, the weight converter and the serving
+    CLI choose the card unless told otherwise; ``generate`` and
+    ``adaptive_eval`` run where the model they are given lies."""
+    import numpy as np
+
+    from repro_torch.convert import model_params_from_numpy
+    from repro_torch.data import TokenStream
+    from repro_torch.launch.serve import adaptive_eval, generate, main
+    from repro_torch.models import Model, resolve_config
+    cfg = resolve_config("recurrentgemma-2b-reduced")
+    model = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    stream = TokenStream(vocab=cfg.vocab, seq_len=8, batch=2)
+    prompts = stream.batch_at(0, device="cpu")["tokens"]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Model(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        stream.batch_at(0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        model_params_from_numpy(cfg, {"embed": np.zeros((2, 2), np.float32)})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--arch", "recurrentgemma-2b-reduced"])
+    with torch.inference_mode():
+        assert generate(model, prompts, 2).device.type == "cpu"
+        mean, res = adaptive_eval(model, stream, eps=5.0, delta=0.5)
+    assert res.stopped and res.state.total.num.device.type == "cpu"

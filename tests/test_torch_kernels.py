@@ -11,11 +11,17 @@ import jax.numpy as jnp
 import numpy as np
 
 from repro.graphs import erdos_renyi as jax_erdos_renyi
+from repro.kernels import ref as jax_ref
 from repro.kernels.bfs_frontier import bfs_frontier as jax_bfs_frontier
+from repro.kernels.flash_attention import flash_attention as jax_flash_attention
 from repro.kernels.frame_accum import frame_accum as jax_frame_accum
+from repro.kernels.rglru_scan import rglru_scan as jax_rglru_scan
+from repro.models.ssm import linear_scan as jax_linear_scan
 from repro_torch.kernels import bfs_frontier as bfs_mod
 from repro_torch.kernels import build, ops, ref
+from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.kernels import frame_accum as accum_mod
+from repro_torch.kernels import rglru_scan as rglru_mod
 
 INF = 0x3FFFFFFF
 
@@ -98,3 +104,107 @@ def test_kernel_wrappers_refuse_cpu_tensors(monkeypatch):
     with pytest.raises(ValueError, match="CUDA"):
         bfs_mod.bfs_frontier(z, z, torch.zeros((1, 3)),
                              torch.zeros((1, 3), dtype=torch.int32), 0)
+
+
+def _qkv(b, h, kv, s, hd, dtype, seed):
+    """q (b, h, s, hd), k and v (b, kv, s, hd) from numpy, for both sides."""
+    rng = np.random.default_rng(seed)
+    arrays = [rng.standard_normal(shape).astype(np.float32)
+              for shape in ((b, h, s, hd), (b, kv, s, hd), (b, kv, s, hd))]
+    jdt, tdt = {"float32": (jnp.float32, torch.float32),
+                "bfloat16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    return ([jnp.asarray(a).astype(jdt) for a in arrays],
+            [torch.from_numpy(a).to(tdt) for a in arrays])
+
+
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,kv,s,hd,window", [
+    (1, 4, 2, 128, 64, 0),
+    (2, 4, 4, 256, 32, 0),     # MHA (kv = h)
+    (1, 8, 1, 128, 64, 0),     # MQA
+    (1, 4, 2, 256, 64, 64),    # sliding window
+])
+def test_flash_attention_ref_matches_pallas(dtype, b, h, kv, s, hd, window):
+    """The sweep of tests/test_kernels.py; tolerance as there (f32: other
+    summation order; bf16: one rounding of the f32 output)."""
+    (qj, kj, vj), (qt, kt, vt) = _qkv(b, h, kv, s, hd, dtype, seed=s + h)
+    exp = jax_flash_attention(qj, kj, vj, window=window, block_q=64, block_k=64,
+                              interpret=True)
+    got = ref.flash_attention_ref(qt, kt, vt, window=window)
+    assert got.dtype == qt.dtype and got.shape == qt.shape
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(exp, np.float32),
+                               rtol=FLASH_TOL[dtype], atol=FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [0, 32])
+def test_flash_attention_ref_ragged_s_matches_reference_oracle(dtype, window):
+    """S = 100, not a multiple of any tile, against the reference's own
+    plain version (its Pallas kernel asserts S % block == 0)."""
+    (qj, kj, vj), (qt, kt, vt) = _qkv(2, 10, 1, 100, 32, dtype, seed=100)
+    exp = jax_ref.flash_attention_ref(qj, kj, vj, window=window)
+    got = ops.flash_attention(qt, kt, vt, window=window)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(exp, np.float32),
+                               rtol=FLASH_TOL[dtype], atol=FLASH_TOL[dtype])
+
+
+def test_flash_attention_takes_the_models_layout_as_views():
+    """The model passes (B, S, H, hd) projections as (B, H, S, hd) views."""
+    _, (q, k, v) = _qkv(2, 4, 2, 40, 32, "float32", seed=7)
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v)]
+    assert not views[0].is_contiguous()
+    assert torch.equal(ops.flash_attention(*views, window=8),
+                       ops.flash_attention(q, k, v, window=8))
+
+
+def _scan_inputs(b, s, w, seed):
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(0.2, 0.95, (b, s, w)).astype(np.float32)
+    bb = rng.standard_normal((b, s, w)).astype(np.float32)
+    return a, bb
+
+
+@pytest.mark.parametrize("b,s,w", [(1, 64, 512), (2, 33, 1024)])
+def test_rglru_scan_ref_matches_pallas_exactly(b, s, w):
+    """The Pallas body is the same sequential recurrence: bit-equal."""
+    a, bb = _scan_inputs(b, s, w, seed=w)
+    exp = np.asarray(jax_rglru_scan(jnp.asarray(a), jnp.asarray(bb), block_w=256,
+                                    interpret=True))
+    got = ref.rglru_scan_ref(torch.from_numpy(a), torch.from_numpy(bb))
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), exp)
+
+
+@pytest.mark.parametrize("b,s,w", [(1, 64, 512), (2, 33, 1024), (2, 100, 64)])
+def test_rglru_scan_ref_matches_linear_scan(b, s, w):
+    """The reference's linear_scan is an associative scan, rounding in
+    another order: allclose 1e-5."""
+    a, bb = _scan_inputs(b, s, w, seed=s)
+    exp = np.asarray(jax_linear_scan(jnp.asarray(a), jnp.asarray(bb), axis=1))
+    got = ops.rglru_scan(torch.from_numpy(a), torch.from_numpy(bb))
+    np.testing.assert_allclose(got.numpy(), exp, rtol=1e-5, atol=1e-5)
+
+
+def test_model_kernel_ops_on_cpu_use_ref_and_never_build(monkeypatch):
+    def no_build(name):
+        raise AssertionError(f"build.load({name!r}) called for a CPU tensor")
+    monkeypatch.setattr(build, "load", no_build)
+    before = (flash_mod.launches, rglru_mod.launches)
+    _, (q, k, v) = _qkv(1, 2, 1, 16, 32, "float32", seed=1)
+    assert torch.equal(ops.flash_attention(q, k, v, window=4),
+                       ref.flash_attention_ref(q, k, v, window=4))
+    a, bb = (torch.from_numpy(x) for x in _scan_inputs(1, 8, 16, seed=1))
+    assert torch.equal(ops.rglru_scan(a, bb), ref.rglru_scan_ref(a, bb))
+    assert (flash_mod.launches, rglru_mod.launches) == before
+
+
+def test_model_kernel_wrappers_refuse_cpu_tensors(monkeypatch):
+    monkeypatch.setattr(build, "load", lambda name: pytest.fail("built"))
+    z = torch.zeros((1, 2, 8, 32))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_mod.flash_attention(z, z[:, :1], z[:, :1])
+    with pytest.raises(ValueError, match="CUDA"):
+        rglru_mod.rglru_scan(torch.zeros(1, 4, 8), torch.zeros(1, 4, 8))
