@@ -7,7 +7,7 @@ Phases, each printing JSON lines (``{"phase": ...}``); any failure raises
 and the script exits non-zero:
 
 1. device      — the card (nvidia-smi name and power limit), torch and CUDA.
-2. build       — nvcc builds the five kernels from
+2. build       — nvcc builds the six kernels from
                  ``src/repro_torch/kernels/csrc``, all at once.
 3. wrs table   — the 2**24-item alias table of the wrs full-size run
                  (Pareto(1.5) weights, the host's Vose loop, then the card).
@@ -21,7 +21,9 @@ and the script exits non-zero:
                  1−2⁻²⁴ at n = 1000; ``flash_attention`` at recurrentgemma's
                  prefill shape q (2, 10, 4096, 256), k/v (2, 1, 4096, 256),
                  window 2048, in bf16 and f32, and at S = 100 and window 0;
-                 ``rglru_scan`` exactly at (2, 4096, 2560).
+                 ``rglru_scan`` exactly at (2, 4096, 2560); ``ssm_scan``
+                 exactly at falcon-mamba-7b's prefill (2, 4096, 8192, 16)
+                 and at a ragged (3, 100, 125, 3).
 5. accuracy    — KADABRA on erdos_renyi(1000, 5000) for all five strategies
                  within ε of exact Brandes; INDEXED_FRAME bit-identical for
                  W ∈ {1, 2, 4}; τ a whole number of frame units; SHARED == LOCAL.
@@ -42,10 +44,16 @@ and the script exits non-zero:
                  prefill's last logits against 32 decode steps of the same
                  prompt, in bf16 and in f32; ``adaptive_eval`` at B = 4,
                  seq 64, ε = 0.5, δ = 0.1, and a profile of one sample.
-10. kernels    — every kernel with its launches on the four paths (phases
-                 5–6, 7, 8 and 9), each counted from 0 just before its path.
+10. mamba serve — falcon-mamba-7b at full width and depth (64 layers,
+                 d 4096, d_inner 8192, N 16, vocab 65,024, bf16, random
+                 weights from seed 0), once recurrentgemma's model is freed,
+                 through the same steps as phase 9: prefill B = 2, S = 4096,
+                 ``generate``, prefill against decode, ``adaptive_eval``.
+11. kernels    — every kernel with its launches on the five paths (phases
+                 5–6, 7, 8, 9 and 10), each counted from 0 just before its
+                 path.
 
-While phases 5–9 run, the kernels behind ``kernels.ops`` are wrapped so
+While phases 5–10 run, the kernels behind ``kernels.ops`` are wrapped so
 that their calls are held against the plain versions on the same tensors:
 every call on the conformance path, and elsewhere each call whose kernel,
 shapes and types phase 4 or an earlier call has not compared yet.
@@ -81,8 +89,20 @@ WRS_BATCH = 65_536          # draws per worker per round
 
 RG_ARCH = "recurrentgemma-2b"
 RG_PREFILL = (2, 4096)      # batch, prompt length: twice the local window
-RG_GEN = (4, 32, 16)        # the serving CLI's defaults: batch, prompt, gen
-RG_EVAL = {"batch": 4, "seq": 64, "eps": 0.5, "delta": 0.1}
+RG_PARAMS = 3_549_934_080
+SERVE_GEN = (4, 32, 16)     # the serving CLI's defaults: batch, prompt, gen
+SERVE_EVAL = {"batch": 4, "seq": 64, "eps": 0.5, "delta": 0.1}
+# prefill against decode, gates on |Δ|max / |logit|max: f32 1e-3 (a wrong
+# kernel moves the logits by their own size; ≤ 2e-7 measured on the reduced
+# configs on the CPU), bf16 0.15 (the two paths round at other places, over
+# all the layers; 0.009–0.019 on the reduced configs)
+SERVE_GATES = {"bf16": 0.15, "f32": 1e-3}
+
+MAMBA_ARCH = "falcon-mamba-7b"
+MAMBA_PREFILL = (2, 4096)   # batch, prompt length
+# the parameters the model holds; the config's closed form leaves out each
+# layer's conv_b and the final norm (64·8192 + 4096 = 528,384 fewer)
+MAMBA_PARAMS = 7_272_665_088
 
 
 def emit(obj) -> None:
@@ -131,14 +151,14 @@ class Timer:
 class PlainCheck:
     """Holds the port's kernels against their plain versions on the same
     tensors.  ``compare_*`` checks one kernel result; ``installed()`` wraps
-    the three kernels behind ``kernels.ops`` for the length of a path, so
+    the kernels behind ``kernels.ops`` for the length of a path, so
     that each call there is compared when its key (kernel, shapes, types)
     has not been compared in this run yet, or always with ``every``.  The
     kernel still runs once a call; the plain versions launch none of the
     port's kernels, so they move no count."""
 
     NAMES = ("frame_accum", "bfs_frontier", "alias_draw", "flash_attention",
-             "rglru_scan")
+             "rglru_scan", "ssm_scan")
     TOLERANCE = {
         "frame_accum": "int32 exact; float32 rtol 1e-6 atol 1e-6; "
                        "bfloat16 rtol 2e-2 atol 1e-2",
@@ -150,6 +170,7 @@ class PlainCheck:
         "flash_attention": "float32 rtol 1e-5 atol 1e-5; "
                            "bfloat16 rtol 2e-2 atol 2e-2",
         "rglru_scan": "exact (torch.equal; one FMA a step in both)",
+        "ssm_scan": "exact (torch.equal; one FMA a step in both)",
     }
     FLASH_TOL = {"torch.float32": 1e-5, "torch.bfloat16": 2e-2}
 
@@ -244,6 +265,17 @@ class PlainCheck:
                                  f"{int((got != exp).sum())} values")
         self._done("rglru_scan", ("rglru_scan", tuple(a.shape)), got, exp)
 
+    def compare_ssm(self, a, b, got):
+        from repro_torch.kernels import ref
+        torch = self.torch
+        exp = ref.ssm_scan_ref(a, b)
+        torch.cuda.synchronize()
+        if not torch.equal(got, exp):
+            raise AssertionError(f"ssm_scan differs from its plain version "
+                                 f"at {tuple(a.shape)}: "
+                                 f"{int((got != exp).sum())} values")
+        self._done("ssm_scan", ("ssm_scan", tuple(a.shape)), got, exp)
+
     @contextlib.contextmanager
     def installed(self, every: bool):
         """Compare the kernels' calls while the block runs; yields the
@@ -254,7 +286,8 @@ class PlainCheck:
                    "bfs_frontier": ops._bfs_kernel,
                    "alias_draw": ops._alias_kernel,
                    "flash_attention": ops._flash_kernel,
-                   "rglru_scan": ops._rglru_kernel}
+                   "rglru_scan": ops._rglru_kernel,
+                   "ssm_scan": ops._ssm_kernel}
         made = dict.fromkeys(self.NAMES, 0)
 
         def wrap(name, key_of, compare):
@@ -288,6 +321,9 @@ class PlainCheck:
             "_rglru_kernel": wrap(
                 "rglru_scan", lambda a, b: ("rglru_scan", tuple(a.shape)),
                 self.compare_rglru),
+            "_ssm_kernel": wrap(
+                "ssm_scan", lambda a, b: ("ssm_scan", tuple(a.shape)),
+                self.compare_ssm),
         }
         saved = {attr: getattr(ops, attr) for attr in patched}
         for attr, fn in patched.items():
@@ -414,6 +450,7 @@ def phase_kernels(torch, timer, check, g, table):
     rows["alias_draw"] = kernel_alias_draw(torch, timer, check, gen, table)
     rows["flash_attention"] = kernel_flash_attention(torch, timer, check, gen)
     rows["rglru_scan"] = kernel_rglru_scan(torch, timer, check, gen)
+    rows["ssm_scan"] = kernel_ssm_scan(torch, timer, check, gen)
     return rows
 
 
@@ -514,6 +551,35 @@ def kernel_rglru_scan(torch, timer, check, gen):
           "tolerance": check.TOLERANCE["rglru_scan"],
           "library": "none (no single PyTorch call runs a linear recurrence)",
           **row})
+    return row
+
+
+def kernel_ssm_scan(torch, timer, check, gen):
+    """``ssm_scan`` exactly against its plain version at a ragged
+    (3, 100, 125, 3) and at falcon-mamba-7b's full-width prefill
+    (2, 4096, 8192, 16): 4.3 GB a tensor.  The plain version walks the 4096
+    steps once, with no warm-up."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssm_scan import ssm_scan
+
+    checked = []
+    for shape in ((3, 100, 125, 3), (*MAMBA_PREFILL, 8192, 16)):
+        a = torch.rand(shape, generator=gen, device="cuda") * 0.89 + 0.1
+        b = torch.randn(shape, generator=gen, device="cuda")
+        check.compare_ssm(a, b, ssm_scan(a, b))
+        checked.append(list(shape))
+    torch.cuda.empty_cache()
+    t_bound, by = bound_ms(3 * 4 * a.numel(), 2 * a.numel())
+    row = {"ms": timer(lambda: ssm_scan(a, b)),
+           "plain_ms": timer(lambda: ref.ssm_scan_ref(a, b), reps=1, warmup=0),
+           "bound_ms": t_bound, "bound_by": by, "library_ms": None}
+    emit({"phase": "kernels", "kernel": "ssm_scan", "shape": list(shape),
+          "checked": checked, "max_abs_err": check.max_err["ssm_scan"],
+          "tolerance": check.TOLERANCE["ssm_scan"],
+          "library": "none (no single PyTorch call runs a linear recurrence)",
+          **row})
+    del a, b
+    torch.cuda.empty_cache()
     return row
 
 
@@ -796,12 +862,13 @@ def phase_wrs_full(torch, inst, table_build_s):
           "indexed_bit_identical_W14": True})
 
 
-def rg_model(torch):
-    """recurrentgemma-2b at full width, random weights drawn on the card
-    from seed 0 by the port's own initialiser."""
+def serve_model(torch, arch, path, expect_params):
+    """A model of the zoo at full width, random weights drawn on the card
+    from seed 0 by the port's own initialiser; it must hold
+    ``expect_params`` parameters."""
     from repro_torch.models import Model, resolve_config
 
-    cfg = resolve_config(RG_ARCH)
+    cfg = resolve_config(arch)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     torch.cuda.synchronize()
@@ -809,12 +876,15 @@ def rg_model(torch):
     model = Model(cfg, device="cuda").init(gen)
     torch.cuda.synchronize()
     params = list(model.parameters())
-    emit({"phase": "rg weights", "arch": cfg.name, "layers": cfg.n_layers,
-          "d_model": cfg.d_model, "vocab": cfg.vocab,
-          "params": sum(p.numel() for p in params),
-          "param_count_formula": cfg.param_count(),
+    count = sum(p.numel() for p in params)
+    emit({"phase": path, "step": "weights", "arch": cfg.name,
+          "layers": cfg.n_layers, "d_model": cfg.d_model, "vocab": cfg.vocab,
+          "params": count, "param_count_formula": cfg.param_count(),
           "weight_gb": sum(p.numel() * p.element_size() for p in params) / 1e9,
           "init_s": time.time() - t0})
+    if count != expect_params:
+        raise AssertionError(f"{arch}: {count} parameters, expected "
+                             f"{expect_params}")
     return model
 
 
@@ -830,9 +900,10 @@ def decode_prompt(torch, model, prompts):
     return logits
 
 
-def phase_rg_serve(torch, model):
-    """recurrentgemma-2b's serving path at full width: prefill, greedy
-    generation, prefill against decode, adaptive evaluation."""
+def phase_serve(torch, model, path, prefill_shape):
+    """A model's serving path at full width: prefill at ``prefill_shape``,
+    greedy generation at the CLI's defaults, prefill against decode in bf16
+    and f32 (``SERVE_GATES``), adaptive evaluation (``SERVE_EVAL``)."""
     import math
 
     from repro_torch.data import TokenStream
@@ -842,8 +913,8 @@ def phase_rg_serve(torch, model):
 
     cfg = model.cfg
     with torch.inference_mode():
-        # 1. prefill: B = 2, S = 4096 = twice the local window
-        B, S = RG_PREFILL
+        # 1. prefill
+        B, S = prefill_shape
         batch = TokenStream(vocab=cfg.vocab, seq_len=S, batch=B,
                             seed=0).batch_at(0, device="cuda")
         prefill = make_prefill_step(model)
@@ -857,19 +928,20 @@ def phase_rg_serve(torch, model):
             walls.append(time.time() - t0)
         peak = torch.cuda.max_memory_allocated() / 1e9
         finite = bool(torch.isfinite(logits).all())
-        emit({"phase": "rg serve", "step": "prefill", "batch": B, "seq": S,
+        emit({"phase": path, "step": "prefill", "batch": B, "seq": S,
               "window": cfg.local_window, "wall_s": walls,
               "tokens_per_s": B * S / min(walls[1:]), "peak_mem_gb": peak,
               "logits_shape": list(logits.shape), "finite": finite})
         if not finite or tuple(logits.shape) != (B, cfg.padded_vocab):
-            raise AssertionError(f"rg prefill: logits {tuple(logits.shape)}, "
+            raise AssertionError(f"{path} prefill: logits {tuple(logits.shape)}, "
                                  f"finite {finite}")
         prof = profiled(torch, lambda: prefill(batch))
-        emit({"phase": "rg serve", "step": "prefill", "profile": prof})
-        del logits
+        emit({"phase": path, "step": "prefill", "profile": prof})
+        del logits, batch
+        torch.cuda.empty_cache()
 
         # 2. greedy generation with the serving CLI's defaults
-        Bg, P, G = RG_GEN
+        Bg, P, G = SERVE_GEN
         prompts = TokenStream(vocab=cfg.vocab, seq_len=P, batch=Bg,
                               seed=0).batch_at(0, device="cuda")["tokens"]
         generate(model, prompts[:, :4], 2)          # warm-up
@@ -880,48 +952,45 @@ def phase_rg_serve(torch, model):
         dt = time.time() - t0
         ok = tuple(out.shape) == (Bg, P + G) and torch.equal(out[:, :P], prompts) \
             and int(out.min()) >= 0 and int(out.max()) < cfg.padded_vocab
-        emit({"phase": "rg serve", "step": "generate", "batch": Bg,
+        emit({"phase": path, "step": "generate", "batch": Bg,
               "prompt": P, "gen": G, "wall_s": dt,
               "decode_steps": P + G - 1,
               "new_tokens_per_s": Bg * G / dt,
               "tokens_per_s_incl_prompt": Bg * (P + G - 1) / dt,
               "sample_row": out[0, -G:].tolist()})
         if not ok:
-            raise AssertionError("rg generate: bad output tokens")
+            raise AssertionError(f"{path} generate: bad output tokens")
         prof = profiled(torch, lambda: generate(model, prompts, G))
-        emit({"phase": "rg serve", "step": "generate", "profile": prof})
+        emit({"phase": path, "step": "generate", "profile": prof})
 
         # 3. prefill's last logits against decoding the same prompt token by
-        # token.  Gates, as |Δ|max / |logit|max: f32 1e-3 (5e-7 measured on
-        # the reduced config on the CPU; a wrong kernel moves the logits by
-        # their own size); bf16 0.15 (1.9e-2 on the reduced config: the two
-        # paths round at other places, over 26 layers here)
+        # token, in the model's bf16 and in an f32 copy of the same weights
         m32 = Model(cfg, device="cuda").float()
         m32.load_state_dict(model.state_dict())
-        for m, gate in ((model, 0.15), (m32, 1e-3)):
+        for m, gate in ((model, SERVE_GATES["bf16"]), (m32, SERVE_GATES["f32"])):
             full = make_prefill_step(m)({"tokens": prompts}).float()
             dec = decode_prompt(torch, m, prompts).float()
             err = float((full - dec).abs().max())
             rel = err / float(full.abs().max())
             agree = float((full.argmax(-1) == dec.argmax(-1)).float().mean())
-            emit({"phase": "rg serve", "step": "prefill vs decode",
+            emit({"phase": path, "step": "prefill vs decode",
                   "dtype": str(m.dtype).split(".")[-1], "batch": Bg, "prompt": P,
                   "max_abs_err": err, "max_abs_logit": float(full.abs().max()),
                   "rel_err": rel, "gate_rel": gate, "argmax_agree": agree})
             if not (math.isfinite(rel) and rel <= gate):
-                raise AssertionError(f"rg prefill vs decode ({m.dtype}): "
+                raise AssertionError(f"{path} prefill vs decode ({m.dtype}): "
                                      f"relative error {rel} > {gate}")
         del m32, full, dec
         torch.cuda.empty_cache()
 
         # 4. adaptive evaluation of the mean per-token loss
-        e = RG_EVAL
+        e = SERVE_EVAL
         stream = TokenStream(vocab=cfg.vocab, seq_len=e["seq"], batch=e["batch"],
                              seed=0)
         t0 = time.time()
         mean, res = adaptive_eval(model, stream, eps=e["eps"], delta=e["delta"])
         dt = time.time() - t0
-        emit({"phase": "rg serve", "step": "adaptive eval", **e,
+        emit({"phase": path, "step": "adaptive eval", **e,
               "value_range": 15.0, "strategy": "local", "rounds_per_epoch": 2,
               "max_epochs": 200, "mean_loss": mean, "tau": res.num,
               "epochs": res.epochs, "stopped": res.stopped,
@@ -929,11 +998,11 @@ def phase_rg_serve(torch, model):
               "tau_predicted": "308-312", "wall_s": dt,
               "samples_per_s": res.num / dt})
         if not (res.stopped and math.isfinite(mean) and 0.0 < mean < 15.0):
-            raise AssertionError(f"rg adaptive eval: stopped={res.stopped}, "
+            raise AssertionError(f"{path} adaptive eval: stopped={res.stopped}, "
                                  f"mean {mean}")
         one = stream.batch_at(1, device="cuda")
         prof = profiled(torch, lambda: model.train_loss(one))
-        emit({"phase": "rg serve", "step": "adaptive eval",
+        emit({"phase": path, "step": "adaptive eval",
               "profile_of_one_sample": prof})
 
 
@@ -962,6 +1031,7 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as flash_mod
     from repro_torch.kernels import frame_accum as accum_mod
     from repro_torch.kernels import rglru_scan as rglru_mod
+    from repro_torch.kernels import ssm_scan as ssm_mod
     t0 = time.time()
     build.build_all()
     emit({"phase": "build", "nvcc_s": time.time() - t0,
@@ -981,7 +1051,7 @@ def main() -> int:
 
     mods = {"frame_accum": accum_mod, "bfs_frontier": bfs_mod,
             "alias_draw": alias_mod, "flash_attention": flash_mod,
-            "rglru_scan": rglru_mod}
+            "rglru_scan": rglru_mod, "ssm_scan": ssm_mod}
 
     def drive(path, run, needs, every=False):
         """Run one path with every count set to 0 just before it and read
@@ -1014,9 +1084,19 @@ def main() -> int:
     }
     del g, table, wrs
     torch.cuda.empty_cache()
-    model = rg_model(torch)
-    by_path["rg serve"] = drive("rg serve", lambda: phase_rg_serve(torch, model),
-                                ("flash_attention", "rglru_scan"))
+    model = serve_model(torch, RG_ARCH, "rg serve", RG_PARAMS)
+    by_path["rg serve"] = drive(
+        "rg serve", lambda: phase_serve(torch, model, "rg serve", RG_PREFILL),
+        ("flash_attention", "rglru_scan"))
+    del model
+    torch.cuda.empty_cache()
+    model = serve_model(torch, MAMBA_ARCH, "mamba serve", MAMBA_PARAMS)
+    by_path["mamba serve"] = drive(
+        "mamba serve",
+        lambda: phase_serve(torch, model, "mamba serve", MAMBA_PREFILL),
+        ("ssm_scan",))
+    del model
+    torch.cuda.empty_cache()
 
     meta = {
         "frame_accum": ("src/repro_torch/kernels/csrc/frame_accum.cu",
@@ -1029,6 +1109,8 @@ def main() -> int:
                             "src/repro/kernels/flash_attention.py:81"),
         "rglru_scan": ("src/repro_torch/kernels/csrc/rglru_scan.cu",
                        "src/repro/kernels/rglru_scan.py:24"),
+        "ssm_scan": ("src/repro_torch/kernels/csrc/ssm_scan.cu",
+                     "src/repro/kernels/ssm_scan.py:32"),
     }
     kernels = [{"name": name, "route": "cuda", "source": meta[name][0],
                 "replaces": meta[name][1],

@@ -74,7 +74,8 @@ def model_params_from_numpy(cfg, tree, device=None) -> dict:
     """The reference model's parameter tree (``Model(cfg).init(key)``, its
     leaves as numpy arrays) as a state dict of the port's ``Model``:
     nested keys joined by dots, the stacked leading ``layers`` dimension of
-    ``units`` split into ``units.<i>``, every dtype kept.  Load it with
+    ``units`` (hybrid) or ``layers`` (ssm) split into ``units.<i>`` or
+    ``layers.<i>``, every dtype kept.  Load it with
     ``model.load_state_dict(state, assign=True)``."""
     device = resolve_device(device)
     state = {}
@@ -85,14 +86,14 @@ def model_params_from_numpy(cfg, tree, device=None) -> dict:
                 walk(f"{prefix}.{k}" if prefix else k, v)
             return
         t = _tensor_keep_dtype(node).to(device)
-        if prefix.startswith("units."):
-            _, rest = prefix.split(".", 1)
+        stack, _, rest = prefix.partition(".")
+        if stack in ("units", "layers") and rest:
             for i in range(t.shape[0]):
-                state[f"units.{i}.{rest}"] = t[i].clone()
+                state[f"{stack}.{i}.{rest}"] = t[i].clone()
         else:
             state[prefix] = t
 
-    if cfg.family != "hybrid":
+    if cfg.family not in ("hybrid", "ssm"):
         raise NotImplementedError(f"model_params_from_numpy: the {cfg.family} "
                                   "family is still to port (ROADMAP queue 1 "
                                   "item 10)")

@@ -8,6 +8,7 @@ plain PyTorch versions (``ref``) and the dispatch by device (``ops``).
 | ``alias_draw``  | ``repro/kernels/alias_draw.py::alias_draw``   |
 | ``flash_attention`` | ``repro/kernels/flash_attention.py::flash_attention`` |
 | ``rglru_scan``  | ``repro/kernels/rglru_scan.py::rglru_scan``   |
+| ``ssm_scan``    | ``repro/kernels/ssm_scan.py::ssm_scan``       |
 """
 from . import ops, ref  # noqa: F401
 

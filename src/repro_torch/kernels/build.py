@@ -50,6 +50,9 @@ SIGNATURES = {
     "rglru_scan": {
         "rglru_scan_f32": [_P, _P, _P, _I, _I, _I, _P],
     },
+    "ssm_scan": {
+        "ssm_scan_f32": [_P, _P, _P, _I, _I, _I, _P],
+    },
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

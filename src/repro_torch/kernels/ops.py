@@ -15,6 +15,7 @@ from .bfs_frontier import bfs_frontier as _bfs_kernel
 from .flash_attention import flash_attention as _flash_kernel
 from .frame_accum import frame_accum as _accum_kernel
 from .rglru_scan import rglru_scan as _rglru_kernel
+from .ssm_scan import ssm_scan as _ssm_kernel
 
 
 def frame_accum(frames: torch.Tensor) -> torch.Tensor:
@@ -57,3 +58,10 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.device.type == "cpu":
         return ref.rglru_scan_ref(a, b)
     return _rglru_kernel(a, b)
+
+
+def ssm_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t ⊙ h_{t−1} + b_t over (B, S, D, N) f32 → all h_t."""
+    if a.device.type == "cpu":
+        return ref.ssm_scan_ref(a, b)
+    return _ssm_kernel(a, b)

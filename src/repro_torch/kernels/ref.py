@@ -85,11 +85,9 @@ def _fma_f32(a: torch.Tensor, h: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.where(fix, torch.nextafter(s, toward), s).float()
 
 
-def rglru_scan_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """h_t = a_t ⊙ h_{t−1} + b_t along dim 1 of (B, S, W), h_{−1} = 0, in
-    f32, step by step with one rounding a step (an FMA): the reference's
-    Pallas body as XLA compiles it.  (The reference's ``rglru_scan_ref`` is
-    an associative scan of the same recurrence, rounding in another order.)"""
+def _fma_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t ⊙ h_{t−1} + b_t along dim 1, h_{−1} = 0, in f32, step by
+    step with one rounding a step (an FMA)."""
     a, b = a.float(), b.float()
     h = torch.zeros_like(a[:, 0])
     out = torch.empty_like(a)
@@ -97,3 +95,19 @@ def rglru_scan_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         h = _fma_f32(a[:, t], h, b[:, t])
         out[:, t] = h
     return out
+
+
+def rglru_scan_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t ⊙ h_{t−1} + b_t along dim 1 of (B, S, W), h_{−1} = 0, in
+    f32, step by step with one rounding a step (an FMA): the reference's
+    Pallas body as XLA compiles it.  (The reference's ``rglru_scan_ref`` is
+    an associative scan of the same recurrence, rounding in another order.)"""
+    return _fma_scan(a, b)
+
+
+def ssm_scan_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The Mamba recurrence h_t = a_t ⊙ h_{t−1} + b_t along dim 1 of
+    (B, S, D, N), h_{−1} = 0, in f32, one FMA a step: the reference's Pallas
+    ``ssm_scan`` body as XLA compiles it.  (The reference's ``ssm_scan_ref``
+    is its associative ``linear_scan``, rounding in another order.)"""
+    return _fma_scan(a, b)

@@ -7,11 +7,14 @@ port (ROADMAP queue 1 item 9).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b \\
         --batch 4 --prompt-len 32 --gen 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b
     PYTHONPATH=src python -m repro_torch.launch.serve \\
-        --arch recurrentgemma-2b-reduced --device cpu --adaptive-eval --eps 0.5
+        --arch falcon-mamba-7b-reduced --device cpu --adaptive-eval --eps 0.5
 
-Everything runs on the CUDA card unless ``--device`` (or ``device=``)
-names another device.
+``--arch`` names a config of the ``hybrid`` (recurrentgemma) or ``ssm``
+(falcon-mamba) family, or its ``-reduced`` cut; ``generate`` and
+``adaptive_eval`` take any ported model.  Everything runs on the CUDA card
+unless ``--device`` (or ``device=``) names another device.
 """
 
 from __future__ import annotations

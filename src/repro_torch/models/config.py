@@ -5,7 +5,7 @@ Port of :mod:`repro.models.config`, kept as the port's own copy:
 (dense / moe / ssm / hybrid / encdec / vlm); ``ShapeConfig`` is one of the
 four input shapes.  Concrete configs live in ``repro_torch/configs/<arch>.py``
 and register themselves here.  The port's ``Model`` runs the ``hybrid``
-family so far (ROADMAP queue 1 item 10).
+and ``ssm`` families so far (ROADMAP queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -75,7 +75,10 @@ class ModelConfig:
         return self.dt_rank or -(-self.d_model // 16)
 
     def param_count(self) -> int:
-        """Closed-form parameter count, as the reference computes it."""
+        """Closed-form parameter count, as the reference computes it, field
+        for field.  For the ssm family that form leaves out each layer's
+        ``conv_b`` and the ``final_norm``: n_layers·d_inner + d_model fewer
+        than the model holds."""
         d, hd = self.d_model, self.hd
         emb = self.padded_vocab * d * (1 if self.tie_embeddings else 2)
         if self.family == "ssm":

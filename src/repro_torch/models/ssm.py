@@ -1,34 +1,40 @@
-"""Linear-recurrence helpers shared by the recurrent blocks.
+"""Mamba-1 selective SSM block (falcon-mamba-7b) and the linear-recurrence
+helpers shared with the RG-LRU block.
 
-Port of the helpers of :mod:`repro.models.ssm`.  The reference runs the
-recurrence as an associative scan (the oracle of its Pallas scans); here a
-3-D (B, S, W) scan goes through the hand-written ``rglru_scan`` kernel
-(``kernels.ops.rglru_scan``), which computes the same recurrence in
-sequential order.  The Mamba block and its 4-D scan wait for the next slice.
+Port of :mod:`repro.models.ssm`.  The reference runs the recurrence as an
+associative scan (the oracle of its Pallas scans); here a 3-D (B, S, W)
+scan goes through the hand-written ``rglru_scan`` kernel and a 4-D
+(B, S, D, N) scan through ``ssm_scan`` (``kernels.ops``), both computing
+the same recurrence in sequential order, one FMA a step.  Decode advances
+the recurrence one step.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..kernels import ops
+from .layers import ParamDef, rms_norm
 
 
 def linear_scan(a: torch.Tensor, b: torch.Tensor,
                 h0: Optional[torch.Tensor] = None, axis: int = 1) -> torch.Tensor:
-    """h_t = a_t ⊙ h_{t−1} + b_t along ``axis`` (1), all h_t; ``h0`` is
-    folded into the first b: h_1 = a_1·h0 + b_1, as the reference does."""
+    """h_t = a_t ⊙ h_{t−1} + b_t along ``axis`` (1), all h_t, for (B, S, W)
+    or (B, S, D, N); ``h0`` is folded into the first b: h_1 = a_1·h0 + b_1,
+    as the reference does."""
     if axis != 1:
         raise NotImplementedError(f"linear_scan runs along axis 1, got {axis}")
-    if a.dim() != 3:
+    if a.dim() not in (3, 4):
         raise NotImplementedError(
-            f"linear_scan over {a.dim()}-D (B, S, D, N) tensors is the Mamba "
-            "scan, ssm_scan: still to port (ROADMAP queue 2 item 5)")
+            f"linear_scan takes (B, S, W) or (B, S, D, N), got {a.dim()}-D")
     if h0 is not None:
         b = torch.cat([b[:, :1] + a[:, :1] * h0[:, None], b[:, 1:]], dim=1)
-    return ops.rglru_scan(a.float().contiguous(), b.float().contiguous())
+    scan = ops.rglru_scan if a.dim() == 3 else ops.ssm_scan
+    return scan(a.float().contiguous(), b.float().contiguous())
 
 
 def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -45,3 +51,98 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     for i in range(K):
         y = y + xp[:, i:i + S, :].float() * w[i].float()
     return (y + b.float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Mamba-1 block
+# ---------------------------------------------------------------------------
+
+def mamba_defs(cfg) -> dict:
+    d, di, N, dr, K = (cfg.d_model, cfg.dinner, cfg.ssm_state, cfg.dtrank,
+                       cfg.ssm_conv)
+    f32 = torch.float32
+    res = 1.0 / math.sqrt(2.0 * max(cfg.n_layers, 1))
+    return {
+        "norm": ParamDef((d,), init="ones"),
+        "in_proj": ParamDef((d, 2 * di), init="scaled"),
+        "conv_w": ParamDef((K, di), init="scaled", scale=0.5),
+        "conv_b": ParamDef((di,), init="zeros"),
+        "x_proj": ParamDef((di, dr + 2 * N), init="scaled"),
+        "dt_proj": ParamDef((dr, di), init="scaled"),
+        "dt_bias": ParamDef((di,), dtype=f32, init="zeros"),
+        "A_log": ParamDef((di, N), dtype=f32, init="ones"),
+        "D": ParamDef((di,), dtype=f32, init="ones"),
+        "out_proj": ParamDef((di, d), init="scaled", scale=res),
+    }
+
+
+class MambaState(NamedTuple):
+    h: torch.Tensor          # (B, di, N) f32
+    conv_tail: torch.Tensor  # (B, K−1, di)
+
+
+def mamba_init_state(cfg, batch: int, dtype=torch.bfloat16,
+                     device=None) -> MambaState:
+    return MambaState(
+        h=torch.zeros((batch, cfg.dinner, cfg.ssm_state), dtype=torch.float32,
+                      device=device),
+        conv_tail=torch.zeros((batch, cfg.ssm_conv - 1, cfg.dinner),
+                              dtype=dtype, device=device))
+
+
+def _ssm_inputs(p, x_c: torch.Tensor, cfg):
+    """The discretisation: → (a, b, C) with a, b (B, S, di, N) f32 and C
+    (B, S, N) in x_c's dtype."""
+    dr, N = cfg.dtrank, cfg.ssm_state
+    xdbl = x_c @ p["x_proj"]                                 # (B, S, dr+2N)
+    dt, Bc, Cc = torch.split(xdbl, [dr, N, N], dim=-1)
+    dt = F.softplus((dt @ p["dt_proj"]).float() + p["dt_bias"])  # (B, S, di)
+    A = -torch.exp(p["A_log"].float())                       # (di, N)
+    a = torch.exp(dt[..., None] * A)                         # (B, S, di, N)
+    b = (dt[..., None] * Bc[..., None, :].float()
+         * x_c[..., None].float())                           # (B, S, di, N)
+    return a, b, Cc
+
+
+def mamba_block(p, x: torch.Tensor, cfg,
+                state: Optional[MambaState] = None,
+                return_state: bool = False):
+    """Full-sequence Mamba block. x: (B, S, d) → (B, S, d), and the state
+    after the last position with ``return_state``."""
+    h_in = rms_norm(x, p["norm"])
+    x_in, z = torch.chunk(h_in @ p["in_proj"], 2, dim=-1)
+    tail = state.conv_tail if state is not None else None
+    x_c = F.silu(causal_conv1d(x_in, p["conv_w"], p["conv_b"], tail))
+    a, b, Cc = _ssm_inputs(p, x_c, cfg)
+    hs = linear_scan(a, b, h0=state.h if state is not None else None)
+    del a, b                                  # (B, S, di, N) f32 each
+    y = torch.einsum("bsdn,bsn->bsd", hs, Cc.float())
+    y = y + p["D"] * x_c.float()
+    y = y.to(x.dtype) * F.silu(z)
+    out = y @ p["out_proj"]
+    if not return_state:
+        return x + out
+    if tail is None:
+        tail = torch.zeros((x.shape[0], cfg.ssm_conv - 1, cfg.dinner),
+                           dtype=x.dtype, device=x.device)
+    new_tail = torch.cat([tail, x_in], dim=1)[:, -(cfg.ssm_conv - 1):, :]
+    return x + out, MambaState(h=hs[:, -1], conv_tail=new_tail)
+
+
+def mamba_decode_step(p, x: torch.Tensor, state: MambaState, cfg
+                      ) -> Tuple[torch.Tensor, MambaState]:
+    """One-token step. x: (B, d) → (B, d)."""
+    h_in = rms_norm(x, p["norm"])
+    x_in, z = torch.chunk(h_in @ p["in_proj"], 2, dim=-1)   # (B, di)
+    window = torch.cat([state.conv_tail, x_in[:, None, :]], dim=1)
+    x_c = torch.sum(window.float() * p["conv_w"].float()[None], dim=1) \
+        + p["conv_b"].float()
+    x_c = F.silu(x_c).to(x.dtype)                            # (B, di)
+    a, b, Cc = _ssm_inputs(p, x_c[:, None, :], cfg)
+    a, b, Cc = a[:, 0], b[:, 0], Cc[:, 0]                    # (B, di, N), (B, N)
+    h = a * state.h + b
+    y = torch.einsum("bdn,bn->bd", h, Cc.float())
+    y = y + p["D"] * x_c.float()
+    y = y.to(x.dtype) * F.silu(z)
+    out = y @ p["out_proj"]
+    return x + out, MambaState(h=h, conv_tail=window[:, 1:, :])

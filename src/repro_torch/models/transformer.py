@@ -1,6 +1,7 @@
-"""Model assembly.  Port of :mod:`repro.models.transformer` for the
-``hybrid`` family (recurrentgemma): RG-LRU ⊕ local attention in units of
-(rec, rec, attn), then the trailing recurrent layers.
+"""Model assembly.  Port of :mod:`repro.models.transformer` for two
+families: ``hybrid`` (recurrentgemma: RG-LRU ⊕ local attention in units of
+(rec, rec, attn), then the trailing recurrent layers) and ``ssm``
+(falcon-mamba: a stack of Mamba blocks).
 
     model = Model(cfg, device=dev).init(generator)
     model.train_loss(batch)                → scalar loss
@@ -8,12 +9,13 @@
     model.decode_step(cache, batch)        → (cache, logits)
 
 ``Model`` is an ``nn.Module`` whose parameters carry the reference tree's
-names (``units.3.r0.w_in``, ``tail_r0_mlp.w2``), each in its ``ParamDef``
-dtype; ``convert.model_params_from_numpy`` maps the reference's tree onto
-them.  The reference's ``lax.scan`` over units is a Python loop here.  The
-full-sequence path reaches the two hand-written kernels: ``rglru_scan`` in
-every recurrent layer and ``flash_attention`` in every attention layer.
-Other families raise ``NotImplementedError``.
+names (``units.3.r0.w_in``, ``tail_r0_mlp.w2``, ``layers.7.in_proj``), each
+in its ``ParamDef`` dtype; ``convert.model_params_from_numpy`` maps the
+reference's tree onto them.  The reference's ``lax.scan`` over units or
+layers is a Python loop here.  The full-sequence path reaches the
+hand-written kernels: ``rglru_scan`` in every RG-LRU layer,
+``flash_attention`` in every attention layer and ``ssm_scan`` in every
+Mamba layer.  Other families raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -31,10 +33,9 @@ from .config import ModelConfig
 from .layers import (ParamDef, Params, init_leaf, register_params, rms_norm,
                      rotary, softmax_cross_entropy, swiglu)
 from .rglru import RGLRUState, rglru_block, rglru_decode_step, rglru_defs
+from .ssm import MambaState, mamba_block, mamba_decode_step, mamba_defs
 
 _NOT_PORTED = {
-    "ssm": "the ssm family (falcon-mamba, ssm_scan) is still to port: "
-           "ROADMAP queue 1 item 10 and queue 2 item 5",
     "dense": "the dense family is still to port: ROADMAP queue 1 item 10",
     "moe": "the moe family is still to port: ROADMAP queue 1 item 10",
     "encdec": "the encdec family is still to port: ROADMAP queue 1 item 10",
@@ -68,12 +69,12 @@ def _mlp_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
 
 
 class Model(nn.Module):
-    """The hybrid model's parameters (uninitialised until :meth:`init` or
+    """The model's parameters (uninitialised until :meth:`init` or
     ``load_state_dict``) and its forward functions."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        if cfg.family != "hybrid":
+        if cfg.family not in ("hybrid", "ssm"):
             raise NotImplementedError(_NOT_PORTED.get(
                 cfg.family, f"unknown model family {cfg.family!r}"))
         self.cfg = cfg
@@ -84,6 +85,10 @@ class Model(nn.Module):
             "final_norm": ParamDef((d,), init="ones"),
             **({} if cfg.tie_embeddings else
                {"unembed": ParamDef((d, Vp), init="scaled")})}, device)
+        if cfg.family == "ssm":
+            self.layers = nn.ModuleList(Params(mamba_defs(cfg), device)
+                                        for _ in range(cfg.n_layers))
+            return
         unit = {"r0": rglru_defs(cfg), "r0_mlp": _mlp_defs(cfg),
                 "r1": rglru_defs(cfg), "r1_mlp": _mlp_defs(cfg),
                 "a": _attn_defs(cfg), "a_mlp": _mlp_defs(cfg)}
@@ -146,6 +151,10 @@ class Model(nn.Module):
     def backbone(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
         """Full-sequence forward. x: (B, S, d) embedded → (B, S, d)."""
         cfg = self.cfg
+        if cfg.family == "ssm":
+            for p in self.layers:
+                x = mamba_block(p, x, cfg)
+            return x
         for unit in self.units:
             for r in ("r0", "r1"):
                 x = rglru_block(unit[r], x, cfg)
@@ -172,7 +181,7 @@ class Model(nn.Module):
 
     def train_loss(self, batch) -> torch.Tensor:
         """Token-mean cross entropy of ``batch`` = {"tokens", "labels"}
-        (B, S); the hybrid family has no auxiliary loss."""
+        (B, S); the hybrid and ssm families have no auxiliary loss."""
         x, positions = self._embed_batch(batch)
         x = rms_norm(self.backbone(x, positions), self.final_norm)
         return softmax_cross_entropy(self._logits(x), batch["labels"],
@@ -188,14 +197,23 @@ class Model(nn.Module):
 
     # --------------------------------------------------------------- caches
     def init_cache(self, batch_size: int, capacity: int) -> dict:
-        """The decode state, laid out as the reference's: per unit two
-        recurrent states and a ring-buffered local-attention KV cache of
-        Sc = min(capacity, local_window) slots with their positions
+        """The decode state, laid out as the reference's.  ssm: per layer the
+        scan state ``h`` (B, d_inner, N) f32 and the conv tail.  hybrid: per
+        unit two recurrent states and a ring-buffered local-attention KV
+        cache of Sc = min(capacity, local_window) slots with their positions
         (``kpos``, −1 = empty), and the trailing layers' states.  Conv tails
         and KV hold the model's dtype (bf16; the reference's cache is always
         bf16)."""
         cfg = self.cfg
         dev, dt = self.embed.device, self.dtype
+        if cfg.family == "ssm":
+            L, di = cfg.n_layers, cfg.dinner
+            return {
+                "h": torch.zeros((L, batch_size, di, cfg.ssm_state),
+                                 dtype=torch.float32, device=dev),
+                "conv": torch.zeros((L, batch_size, cfg.ssm_conv - 1, di),
+                                    dtype=dt, device=dev),
+            }
         n_units = len(self.units)
         w = cfg.lru_width or cfg.d_model
         sc = min(capacity, cfg.local_window)
@@ -240,6 +258,14 @@ class Model(nn.Module):
         cfg = self.cfg
         tokens, pos = batch["tokens"], batch["pos"]
         x = self.embed[tokens]                               # (B, d)
+        if cfg.family == "ssm":
+            for i, p in enumerate(self.layers):
+                x, st = mamba_decode_step(
+                    p, x, MambaState(h=cache["h"][i], conv_tail=cache["conv"][i]),
+                    cfg)
+                cache["h"][i] = st.h
+                cache["conv"][i] = st.conv_tail
+            return cache, self._logits(rms_norm(x, self.final_norm))
         Sc = cache["k"].shape[2]
         slot = (pos % Sc).long()
         rows = torch.arange(x.shape[0], device=x.device)

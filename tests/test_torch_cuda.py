@@ -15,6 +15,7 @@ from repro_torch.kernels import bfs_frontier as bfs_mod
 from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.kernels import frame_accum as accum_mod
 from repro_torch.kernels import rglru_scan as rglru_mod
+from repro_torch.kernels import ssm_scan as ssm_mod
 from repro_torch.kernels import ref
 from repro_torch.sampling import build_alias_table
 
@@ -99,3 +100,16 @@ def test_rglru_scan_kernel_on_card(cuda_device, b, s, w):
     got = rglru_mod.rglru_scan(a, bb)
     torch.cuda.synchronize()
     assert torch.equal(got, ref.rglru_scan_ref(a, bb))
+
+
+@pytest.mark.parametrize("b,s,d,n", [(1, 64, 64, 8), (2, 33, 125, 3),
+                                     (1, 4096, 8192, 16)])
+def test_ssm_scan_kernel_on_card(cuda_device, b, s, d, n):
+    """Exact: one FMA a step in both.  (2, 33, 125, 3) is ragged (D·N = 375);
+    (1, 4096, 8192, 16) is one sequence of falcon-mamba-7b's prefill."""
+    gen = torch.Generator(device=cuda_device).manual_seed(d * n)
+    a = torch.rand((b, s, d, n), generator=gen, device=cuda_device) * 0.89 + 0.1
+    bb = torch.randn((b, s, d, n), generator=gen, device=cuda_device)
+    got = ssm_mod.ssm_scan(a, bb)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.ssm_scan_ref(a, bb))

@@ -29,6 +29,10 @@ assert main(["--arch", "recurrentgemma-2b-reduced", "--device", "cpu",
              "--batch", "2", "--prompt-len", "8", "--gen", "4"]) == 0
 assert main(["--arch", "recurrentgemma-2b-reduced", "--device", "cpu",
              "--adaptive-eval", "--eps", "2.0", "--batch", "2", "--seq", "8"]) == 0
+assert main(["--arch", "falcon-mamba-7b-reduced", "--device", "cpu",
+             "--batch", "2", "--prompt-len", "8", "--gen", "4"]) == 0
+assert main(["--arch", "falcon-mamba-7b-reduced", "--device", "cpu",
+             "--adaptive-eval", "--eps", "2.0", "--batch", "2", "--seq", "8"]) == 0
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LEAKED", bad)
 """
@@ -85,3 +89,22 @@ def test_model_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         assert generate(model, prompts, 2).device.type == "cpu"
         mean, res = adaptive_eval(model, stream, eps=5.0, delta=0.5)
     assert res.stopped and res.state.total.num.device.type == "cpu"
+
+
+def test_ssm_model_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    """falcon-mamba: the model, the weight converter and the serving CLI
+    choose the card unless told otherwise."""
+    import numpy as np
+
+    from repro_torch.convert import model_params_from_numpy
+    from repro_torch.launch.serve import main
+    from repro_torch.models import Model, resolve_config
+    cfg = resolve_config("falcon-mamba-7b-reduced")
+    assert Model(cfg, device="cpu").embed.device.type == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Model(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        model_params_from_numpy(cfg, {"layers": {"D": np.ones((2, 4), np.float32)}})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--arch", "falcon-mamba-7b-reduced"])

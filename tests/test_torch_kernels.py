@@ -16,12 +16,14 @@ from repro.kernels.bfs_frontier import bfs_frontier as jax_bfs_frontier
 from repro.kernels.flash_attention import flash_attention as jax_flash_attention
 from repro.kernels.frame_accum import frame_accum as jax_frame_accum
 from repro.kernels.rglru_scan import rglru_scan as jax_rglru_scan
+from repro.kernels.ssm_scan import ssm_scan as jax_ssm_scan
 from repro.models.ssm import linear_scan as jax_linear_scan
 from repro_torch.kernels import bfs_frontier as bfs_mod
 from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.kernels import frame_accum as accum_mod
 from repro_torch.kernels import rglru_scan as rglru_mod
+from repro_torch.kernels import ssm_scan as ssm_mod
 
 INF = 0x3FFFFFFF
 
@@ -208,3 +210,54 @@ def test_model_kernel_wrappers_refuse_cpu_tensors(monkeypatch):
         flash_mod.flash_attention(z, z[:, :1], z[:, :1])
     with pytest.raises(ValueError, match="CUDA"):
         rglru_mod.rglru_scan(torch.zeros(1, 4, 8), torch.zeros(1, 4, 8))
+
+
+def _ssm_inputs(b, s, d, n, seed):
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(0.1, 0.99, (b, s, d, n)).astype(np.float32)
+    bb = rng.standard_normal((b, s, d, n)).astype(np.float32)
+    return a, bb
+
+
+SSM_SWEEP = [(1, 32, 64, 4), (2, 128, 256, 16), (1, 17, 64, 8)]
+
+
+@pytest.mark.parametrize("b,s,d,n", SSM_SWEEP)
+def test_ssm_scan_ref_matches_pallas_exactly(b, s, d, n):
+    """The sweep of tests/test_kernels.py.  The Pallas body is the same
+    sequential recurrence, and XLA contracts its ``a * h + b`` into an FMA
+    as the plain version computes it: bit-equal."""
+    a, bb = _ssm_inputs(b, s, d, n, seed=s)
+    exp = np.asarray(jax_ssm_scan(jnp.asarray(a), jnp.asarray(bb), block_d=64,
+                                  interpret=True))
+    got = ref.ssm_scan_ref(torch.from_numpy(a), torch.from_numpy(bb))
+    assert got.dtype == torch.float32 and got.shape == a.shape
+    np.testing.assert_array_equal(got.numpy(), exp)
+
+
+@pytest.mark.parametrize("b,s,d,n", SSM_SWEEP + [(2, 33, 125, 3)])
+def test_ssm_scan_ref_matches_linear_scan(b, s, d, n):
+    """The reference's ``ssm_scan_ref`` is its associative ``linear_scan``,
+    rounding in another order: allclose 1e-5.  (2, 33, 125, 3) is ragged:
+    D·N = 375 is no multiple of a block."""
+    a, bb = _ssm_inputs(b, s, d, n, seed=d)
+    exp = np.asarray(jax_ref.ssm_scan_ref(jnp.asarray(a), jnp.asarray(bb)))
+    got = ops.ssm_scan(torch.from_numpy(a), torch.from_numpy(bb))
+    np.testing.assert_allclose(got.numpy(), exp, rtol=1e-5, atol=1e-5)
+
+
+def test_ssm_scan_op_on_cpu_uses_ref_and_never_builds(monkeypatch):
+    def no_build(name):
+        raise AssertionError(f"build.load({name!r}) called for a CPU tensor")
+    monkeypatch.setattr(build, "load", no_build)
+    before = ssm_mod.launches
+    a, bb = (torch.from_numpy(x) for x in _ssm_inputs(2, 9, 5, 3, seed=1))
+    assert torch.equal(ops.ssm_scan(a, bb), ref.ssm_scan_ref(a, bb))
+    assert ssm_mod.launches == before
+
+
+def test_ssm_scan_wrapper_refuses_cpu_tensors(monkeypatch):
+    monkeypatch.setattr(build, "load", lambda name: pytest.fail("built"))
+    with pytest.raises(ValueError, match="CUDA"):
+        ssm_mod.ssm_scan(torch.zeros(1, 4, 8, 2), torch.zeros(1, 4, 8, 2))
+    assert "ssm_scan" in build.SIGNATURES

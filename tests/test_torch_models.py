@@ -33,7 +33,6 @@ from repro_torch.data import TokenStream
 from repro_torch.launch.serve import adaptive_eval, generate
 from repro_torch.models import Model, resolve_config
 from repro_torch.models.rglru import RGLRUState, rglru_block
-from repro_torch.models.ssm import linear_scan
 
 CPU = torch.device("cpu")
 ARCH = "recurrentgemma-2b-reduced"
@@ -267,12 +266,12 @@ def test_adaptive_eval_stops_on_the_empirical_bernstein_rule():
 
 def test_unported_paths_raise_naming_their_roadmap_item():
     cfg = resolve_config(ARCH)
-    with pytest.raises(NotImplementedError, match="queue 2 item 5"):
-        linear_scan(torch.zeros(1, 4, 2, 3), torch.zeros(1, 4, 2, 3))
+    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+        Model(dataclasses.replace(cfg, family="moe"), device=CPU)
     with pytest.raises(NotImplementedError, match="queue 1 item 10"):
         Model(dataclasses.replace(cfg, family="dense"), device=CPU)
-    with pytest.raises(NotImplementedError, match="queue 2 item 5"):
-        Model(dataclasses.replace(cfg, family="ssm"), device=CPU)
+    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+        Model(dataclasses.replace(cfg, family="encdec"), device=CPU)
     from repro_torch.launch.serve import main
     with pytest.raises(NotImplementedError, match="queue 1 item 9"):
         main(["--pool", "--device", "cpu"])
