@@ -8,19 +8,28 @@ and the script exits non-zero:
 
 1. device      — the card (nvidia-smi name and power limit), torch and CUDA.
 2. build       — nvcc builds the six kernels from
-                 ``src/repro_torch/kernels/csrc``, all at once.
+                 ``src/repro_torch/kernels/csrc``, all at once, and prints
+                 ptxas's registers, spills and shared memory of the two
+                 redesigned kernels (``bfs_frontier``, ``flash_attention``)
+                 and the bf16 attention body's HMMA/HGMMA count in the SASS
+                 (``cuobjdump -sass``); a missing ptxas report, a spill or
+                 a bf16 body without tensor-core instructions fails.
 3. wrs table   — the 2**24-item alias table of the wrs full-size run
                  (Pareto(1.5) weights, the host's Vose loop, then the card).
 4. kernels     — each kernel against its plain PyTorch version at the main
                  paths' full-size shapes, with times (CUDA events, median),
                  the bound and one library call as a yardstick where there
                  is one: ``frame_accum`` at (4, 2**20) and at the wrs
-                 path's (4, 2**24) and (4, 1) int32 frames; ``alias_draw``
+                 path's (4, 2**24) and (4, 1) int32 frames; ``bfs_frontier``
+                 at 256 lanes on the full graph, timed at levels 0–7 of one
+                 BFS, with ``torch.sparse.mm`` at levels 2, 4 and 5;
+                 ``alias_draw``
                  exactly (``torch.equal``) at n = 2**24 with b = 262,144,
                  65,536 and 2**24 draws, and on the edge uniforms 0 and
                  1−2⁻²⁴ at n = 1000; ``flash_attention`` at recurrentgemma's
                  prefill shape q (2, 10, 4096, 256), k/v (2, 1, 4096, 256),
-                 window 2048, in bf16 and f32, and at S = 100 and window 0;
+                 window 2048, in bf16 and f32, at S = 100 and window 0,
+                 and in bf16 at ``adaptive_eval``'s (4, 10, 64, 256);
                  ``rglru_scan`` exactly at (2, 4096, 2560); ``ssm_scan``
                  exactly at falcon-mamba-7b's prefill (2, 4096, 8192, 16)
                  and at a ragged (3, 100, 125, 3).
@@ -28,7 +37,11 @@ and the script exits non-zero:
                  within ε of exact Brandes; INDEXED_FRAME bit-identical for
                  W ∈ {1, 2, 4}; τ a whole number of frame units; SHARED == LOCAL.
 6. full size   — KADABRA on erdos_renyi(2**20, 8·2**20), ε = 0.02, δ = 0.1,
-                 batch 64, W = 4, 4 rounds per epoch, LOCAL and SHARED.
+                 batch 64, W = 4, 4 rounds per epoch, LOCAL and SHARED; the
+                 LOCAL run's ``bfs_frontier`` calls by level, weighted by
+                 phase 4's time at each level (an estimate, on the phase's
+                 own line), beside the kernel's device time in a profile of
+                 the LOCAL run (measured, also in the kernels line).
 7. conformance — the instance layer's ``run_all`` on the card: 6 instances
                  × 5 strategies × W ∈ {1, 2, 4} at the registry's sizes, one
                  line per instance; any failed cell or cross check raises.
@@ -120,6 +133,95 @@ def bound_ms(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+KERNEL_NAMES = {  # device kernels of the port's wrappers, by name part
+    "frame_accum": ("frame_accum",),
+    "bfs_frontier": ("bfs_pack_kernel", "bfs_pull_kernel"),
+    "alias_draw": ("alias_draw",),
+    "flash_attention": ("flash_bf16_kernel", "flash_attention_kernel"),
+    "rglru_scan": ("rglru_scan",),
+    "ssm_scan": ("ssm_scan",),
+}
+
+
+def kernel_label(mangled: str) -> str:
+    """``flash_bf16_kernel<256>`` from a mangled kernel name of the port (a
+    name part in ``KERNEL_NAMES`` and its int template argument)."""
+    import re
+
+    parts = "|".join(p for ps in KERNEL_NAMES.values() for p in ps)
+    found = re.search(rf"({parts}\w*?)(ILi(\d+)E)?E", mangled)
+    if not found:
+        return mangled
+    return found.group(1) + (f"<{found.group(3)}>" if found.group(3) else "")
+
+
+def ptxas_report(log: str) -> list:
+    """Registers, spills and static shared memory of each kernel in nvcc's
+    ``-Xptxas -v`` output."""
+    import re
+
+    out = []
+    for part in log.split("Compiling entry function '")[1:]:
+        label = kernel_label(part.split("'", 1)[0])
+        regs = re.search(r"Used (\d+) registers", part)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", part)
+        smem = re.search(r"(\d+) bytes smem", part)
+        out.append({"kernel": label, "registers": int(regs.group(1)) if regs else None,
+                    "spill_stores": int(spill.group(1)) if spill else None,
+                    "spill_loads": int(spill.group(2)) if spill else None,
+                    "static_smem": int(smem.group(1)) if smem else 0})
+    return out
+
+
+def sass_mma_counts(lib: Path, nvcc: str) -> dict | None:
+    """``HMMA``/``HGMMA`` instructions in the SASS of each kernel of a built
+    library, by ``cuobjdump -sass``; None where the toolkit has none."""
+    import re
+    import shutil
+
+    tool = Path(nvcc).with_name("cuobjdump")
+    tool = str(tool) if tool.exists() else shutil.which("cuobjdump")
+    if tool is None:
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    counts = {}
+    for part in sass.split("Function : ")[1:]:
+        label = kernel_label(part.split("\n", 1)[0].strip())
+        counts[label] = {"HMMA": len(re.findall(r"\bHMMA\.", part)),
+                         "HGMMA": len(re.findall(r"\bHGMMA\.", part))}
+    return counts
+
+
+def phase_build(torch) -> None:
+    """Build every kernel at once; print ptxas's registers, spills and
+    shared memory of the two redesigned kernels (from the log kept beside
+    each library, so also when it was built before) and the bf16 attention
+    body's tensor-core instructions in the SASS.  A missing report, a spill
+    or a bf16 body without tensor-core instructions fails."""
+    from repro_torch.kernels import build
+
+    t0 = time.time()
+    build.build_all()
+    emit({"phase": "build", "nvcc_s": time.time() - t0,
+          "flags": " ".join(build.NVCC_FLAGS)})
+    for name in ("bfs_frontier", "flash_attention"):
+        report = ptxas_report(build.ptxas_log(name))
+        emit({"phase": "build", "source": f"csrc/{name}.cu", "ptxas": report})
+        if not report or any(r["spill_stores"] != 0 or r["spill_loads"] != 0
+                             for r in report):
+            raise AssertionError(f"csrc/{name}.cu: no ptxas report, or a "
+                                 f"kernel spills: {report}")
+    mma = sass_mma_counts(build.library_path("flash_attention"), build._nvcc())
+    emit({"phase": "build", "source": "csrc/flash_attention.cu",
+          "sass_tensor_core_ops": mma})
+    if mma is not None:
+        bf16 = {k: c for k, c in mma.items() if "flash_bf16" in k}
+        if not bf16 or not all(c["HMMA"] + c["HGMMA"] > 0 for c in bf16.values()):
+            raise AssertionError(f"flash_attention bf16: no tensor-core "
+                                 f"instructions in its SASS: {mma}")
 
 
 class Timer:
@@ -356,17 +458,43 @@ def profiled(torch, fn) -> dict:
             by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, count + 1)
     device_ms = sum(ms for ms, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+    ours = {}
+    for kernel, parts in KERNEL_NAMES.items():
+        hit = [(ms, c) for name, (ms, c) in by_name.items()
+               if any(p in name for p in parts)]
+        if hit:
+            ours[kernel] = {"ms": sum(ms for ms, _ in hit),
+                            "device_launches": sum(c for _, c in hit)}
     return {"profiled_wall_s": wall, "device_ms": device_ms,
             "device_busy_share": device_ms / 1e3 / wall if by_name else None,
             "device_events": sum(c for _, c in by_name.values()),
             "top_device": [{"name": name[:80], "ms": ms, "count": count}
-                           for name, (ms, count) in top]}
+                           for name, (ms, count) in top],
+            "port_kernels": ours}
+
+
+def device_ms_by(torch, fn, parts, reps: int = 3) -> dict:
+    """Mean device time a call of ``fn`` (warm, under ``torch.profiler``)
+    of the kernels whose names hold each of ``parts``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ms = dict.fromkeys(parts, 0.0)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            for part in parts:
+                if part in e.name:
+                    ms[part] += e.time_range.elapsed_us() / 1e3 / reps
+    return ms
 
 
 def phase_kernels(torch, timer, check, g, table):
-    from repro_torch.graphs.bfs import bfs_sssp
     from repro_torch.kernels import ref
-    from repro_torch.kernels.bfs_frontier import bfs_frontier
     from repro_torch.kernels.frame_accum import frame_accum
 
     gen = torch.Generator(device="cuda")
@@ -401,7 +529,29 @@ def phase_kernels(torch, timer, check, g, table):
           "max_abs_err": check.max_err["frame_accum"],
           "tolerance": check.TOLERANCE["frame_accum"], **rows["frame_accum"]})
 
-    # bfs_frontier on the full graph, B = 256 lanes, at levels of a real BFS
+    rows["bfs_frontier"] = kernel_bfs_frontier(torch, timer, check, gen, g)
+    rows["alias_draw"] = kernel_alias_draw(torch, timer, check, gen, table)
+    rows["flash_attention"] = kernel_flash_attention(torch, timer, check, gen)
+    rows["rglru_scan"] = kernel_rglru_scan(torch, timer, check, gen)
+    rows["ssm_scan"] = kernel_ssm_scan(torch, timer, check, gen)
+    return rows
+
+
+BFS_TIMED_LEVELS = tuple(range(8))    # the kernel timed at each
+BFS_LIBRARY_LEVELS = (2, 4, 5)        # and torch.sparse.mm beside it
+
+
+def kernel_bfs_frontier(torch, timer, check, gen, g):
+    """``bfs_frontier`` on the full graph, B = 256 lanes, at levels 0–7 of
+    one real BFS (``bfs_sssp`` from random sources, no early exit): checked
+    against the plain version at levels 0, 2, 4 and 5, timed at every level
+    (each call is two launches, pack and pull, also profiled apart), with
+    the bound and ``torch.sparse.mm`` at levels 2, 4 and 5 and the plain
+    version at 4."""
+    from repro_torch.graphs.bfs import bfs_sssp
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bfs_frontier import bfs_frontier
+
     B = LANES
     src_v = torch.randint(0, g.n, (B,), generator=gen, device="cuda")
     deg = (g.indptr[1:] - g.indptr[:-1]).float()
@@ -412,46 +562,58 @@ def phase_kernels(torch, timer, check, g, table):
                                                dist[i:i + chunk], level)
                           for i in range(0, B, chunk)])
 
-    timed = None
-    for level in (0, 2, 4, 5):
-        dist, sigma = bfs_sssp(g, src_v, None, max_levels=level,
-                               early_exit=False, device="cuda")
-        check.compare_bfs(g.indptr, g.indices_padded, sigma, dist, level,
-                          bfs_frontier(g.indptr, g.indices_padded, sigma,
-                                       dist, level))
-        if level == 4:
-            timed = (dist, sigma, level)
-    dist, sigma, level = timed
-    front = dist == level
-    front_arcs = float((front.float() @ deg).sum())
-    nbytes = 4 * (g.n + 1) + 4 * g.m_arcs + 4 * B * g.n * 2 + 4 * float(front.sum())
-    t_bound, by = bound_ms(nbytes, B * g.m_arcs + front_arcs)
     adj = torch.sparse_csr_tensor(
         g.indptr.long(), g.indices_padded[:g.m_arcs].long(),
         torch.ones(g.m_arcs, device="cuda"), size=(g.n, g.n))
-    masked_t = torch.where(front, sigma, 0.0).t().contiguous()
-    rows["bfs_frontier"] = {
-        "ms": timer(lambda: bfs_frontier(g.indptr, g.indices_padded, sigma,
-                                         dist, level)),
-        "plain_ms": timer(lambda: plain(sigma, dist, level), reps=5, warmup=1),
-        "bound_ms": t_bound, "bound_by": by,
-        "library_ms": timer(lambda: torch.sparse.mm(adj, masked_t)),
-    }
-    emit({"phase": "kernels", "kernel": "bfs_frontier",
-          "shape": {"lanes": B, "n": g.n, "arcs": g.m_arcs, "timed_level": level,
-                    "frontier_entries": int(front.sum())},
+    by_level, row = {}, None
+    for level in BFS_TIMED_LEVELS:
+        dist, sigma = bfs_sssp(g, src_v, None, max_levels=level,
+                               early_exit=False, device="cuda")
+        if level in (0, 2, 4, 5):
+            check.compare_bfs(g.indptr, g.indices_padded, sigma, dist, level,
+                              bfs_frontier(g.indptr, g.indices_padded, sigma,
+                                           dist, level))
+        front = dist == level
+        entries = int(front.sum())
+        front_arcs = float((front.float() @ deg).sum())
+        # indptr, indices, dist read and agg written once, the frontier's σ
+        nbytes = 4 * (g.n + 1) + 4 * g.m_arcs + 4 * B * g.n * 2 + 4 * entries
+        t_bound, by = bound_ms(nbytes, B * g.m_arcs + front_arcs)
+        call = lambda: bfs_frontier(g.indptr, g.indices_padded, sigma, dist,  # noqa: E731
+                                    level)
+        timed = {"ms": timer(call), "bound_ms": t_bound, "bound_by": by,
+                 "warm_ms_by_launch": device_ms_by(
+                     torch, call, ("bfs_pack_kernel", "bfs_pull_kernel"))}
+        if level in BFS_LIBRARY_LEVELS:
+            masked_t = torch.where(front, sigma, 0.0).t().contiguous()
+            timed["library_ms"] = timer(lambda: torch.sparse.mm(adj, masked_t))
+            del masked_t
+        if level == 4:
+            timed["plain_ms"] = timer(lambda: plain(sigma, dist, level),
+                                      reps=5, warmup=1)
+            # what one call allocates: agg and the pack's scratch
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            call()
+            torch.cuda.synchronize()
+            timed["call_alloc_peak_bytes"] = torch.cuda.max_memory_allocated() - base
+            row = dict(timed)
+        by_level[level] = {"frontier_entries": entries,
+                           "frontier_arcs": front_arcs, **timed}
+        emit({"phase": "kernels", "kernel": "bfs_frontier", "level": level,
+              "lanes": B, "n": g.n, "arcs": g.m_arcs, **by_level[level]})
+        del dist, sigma, front
+    emit({"phase": "kernels", "kernel": "bfs_frontier", "timed_level": 4,
           "levels_checked": [0, 2, 4, 5],
           "max_abs_err": check.max_err["bfs_frontier"],
           "tolerance": check.TOLERANCE["bfs_frontier"],
           "library": "torch.sparse.mm(CSR adjacency, pre-masked sigma^T)",
-          **rows["bfs_frontier"]})
-    del adj, masked_t, dist, sigma, front
+          "launches_a_call": 2, **row})
+    row["by_level"] = by_level
+    del adj
     torch.cuda.empty_cache()
-    rows["alias_draw"] = kernel_alias_draw(torch, timer, check, gen, table)
-    rows["flash_attention"] = kernel_flash_attention(torch, timer, check, gen)
-    rows["rglru_scan"] = kernel_rglru_scan(torch, timer, check, gen)
-    rows["ssm_scan"] = kernel_ssm_scan(torch, timer, check, gen)
-    return rows
+    return row
 
 
 def attention_pairs(S: int, window: int) -> int:
@@ -527,6 +689,26 @@ def kernel_flash_attention(torch, timer, check, gen):
             checked.append([str(dtype).split(".")[-1], list(q.shape), w])
     emit({"phase": "kernels", "kernel": "flash_attention", "checked": checked,
           "max_abs_err": check.max_err["flash_attention"]})
+
+    # adaptive_eval's shape: B = 4, S = 64, one kv tile a block, launch-bound
+    Be, Se = SERVE_EVAL["batch"], SERVE_EVAL["seq"]
+    q, k, v = qkv(Be, Se, torch.bfloat16)
+    check.compare_flash(q, k, v, window, flash_attention(q, k, v, window=window))
+    pos = torch.arange(Se, device="cuda")
+    mask = pos[None, :] <= pos[:, None]
+    ke, ve = k.expand(Be, H, Se, hd), v.expand(Be, H, Se, hd)
+    pairs = Be * H * attention_pairs(Se, window)
+    t_bound, by = bound_ms(2 * (2 * q.numel() + k.numel() + v.numel()),
+                           4 * hd * pairs, BF16_OPS_PER_S)
+    eval_row = {"ms": timer(lambda: flash_attention(q, k, v, window=window)),
+                "bound_ms": t_bound, "bound_by": by,
+                "library_ms": timer(lambda: F.scaled_dot_product_attention(
+                    q, ke, ve, attn_mask=mask))}
+    emit({"phase": "kernels", "kernel": "flash_attention", "dtype": "bfloat16",
+          "shape": {"q": list(q.shape), "kv": list(k.shape), "window": window},
+          "path": "adaptive_eval", **eval_row})
+    row.update({f"{key}_eval_shape": val for key, val in eval_row.items()
+                if key != "bound_by"})
     torch.cuda.empty_cache()
     return row
 
@@ -701,7 +883,10 @@ def phase_accuracy(torch):
           "indexed_bit_identical_W124": True, "shared_equals_local": True})
 
 
-def phase_full(torch, g):
+def phase_full(torch, g, full):
+    """Full-size KADABRA, LOCAL and SHARED at W = 4; ``full`` gets the
+    LOCAL run's ``bfs_frontier`` calls by BFS level (``"levels"``) and the
+    profile of a LOCAL run (``"profile"``)."""
     import numpy as np
 
     from repro_torch import device as dev_mod
@@ -709,6 +894,7 @@ def phase_full(torch, g):
     from repro_torch.graphs import KadabraParams, preprocess, run_kadabra
     from repro_torch.kernels import bfs_frontier as bfs_mod
     from repro_torch.kernels import frame_accum as accum_mod
+    from repro_torch.kernels import ops
 
     params = KadabraParams(eps=0.02, delta=0.1, batch=64, rounds_per_epoch=4,
                            max_epochs=4096)
@@ -725,12 +911,23 @@ def phase_full(torch, g):
         torch.cuda.reset_peak_memory_stats()
         dev_mod.host_syncs = 0
         launched = (bfs_mod.launches, accum_mod.launches)
-        torch.cuda.synchronize()
-        t0 = time.time()
-        b, res, _ = run_kadabra(g, params, strategy=strat, world=world, seed=0,
-                                pre=pre, device="cuda")
-        torch.cuda.synchronize()
-        wall = time.time() - t0
+        kernel = ops._bfs_kernel
+
+        def counted(indptr, indices, sigma, dist, level):
+            if strat == FS.LOCAL_FRAME:
+                full["levels"][level] = full["levels"].get(level, 0) + 1
+            return kernel(indptr, indices, sigma, dist, level)
+
+        ops._bfs_kernel = counted
+        try:
+            torch.cuda.synchronize()
+            t0 = time.time()
+            b, res, _ = run_kadabra(g, params, strategy=strat, world=world,
+                                    seed=0, pre=pre, device="cuda")
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        finally:
+            ops._bfs_kernel = kernel
         syncs = dev_mod.host_syncs
         out[strat] = res
         emit({"phase": "full", "strategy": strat.value, "world": world,
@@ -751,6 +948,7 @@ def phase_full(torch, g):
         device="cuda"))
     emit({"phase": "full", "strategy": "local", "world": world,
           "profile": prof})
+    full["profile"] = prof
     local, shared = out[FS.LOCAL_FRAME], out[FS.SHARED_FRAME]
     if shared.data.shape != local.data.shape:
         raise AssertionError(f"SHARED reassembly shape {shared.data.shape} != "
@@ -1027,15 +1225,11 @@ def main() -> int:
 
     from repro_torch.kernels import alias_draw as alias_mod
     from repro_torch.kernels import bfs_frontier as bfs_mod
-    from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as flash_mod
     from repro_torch.kernels import frame_accum as accum_mod
     from repro_torch.kernels import rglru_scan as rglru_mod
     from repro_torch.kernels import ssm_scan as ssm_mod
-    t0 = time.time()
-    build.build_all()
-    emit({"phase": "build", "nvcc_s": time.time() - t0,
-          "flags": " ".join(build.NVCC_FLAGS)})
+    phase_build(torch)
 
     from repro_torch.graphs import erdos_renyi
     t0 = time.time()
@@ -1071,9 +1265,10 @@ def main() -> int:
                 raise AssertionError(f"{name} was not launched on the {path} path")
         return counts
 
+    full = {"levels": {}}  # the full-size LOCAL run's calls and profile
     by_path = {
         "kadabra": drive("kadabra", lambda: (phase_accuracy(torch),
-                                             phase_full(torch, g)),
+                                             phase_full(torch, g, full)),
                          ("frame_accum", "bfs_frontier")),
         "conformance": drive("conformance", lambda: phase_conformance(torch),
                              ("frame_accum", "bfs_frontier", "alias_draw"),
@@ -1082,6 +1277,21 @@ def main() -> int:
                           lambda: phase_wrs_full(torch, wrs, table_build_s),
                           ("frame_accum", "alias_draw")),
     }
+    # an estimate of bfs_frontier's time on the full-size LOCAL run, from its
+    # calls by level and phase 4's time at each level (all 256 lanes active
+    # there; a level past phase 4's last is taken at the last), beside the
+    # time the LOCAL run's profile measured
+    by_level = rows["bfs_frontier"].pop("by_level")
+    levels = full["levels"]
+    last = max(by_level)
+    weighted = sum(c * by_level[min(lv, last)]["ms"] for lv, c in levels.items())
+    measured = full["profile"]["port_kernels"]["bfs_frontier"]
+    rows["bfs_frontier"]["kadabra_local_profiled_ms"] = measured["ms"]
+    emit({"phase": "full", "bfs_frontier_calls_by_level":
+              {str(k): v for k, v in sorted(levels.items())},
+          "bfs_frontier_ms_weighted": weighted,
+          "bfs_frontier_ms_profiled": measured["ms"],
+          "levels_past_timed": sum(c for lv, c in levels.items() if lv > last)})
     del g, table, wrs
     torch.cuda.empty_cache()
     model = serve_model(torch, RG_ARCH, "rg serve", RG_PARAMS)

@@ -5,11 +5,14 @@ into its own shared library under ``build/repro_torch_kernels/`` at the root
 of the checkout::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o <name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v -o <name>-<hash>.so csrc/<name>.cu
 
 The library's name carries a hash of its source, so an edited source is
-rebuilt and an unchanged one is loaded as it is.  :func:`build_all` starts
-one ``nvcc`` per source, all together, and waits for them.  Nothing here
+rebuilt and an unchanged one is loaded as it is.  nvcc's output (ptxas's
+registers, spills and shared memory of every kernel) is kept beside the
+library as ``<name>-<hash>.log``, which :func:`ptxas_log` reads.
+:func:`build_all` starts one ``nvcc`` per source, all together, and waits
+for them.  Nothing here
 runs at import time: the CPU tests import every module on machines that
 may have neither ``nvcc`` nor a card.
 """
@@ -26,7 +29,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # ctypes signatures of every C entry point, by source.
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -38,7 +41,7 @@ SIGNATURES = {
         "frame_accum_bf16": [_P, _P, _I, _L, _P],
     },
     "bfs_frontier": {
-        "bfs_frontier_f32": [_P, _P, _P, _P, _I, _P, _L, _I, _P],
+        "bfs_frontier_f32": [_P, _P, _P, _P, _I, _P, _L, _I, _P, _P, _P],
     },
     "alias_draw": {
         "alias_draw_f32": [_P, _P, _P, _P, _P, _I, _L, _P],
@@ -75,11 +78,16 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:12]}.so"
 
 
+def ptxas_log(name: str) -> str:
+    """nvcc's output for the built library of ``csrc/<name>.cu``."""
+    return library_path(name).with_suffix(".log").read_text()
+
+
 def _start(name: str):
-    """Start ``nvcc`` for one source unless its library exists; returns the
-    running process (or None) and the temporary output path."""
+    """Start ``nvcc`` for one source unless its library and log exist;
+    returns the running process (or None) and the temporary output path."""
     out = library_path(name)
-    if out.exists():
+    if out.exists() and out.with_suffix(".log").exists():
         return None, out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
@@ -97,7 +105,9 @@ def _finish(name: str, proc, tmp: Path) -> None:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n"
                            f"{log}")
-    os.replace(tmp, library_path(name))
+    out = library_path(name)
+    out.with_suffix(".log").write_text(log)
+    os.replace(tmp, out)
 
 
 def build_all() -> None:

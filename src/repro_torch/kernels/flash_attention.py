@@ -1,6 +1,16 @@
 """Wrapper of the CUDA ``flash_attention`` kernel
 (``csrc/flash_attention.cu``): causal grouped-query attention with an
-optional sliding window, streaming softmax in f32.
+optional sliding window, streaming softmax with f32 statistics.
+
+The dtype picks the body at the entry point (it is not a fallback: nothing
+catches a failure and tries the other):
+
+- bfloat16 → ``flash_attention_bf16``, Q·Kᵀ and P·V on the tensor cores
+  (``mma.sync`` bf16 with f32 accumulation), K/V tiles loaded by
+  ``cp.async`` into a two-stage ring; the probabilities are rounded to bf16
+  for the P·V product.
+- float32 → ``flash_attention_f32``, the scalar body on the CUDA cores with
+  everything in f32, as the Pallas kernel computes.
 
 Replaces :func:`repro.kernels.flash_attention.flash_attention`.  Its plain
 version is :func:`repro_torch.kernels.ref.flash_attention_ref`; :mod:`.ops`
@@ -30,7 +40,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     head h // (H/KV).  Any strides are taken as long as the head dimension
     is contiguous, so the model's (B, S, H, hd) projections go in as
     ``.transpose(1, 2)`` views; the output has q's memory layout
-    (``torch.empty_like``)."""
+    (``torch.empty_like``).  In bf16 every stride but the last must be a
+    multiple of 8 and every tensor 16-byte aligned."""
     global launches
     tensors = (q, k, v)
     if any(t.device.type != "cuda" for t in tensors) or \
@@ -58,6 +69,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if window < 0:
         raise ValueError(f"flash_attention window must be ≥ 0, got {window}")
     o = torch.empty_like(q)
+    if q.dtype == torch.bfloat16 and any(
+            t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3])
+            for t in (q, k, v, o)):
+        raise ValueError("flash_attention bf16 kernel copies 16 bytes at a "
+                         "time: it needs 16-byte aligned tensors whose "
+                         "(b, head, position) strides are multiples of 8")
     strides = (ctypes.c_longlong * 12)(*[s for t in (q, k, v, o)
                                          for s in t.stride()[:3]])
     fn = getattr(build.load("flash_attention"), _ENTRY[q.dtype])

@@ -32,6 +32,33 @@ def bfs_frontier_ref(src: torch.Tensor, dst: torch.Tensor, sigma: torch.Tensor,
     return agg.index_add_(1, dst.long(), contrib)
 
 
+def frontier_pack_ref(sigma: torch.Tensor, dist: torch.Tensor,
+                      level: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The frontier of one BFS level as the ``bfs_frontier`` kernel packs it.
+
+    ``front[u, g]`` holds lane 32·g + i's ``dist == level`` in bit i (int32,
+    G = ⌈B/32⌉; lanes past B are 0), and ``sigp[u, g, r]`` the σ of the
+    r-th set bit of that word; the slots past the word's popcount are 0
+    here and unwritten by the kernel.  sigma (B, n) f32, dist (B, n) int32
+    → front (n, G) int32, sigp (n, G, 32) f32.
+    """
+    B, n = sigma.shape
+    G = (B + 31) // 32
+    on = torch.zeros((G * 32, n), dtype=torch.bool, device=sigma.device)
+    on[:B] = dist == level
+    sig = torch.zeros((G * 32, n), dtype=torch.float32, device=sigma.device)
+    sig[:B] = sigma
+    on = on.t().reshape(n, G, 32)
+    sig = sig.t().reshape(n, G, 32)
+    bits = torch.arange(32, dtype=torch.int64, device=sigma.device)
+    words = (on.long() << bits).sum(-1)                  # [0, 2^32)
+    front = torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(torch.int32)
+    rank = torch.where(on, on.long().cumsum(-1) - 1, 32)  # unset → a spare slot
+    sigp = torch.zeros((n, G, 33), dtype=torch.float32, device=sigma.device)
+    sigp.scatter_(-1, rank, torch.where(on, sig, 0.0))
+    return front, sigp[..., :32].contiguous()
+
+
 def alias_draw_ref(prob: torch.Tensor, alias: torch.Tensor, u1: torch.Tensor,
                    u2: torch.Tensor) -> torch.Tensor:
     """Batched alias-table draw: keep bucket ``min(⌊u₁·n⌋, n−1)`` if

@@ -9,7 +9,7 @@ torch = pytest.importorskip("torch")
 
 import numpy as np
 
-from repro_torch.graphs import erdos_renyi
+from repro_torch.graphs import bfs_sssp, erdos_renyi, from_edges
 from repro_torch.kernels import alias_draw as alias_mod
 from repro_torch.kernels import bfs_frontier as bfs_mod
 from repro_torch.kernels import flash_attention as flash_mod
@@ -51,6 +51,60 @@ def test_bfs_frontier_kernel_on_card(cuda_device):
     torch.cuda.synchronize()
     torch.testing.assert_close(got, ref.bfs_frontier_ref(g.src, g.dst, s, d, 2),
                                rtol=1e-5, atol=0.0)
+
+
+def _hub_graph(n, device):
+    """Vertex 0 joined to every third vertex (the max degree), a sparse ER
+    tail among the others, and vertices n − 5 … n − 1 isolated."""
+    rng = np.random.default_rng(n)
+    others = np.arange(1, n - 5, 3)
+    hub = np.stack([np.zeros_like(others), others], 1)
+    tail = rng.integers(1, n - 5, (2 * n, 2))
+    return from_edges(n, np.concatenate([hub, tail]), device=device)
+
+
+def _assert_bfs_close(g, sigma, dist, level):
+    got = bfs_mod.bfs_frontier(g.indptr, g.indices_padded, sigma, dist, level)
+    exp = ref.bfs_frontier_ref(g.src, g.dst, sigma, dist, level)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, exp, rtol=1e-5, atol=0.0)
+    assert torch.equal(got > 0, exp > 0)
+    return got
+
+
+@pytest.mark.parametrize("lanes,graph", [(1, "er"), (33, "er"), (45, "hub"),
+                                         (100, "hub")])
+def test_bfs_frontier_levels_of_a_real_bfs_on_card(cuda_device, lanes, graph):
+    """Levels 0–5 of a BFS from random sources (B and n not multiples of
+    32, isolated vertices, a hub at the max degree), then an empty
+    frontier (level 40)."""
+    n = 3001
+    g = (erdos_renyi(n, 4 * n, seed=lanes, device=cuda_device) if graph == "er"
+         else _hub_graph(n, cuda_device))
+    src = torch.from_numpy(np.random.default_rng(lanes).integers(0, n, lanes)).to(cuda_device)
+    for level in range(6):
+        dist, sigma = bfs_sssp(g, src, None, max_levels=level, early_exit=False,
+                               device=cuda_device)
+        _assert_bfs_close(g, sigma, dist, level)
+    agg = _assert_bfs_close(g, sigma, dist, 40)
+    assert not agg.any()
+
+
+def test_bfs_frontier_lanes_are_independent_on_card(cuda_device):
+    """Each lane run alone is bit-equal to its row of the batch (INDEXED
+    bit-identity for every W rests on it), and two runs are bit-equal."""
+    g = _hub_graph(2500, cuda_device)
+    src = torch.from_numpy(np.random.default_rng(7).integers(0, 2500, 41)).to(cuda_device)
+    dist, sigma = bfs_sssp(g, src, None, max_levels=3, early_exit=False,
+                           device=cuda_device)
+    batch = bfs_mod.bfs_frontier(g.indptr, g.indices_padded, sigma, dist, 3)
+    assert torch.equal(batch, bfs_mod.bfs_frontier(g.indptr, g.indices_padded,
+                                                   sigma, dist, 3))
+    for b in (0, 1, 31, 32, 40):
+        alone = bfs_mod.bfs_frontier(g.indptr, g.indices_padded,
+                                     sigma[b:b + 1].contiguous(),
+                                     dist[b:b + 1].contiguous(), 3)
+        assert torch.equal(alone[0], batch[b])
 
 
 @pytest.mark.parametrize("n,b", [(1, 1), (1000, 4097), (1 << 16, 1 << 18)])
@@ -113,3 +167,31 @@ def test_ssm_scan_kernel_on_card(cuda_device, b, s, d, n):
     got = ssm_mod.ssm_scan(a, bb)
     torch.cuda.synchronize()
     assert torch.equal(got, ref.ssm_scan_ref(a, bb))
+
+
+@pytest.mark.parametrize("window", [0, 33, 2048])
+@pytest.mark.parametrize("group", [1, 2, 10])
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 100, 4096])
+@pytest.mark.parametrize("hd", flash_mod.HEAD_DIMS)
+def test_flash_attention_bf16_tensor_cores_on_card(cuda_device, hd, s, group,
+                                                   window):
+    """The bf16 tensor-core body at every head dim, ragged and whole tiles,
+    MHA / GQA / recurrentgemma's 10-on-1, with and without a window, on the
+    model's (B, S, H, hd) layout as views; the bf16 tolerance unchanged."""
+    b = 1 if s == 4096 else 2
+    kv = 1 if group == 10 else 2
+    gen = torch.Generator(device=cuda_device).manual_seed(hd * s + group)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda_device)
+               .to(torch.bfloat16).transpose(1, 2)
+               for shape in ((b, s, kv * group, hd), (b, s, kv, hd), (b, s, kv, hd)))
+    got = flash_mod.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref.flash_attention_ref(q, k, v, window=window),
+                               rtol=2e-2, atol=2e-2)
+
+
+def test_flash_attention_bf16_refuses_unaligned_views(cuda_device):
+    x = torch.zeros(2 * 64 * 64 + 1, dtype=torch.bfloat16, device=cuda_device)
+    q = x[1:].view(1, 2, 64, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_mod.flash_attention(q, q[:, :1], q[:, :1])

@@ -81,6 +81,39 @@ def test_bfs_frontier_matches_pallas_lane_by_lane(n, m):
             np.testing.assert_allclose(got[b], np.asarray(exp), rtol=1e-5, atol=1e-5)
 
 
+def _pack_numpy(sigma, dist, level):
+    """The frontier bits and rank-packed σ, one (vertex, lane) at a time."""
+    lanes, n = sigma.shape
+    groups = (lanes + 31) // 32
+    front = np.zeros((n, groups), np.uint32)
+    sigp = np.zeros((n, groups, 32), np.float32)
+    for u in range(n):
+        for g in range(groups):
+            r = 0
+            for i in range(32):
+                b = 32 * g + i
+                if b < lanes and dist[b, u] == level:
+                    front[u, g] |= np.uint32(1 << i)
+                    sigp[u, g, r] = sigma[b, u]
+                    r += 1
+    return front.view(np.int32), sigp
+
+
+@pytest.mark.parametrize("lanes,n,level", [(1, 5, 0), (7, 40, 2), (33, 50, 1),
+                                           (64, 30, 3), (70, 21, 9)])
+def test_frontier_pack_ref_matches_numpy(lanes, n, level):
+    rng = np.random.default_rng(lanes + n)
+    dist = rng.integers(0, 4, (lanes, n)).astype(np.int32)
+    dist[:, :3] = level                       # full words: bit 31 set
+    sigma = rng.random((lanes, n), dtype=np.float32)
+    front, sigp = ref.frontier_pack_ref(torch.from_numpy(sigma),
+                                        torch.from_numpy(dist), level)
+    exp_front, exp_sigp = _pack_numpy(sigma, dist, level)
+    assert front.dtype == torch.int32 and sigp.dtype == torch.float32
+    np.testing.assert_array_equal(front.numpy(), exp_front)
+    np.testing.assert_array_equal(sigp.numpy(), exp_sigp)
+
+
 def test_ops_on_cpu_use_ref_and_never_build(monkeypatch):
     def no_build(name):
         raise AssertionError(f"build.load({name!r}) called for a CPU tensor")
