@@ -9,9 +9,10 @@ and the script exits non-zero:
 1. device      — the card (nvidia-smi name and power limit), torch and CUDA.
 2. build       — nvcc builds the six kernels from
                  ``src/repro_torch/kernels/csrc``, all at once, and prints
-                 ptxas's registers, spills and shared memory of the two
-                 redesigned kernels (``bfs_frontier``, ``flash_attention``)
-                 and the bf16 attention body's HMMA/HGMMA count in the SASS
+                 ptxas's registers, spills and shared memory of the four
+                 redesigned kernels (``bfs_frontier``, ``flash_attention``,
+                 ``rglru_scan``, ``alias_draw``) and the bf16 attention
+                 body's HMMA/HGMMA count in the SASS
                  (``cuobjdump -sass``); a missing ptxas report, a spill or
                  a bf16 body without tensor-core instructions fails.
 3. wrs table   — the 2**24-item alias table of the wrs full-size run
@@ -30,7 +31,9 @@ and the script exits non-zero:
                  prefill shape q (2, 10, 4096, 256), k/v (2, 1, 4096, 256),
                  window 2048, in bf16 and f32, at S = 100 and window 0,
                  and in bf16 at ``adaptive_eval``'s (4, 10, 64, 256);
-                 ``rglru_scan`` exactly at (2, 4096, 2560); ``ssm_scan``
+                 ``rglru_scan`` exactly at the prefill's (2, 4096, 2560),
+                 timed there and at ``adaptive_eval``'s (4, 64, 2560), and
+                 at a ragged (3, 100, 1000) and (1, 7, 1001); ``ssm_scan``
                  exactly at falcon-mamba-7b's prefill (2, 4096, 8192, 16)
                  and at a ragged (3, 100, 125, 3).
 5. accuracy    — KADABRA on erdos_renyi(1000, 5000) for all five strategies
@@ -64,7 +67,8 @@ and the script exits non-zero:
                  ``generate``, prefill against decode, ``adaptive_eval``.
 11. kernels    — every kernel with its launches on the five paths (phases
                  5–6, 7, 8, 9 and 10), each counted from 0 just before its
-                 path.
+                 path; each path's line also splits its kernel calls by
+                 shape.
 
 While phases 5–10 run, the kernels behind ``kernels.ops`` are wrapped so
 that their calls are held against the plain versions on the same tensors:
@@ -138,9 +142,9 @@ def bound_ms(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S):
 KERNEL_NAMES = {  # device kernels of the port's wrappers, by name part
     "frame_accum": ("frame_accum",),
     "bfs_frontier": ("bfs_pack_kernel", "bfs_pull_kernel"),
-    "alias_draw": ("alias_draw",),
+    "alias_draw": ("alias_draw_kernel",),
     "flash_attention": ("flash_bf16_kernel", "flash_attention_kernel"),
-    "rglru_scan": ("rglru_scan",),
+    "rglru_scan": ("rglru_scan_kernel",),
     "ssm_scan": ("ssm_scan",),
 }
 
@@ -151,7 +155,7 @@ def kernel_label(mangled: str) -> str:
     import re
 
     parts = "|".join(p for ps in KERNEL_NAMES.values() for p in ps)
-    found = re.search(rf"({parts}\w*?)(ILi(\d+)E)?E", mangled)
+    found = re.search(rf"((?:{parts})\w*?)(ILi(\d+)E)?E", mangled)
     if not found:
         return mangled
     return found.group(1) + (f"<{found.group(3)}>" if found.group(3) else "")
@@ -197,7 +201,7 @@ def sass_mma_counts(lib: Path, nvcc: str) -> dict | None:
 
 def phase_build(torch) -> None:
     """Build every kernel at once; print ptxas's registers, spills and
-    shared memory of the two redesigned kernels (from the log kept beside
+    shared memory of the four redesigned kernels (from the log kept beside
     each library, so also when it was built before) and the bf16 attention
     body's tensor-core instructions in the SASS.  A missing report, a spill
     or a bf16 body without tensor-core instructions fails."""
@@ -207,7 +211,7 @@ def phase_build(torch) -> None:
     build.build_all()
     emit({"phase": "build", "nvcc_s": time.time() - t0,
           "flags": " ".join(build.NVCC_FLAGS)})
-    for name in ("bfs_frontier", "flash_attention"):
+    for name in ("bfs_frontier", "flash_attention", "rglru_scan", "alias_draw"):
         report = ptxas_report(build.ptxas_log(name))
         emit({"phase": "build", "source": f"csrc/{name}.cu", "ptxas": report})
         if not report or any(r["spill_stores"] != 0 or r["spill_loads"] != 0
@@ -381,7 +385,8 @@ class PlainCheck:
     @contextlib.contextmanager
     def installed(self, every: bool):
         """Compare the kernels' calls while the block runs; yields the
-        number of comparisons made in it, by kernel."""
+        number of comparisons made in it, by kernel, and the number of
+        calls by kernel and key (shapes, and type where it has one)."""
         from repro_torch.kernels import ops
         torch = self.torch
         kernels = {"frame_accum": ops._accum_kernel,
@@ -391,6 +396,7 @@ class PlainCheck:
                    "rglru_scan": ops._rglru_kernel,
                    "ssm_scan": ops._ssm_kernel}
         made = dict.fromkeys(self.NAMES, 0)
+        by_shape = {name: {} for name in self.NAMES}
 
         def wrap(name, key_of, compare):
             kernel = kernels[name]
@@ -398,7 +404,10 @@ class PlainCheck:
             def call(*args, **kwargs):
                 got = kernel(*args, **kwargs)
                 args = args + tuple(kwargs.values())
-                if every or key_of(*args) not in self.seen:
+                key = key_of(*args)
+                shape = str(key[1] if len(key) == 2 else key[1:])
+                by_shape[name][shape] = by_shape[name].get(shape, 0) + 1
+                if every or key not in self.seen:
                     compare(*args, got)
                     made[name] += 1
                 return got
@@ -431,7 +440,7 @@ class PlainCheck:
         for attr, fn in patched.items():
             setattr(ops, attr, fn)
         try:
-            yield made
+            yield made, by_shape
         finally:
             for attr, fn in saved.items():
                 setattr(ops, attr, fn)
@@ -714,25 +723,39 @@ def kernel_flash_attention(torch, timer, check, gen):
 
 
 def kernel_rglru_scan(torch, timer, check, gen):
-    """``rglru_scan`` exactly against its plain version at the full-width
-    prefill's (2, 4096, 2560), and at a ragged (3, 100, 1000)."""
+    """``rglru_scan`` exactly against its plain version at a ragged
+    (3, 100, 1000) and (1, 7, 1001) (the 4-byte body), at
+    ``adaptive_eval``'s (4, 64, 2560) and at the full-width prefill's
+    (2, 4096, 2560); timed at the last two."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.rglru_scan import rglru_scan
 
-    for shape in ((3, 100, 1000), (RG_PREFILL[0], RG_PREFILL[1], 2560)):
+    eval_shape = (SERVE_EVAL["batch"], SERVE_EVAL["seq"], 2560)
+    prefill_shape = (RG_PREFILL[0], RG_PREFILL[1], 2560)
+    checked, timed = [], {}
+    for shape in ((3, 100, 1000), (1, 7, 1001), eval_shape, prefill_shape):
         a = torch.rand(shape, generator=gen, device="cuda") * 0.75 + 0.2
         b = torch.randn(shape, generator=gen, device="cuda")
         check.compare_rglru(a, b, rglru_scan(a, b))
-    t_bound, by = bound_ms(3 * 4 * a.numel(), 2 * a.numel())
-    row = {"ms": timer(lambda: rglru_scan(a, b)),
-           "plain_ms": timer(lambda: ref.rglru_scan_ref(a, b), reps=3, warmup=1),
-           "bound_ms": t_bound, "bound_by": by, "library_ms": None}
-    emit({"phase": "kernels", "kernel": "rglru_scan", "shape": list(shape),
-          "checked": [[3, 100, 1000], list(shape)],
-          "max_abs_err": check.max_err["rglru_scan"],
-          "tolerance": check.TOLERANCE["rglru_scan"],
-          "library": "none (no single PyTorch call runs a linear recurrence)",
-          **row})
+        checked.append(list(shape))
+        if shape not in (eval_shape, prefill_shape):
+            continue
+        t_bound, by = bound_ms(3 * 4 * a.numel(), 2 * a.numel())
+        timed[shape] = {
+            "ms": timer(lambda: rglru_scan(a, b)),
+            "plain_ms": timer(lambda: ref.rglru_scan_ref(a, b), reps=3,
+                              warmup=1),
+            "bound_ms": t_bound, "bound_by": by, "library_ms": None}
+    for shape, path in ((eval_shape, "adaptive_eval"), (prefill_shape, "prefill")):
+        emit({"phase": "kernels", "kernel": "rglru_scan", "shape": list(shape),
+              "path": path, "checked": checked,
+              "max_abs_err": check.max_err["rglru_scan"],
+              "tolerance": check.TOLERANCE["rglru_scan"],
+              "library": "none (no single PyTorch call runs a linear "
+                         "recurrence)", **timed[shape]})
+    row = dict(timed[prefill_shape])
+    row.update({f"{key}_eval_shape": val for key, val in timed[eval_shape].items()
+                if key not in ("bound_by", "library_ms")})
     return row
 
 
@@ -799,37 +822,46 @@ def kernel_alias_draw(torch, timer, check, gen, table):
         check.compare_alias(table.prob, table.alias, u1, u2, got)
         bucket = (u1 * n).to(torch.int32).clamp(0, n - 1)
         reject = u2 >= table.prob[bucket.long()]
-        distinct = int(torch.unique(bucket).numel())
-        distinct_rejected = int(torch.unique(bucket[reject]).numel())
         rejected = int(reject.sum())
-        # streamed u1, u2, idx + prob for each distinct bucket + alias for
-        # each distinct bucket of a rejected draw; one multiply, one
+
+        def distinct(x):
+            return int(torch.unique(x).numel())
+
+        # the bound: streamed u1, u2, idx, and the table read once in 32 B
+        # sectors (8 buckets): each sector of prob that a draw touches, each
+        # sector of alias that a rejected draw touches; one multiply, one
         # compare a draw
-        t_bound, by = bound_ms(12 * b + 4 * distinct + 4 * distinct_rejected,
-                               2 * b)
+        sectors = distinct(bucket >> 3), distinct(bucket[reject] >> 3)
+        t_bound, by = bound_ms(12 * b + 32 * sum(sectors), 2 * b)
+        # the table counted in 4 B buckets, and in a sector for each gather
+        # (this kernel's access pattern: one DRAM access a gather)
+        buckets = distinct(bucket), distinct(bucket[reject])
+        byte_ms = (12 * b + 4 * sum(buckets)) / HBM_BYTES_PER_S * 1e3
+        gather_ms = (12 * b + 32 * (b + rejected)) / HBM_BYTES_PER_S * 1e3
         timed = {
             "ms": timer(lambda: alias_draw(table.prob, table.alias, u1, u2)),
             "plain_ms": timer(lambda: ref.alias_draw_ref(table.prob, table.alias,
                                                          u1, u2)),
             "bound_ms": t_bound, "bound_by": by, "library_ms": None,
+            "byte_bound_ms": byte_ms, "sector_per_gather_ms": gather_ms,
         }
-        # each random 4-byte gather of a table larger than L2 is a 32 B sector
-        sector_ms = (12 * b + 32 * (b + rejected)) / HBM_BYTES_PER_S * 1e3
         emit({"phase": "kernels", "kernel": "alias_draw",
-              "shape": {"n": n, "draws": b, "distinct_buckets": distinct,
-                        "rejected_draws": rejected,
-                        "distinct_rejected_buckets": distinct_rejected},
+              "shape": {"n": n, "draws": b, "rejected_draws": rejected,
+                        "distinct_buckets": buckets[0],
+                        "distinct_rejected_buckets": buckets[1],
+                        "distinct_prob_sectors": sectors[0],
+                        "distinct_rejected_alias_sectors": sectors[1]},
               "max_abs_err": check.max_err["alias_draw"],
               "tolerance": check.TOLERANCE["alias_draw"],
               "edge_uniforms_n1000_idx": edge_idx,
               "library": "none (no single PyTorch call)",
-              "sector_bound_ms": sector_ms, **timed})
+              "bound": "12 B a draw + 32 B a distinct table sector", **timed})
         if row is None:
             row = timed
         else:
-            row["ms_2e24_draws"] = timed["ms"]
-            row["plain_ms_2e24_draws"] = timed["plain_ms"]
-            row["bound_ms_2e24_draws"] = timed["bound_ms"]
+            for key in ("ms", "plain_ms", "bound_ms", "byte_bound_ms",
+                        "sector_per_gather_ms"):
+                row[f"{key}_2e24_draws"] = timed[key]
         del u1, u2, got, bucket, reject
     torch.cuda.empty_cache()
     return row
@@ -1252,14 +1284,15 @@ def main() -> int:
         just after; each kernel in ``needs`` must have launched.  Its kernel
         calls are held against the plain versions: each call with
         ``every``, else each (kernel, shape, type) not yet compared."""
-        with check.installed(every) as compared:
+        with check.installed(every) as (compared, by_shape):
             for m in mods.values():
                 m.launches = 0
             run()
             counts = {name: m.launches for name, m in mods.items()}
         emit({"phase": "launches", "path": path, **counts,
               "compared_with_plain": compared,
-              "every_call_compared": every})
+              "every_call_compared": every,
+              "calls_by_shape": {k: v for k, v in by_shape.items() if v}})
         for name in needs:
             if counts[name] <= 0:
                 raise AssertionError(f"{name} was not launched on the {path} path")

@@ -1,6 +1,7 @@
 """Time, on one CUDA card, the calls that the driven paths make most of with
-the ``bfs_frontier`` and ``flash_attention`` kernels, so that two trees of
-the port can be held side by side:
+the redesigned kernels (``bfs_frontier``, ``flash_attention``,
+``rglru_scan``, ``alias_draw``), so that two trees of the port can be held
+side by side:
 
 - ``flash_attention`` in bf16 at ``adaptive_eval``'s shape, q (4, 10, 64,
   256) and k/v (4, 1, 64, 256), window 2048, and at recurrentgemma-2b's
@@ -10,7 +11,19 @@ the port can be held side by side:
   strategies × W ∈ {1, 2, 4}), by its wall time, once to warm up and then
   ``--reps`` times;
 - ``bfs_frontier`` on the inputs of the conformance grid's most frequent
-  (lanes, vertices) shapes, as recorded in the warm-up run.
+  (lanes, vertices) shapes, as recorded in the warm-up run;
+- ``rglru_scan`` at recurrentgemma-2b's prefill (2, 4096, 2560) and at
+  ``adaptive_eval``'s (4, 64, 2560);
+- ``alias_draw`` on a 2²⁴-bucket table (the wrs path's size; random valid
+  ``prob``/``alias``, not a Vose build) at 2¹⁸ draws (the wrs path's
+  W·batch), 2²⁰, 2²² and 2²⁴ draws, with prob uniform on [0, 1) (half the
+  draws rejected) and on [0, 0.7) (65 % rejected, as on the wrs path's
+  Pareto table); at the conformance grid's shapes, a 256-bucket table and
+  128, 256 and 512 draws; and, at 2²⁴ draws on the half-rejected table,
+  the probes that show what holds it back: the same draws on a 2¹⁶-bucket
+  table (in L2), with prob ≡ 1 (no alias gather), and with u1 sorted
+  (buckets in order), beside ``torch.add(u1, u2)``, which streams the same
+  12 bytes a draw.
 
 Each kernel time is the median of CUDA-event times with L2 flushed before
 every call (``ms``), and the host's time a call in a loop of 200 calls
@@ -63,14 +76,16 @@ def loop_us(fn, calls: int = 200) -> float:
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--label", default="")
-    p.add_argument("--reps", type=int, default=3)
+    p.add_argument("--reps", type=int, default=10)
     args = p.parse_args(argv)
 
     import repro_torch
     from repro_torch.core.conformance import run_all
     from repro_torch.kernels import build, ops
+    from repro_torch.kernels.alias_draw import alias_draw
     from repro_torch.kernels.bfs_frontier import bfs_frontier
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rglru_scan import rglru_scan
 
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.time()
@@ -88,6 +103,51 @@ def main(argv=None) -> dict:
         call = lambda: flash_attention(q, k, v, window=2048)  # noqa: E731
         out[name] = {"q": list(q.shape), "ms": event_ms(call, flush),
                      "loop_us": loop_us(call)}
+
+    for name, shape in (("rglru_eval", (4, 64, 2560)),
+                        ("rglru_prefill", (2, 4096, 2560))):
+        a = torch.rand(shape, generator=gen, device="cuda") * 0.75 + 0.2
+        b = torch.randn(shape, generator=gen, device="cuda")
+        call = lambda: rglru_scan(a, b)  # noqa: E731
+        out[name] = {"shape": list(shape), "ms": event_ms(call, flush),
+                     "loop_us": loop_us(call)}
+        del a, b
+
+    out["alias_draw"] = []
+    for n, top, draws in ((1 << 24, 1.0, (1 << 18, 1 << 20, 1 << 22, 1 << 24)),
+                          (1 << 24, 0.7, (1 << 18, 1 << 24)),
+                          (256, 1.0, (128, 256, 512))):
+        prob = torch.rand(n, generator=gen, device="cuda") * top
+        alias = torch.randint(0, n, (n,), generator=gen, device="cuda",
+                              dtype=torch.int32)
+        for b in draws:
+            u1 = torch.rand(b, generator=gen, device="cuda")
+            u2 = torch.rand(b, generator=gen, device="cuda")
+            bucket = (u1 * n).long().clamp(0, n - 1)
+            call = lambda: alias_draw(prob, alias, u1, u2)  # noqa: E731
+            out["alias_draw"].append({
+                "n": n, "prob_below": top, "draws": b,
+                "rejected": float((u2 >= prob[bucket]).float().mean()),
+                "ms": event_ms(call, flush), "loop_us": loop_us(call)})
+    n = 1 << 24
+    prob = torch.rand(n, generator=gen, device="cuda")
+    alias = torch.randint(0, n, (n,), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    u1 = torch.rand(n, generator=gen, device="cuda")
+    u2 = torch.rand(n, generator=gen, device="cuda")
+    small = 1 << 16
+    probes = {
+        "as_drawn": (prob, alias, u1, u2),
+        "table_in_l2": (prob[:small].clone(), alias[:small] % small, u1, u2),
+        "prob_1_no_alias_gather": (torch.ones_like(prob), alias, u1, u2),
+        "buckets_in_order": (prob, alias, torch.sort(u1).values, u2),
+    }
+    probe_ms = {name: event_ms(lambda: alias_draw(*args), flush)  # noqa: B023
+                for name, args in probes.items()}
+    probe_ms["streams_only_torch_add"] = event_ms(lambda: torch.add(u1, u2),
+                                                  flush)
+    out["alias_draw_probes"] = {"draws": n, **probe_ms}
+    del prob, alias, u1, u2, probes
 
     # the warm-up run records the first inputs of each (lanes, n) shape
     seen = {}

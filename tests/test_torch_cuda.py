@@ -107,20 +107,63 @@ def test_bfs_frontier_lanes_are_independent_on_card(cuda_device):
         assert torch.equal(alone[0], batch[b])
 
 
-@pytest.mark.parametrize("n,b", [(1, 1), (1000, 4097), (1 << 16, 1 << 18)])
-def test_alias_draw_kernel_on_card(cuda_device, n, b):
-    """Exact, with the edge uniforms 0 and 1−2⁻²⁴ among the draws."""
-    rng = np.random.default_rng(n)
-    table = build_alias_table(rng.pareto(1.5, size=n) + 1e-3, device=cuda_device)
+def _edge_uniforms(rng, b):
+    """u1, u2 (b,) f32 with the edge uniforms 0 and 1−2⁻²⁴ in every
+    combination at the front."""
     u1 = rng.random(b, dtype=np.float32)
     u2 = rng.random(b, dtype=np.float32)
     edge = np.array([0.0, np.nextafter(np.float32(1), np.float32(0))], np.float32)
     k = min(b, 4)
     u1[:k], u2[:k] = edge[[0, 1, 0, 1]][:k], edge[[0, 0, 1, 1]][:k]
-    u1, u2 = (torch.from_numpy(u).to(cuda_device) for u in (u1, u2))
-    got = alias_mod.alias_draw(table.prob, table.alias, u1, u2)
+    return u1, u2
+
+
+def _assert_alias_exact(prob, alias, u1, u2):
+    got = alias_mod.alias_draw(prob, alias, u1, u2)
     torch.cuda.synchronize()
-    assert torch.equal(got, ref.alias_draw_ref(table.prob, table.alias, u1, u2))
+    assert torch.equal(got, ref.alias_draw_ref(prob, alias, u1, u2))
+
+
+@pytest.mark.parametrize("n,b", [(1, 1), (1000, 4097), (1 << 16, 1 << 18),
+                                 (1000, 262_147)])
+def test_alias_draw_kernel_on_card(cuda_device, n, b):
+    """Exact, with the edge uniforms 0 and 1−2⁻²⁴ among the draws; 262,147
+    draws are not a whole number of float4s or of 128-draw warp tiles."""
+    rng = np.random.default_rng(n)
+    table = build_alias_table(rng.pareto(1.5, size=n) + 1e-3, device=cuda_device)
+    u1, u2 = (torch.from_numpy(u).to(cuda_device) for u in _edge_uniforms(rng, b))
+    _assert_alias_exact(table.prob, table.alias, u1, u2)
+
+
+@pytest.mark.parametrize("b", [1, 5, 4099, 262_144])
+def test_alias_draw_kernel_on_unaligned_views_on_card(cuda_device, b):
+    """u1 and u2 as ``buf[1:]`` views, 4-byte but not 16-byte aligned: the
+    kernel takes its scalar-load body, exact all the same."""
+    rng = np.random.default_rng(b)
+    table = build_alias_table(rng.pareto(1.5, size=1000) + 1e-3,
+                              device=cuda_device)
+    u1, u2 = _edge_uniforms(rng, b)
+    bufs = [torch.zeros(b + 1, dtype=torch.float32, device=cuda_device)
+            for _ in range(2)]
+    for buf, u in zip(bufs, (u1, u2)):
+        buf[1:] = torch.from_numpy(u).to(cuda_device)
+    u1, u2 = bufs[0][1:], bufs[1][1:]
+    assert u1.data_ptr() % 16 != 0 and u1.is_contiguous()
+    _assert_alias_exact(table.prob, table.alias, u1, u2)
+
+
+def test_alias_draw_kernel_on_the_wrs_table_size_on_card(cuda_device):
+    """n = 2²⁴ buckets (the wrs path's 128 MB table, larger than L2) and
+    262,144 draws (its W·batch).  A random valid table: the draw does not
+    depend on how the table was built."""
+    n, b = 1 << 24, 262_144
+    gen = torch.Generator(device=cuda_device).manual_seed(24)
+    prob = torch.rand(n, generator=gen, device=cuda_device)
+    alias = torch.randint(0, n, (n,), generator=gen, device=cuda_device,
+                          dtype=torch.int32)
+    u1, u2 = (torch.from_numpy(u).to(cuda_device)
+              for u in _edge_uniforms(np.random.default_rng(24), b))
+    _assert_alias_exact(prob, alias, u1, u2)
 
 
 
@@ -145,15 +188,52 @@ def test_flash_attention_kernel_on_card(cuda_device, dtype, tol, b, h, kv, s,
                                rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("b,s,w", [(1, 64, 512), (2, 33, 1000), (2, 4096, 2560)])
+def _rglru_inputs(shape, device, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    a = torch.rand(shape, generator=gen, device=device) * 0.75 + 0.2
+    return a, torch.randn(shape, generator=gen, device=device)
+
+
+@pytest.mark.parametrize("b,s,w", [(1, 64, 512), (2, 33, 1000), (2, 4096, 2560),
+                                   (1, 7, 1001), (2, 1, 2560), (2, 4097, 48),
+                                   (4, 64, 2560)])
 def test_rglru_scan_kernel_on_card(cuda_device, b, s, w):
-    """Exact: one FMA a step in both."""
-    gen = torch.Generator(device=cuda_device).manual_seed(w)
-    a = torch.rand((b, s, w), generator=gen, device=cuda_device) * 0.75 + 0.2
-    bb = torch.randn((b, s, w), generator=gen, device=cuda_device)
+    """Exact: one FMA a step in both.  The prefill's (2, 4096, 2560) and
+    adaptive_eval's (4, 64, 2560); W = 1000 ends in a part group of
+    channels; W = 1001 rows are not 16-byte multiples (the 4-byte body);
+    S = 1 and S = 4097 end in a part stage."""
+    a, bb = _rglru_inputs((b, s, w), cuda_device, seed=w)
     got = rglru_mod.rglru_scan(a, bb)
     torch.cuda.synchronize()
     assert torch.equal(got, ref.rglru_scan_ref(a, bb))
+
+
+def test_rglru_scan_kernel_on_unaligned_views_on_card(cuda_device):
+    """a and b as ``buf[1:]`` views, contiguous but not 16-byte aligned,
+    with W a multiple of 4: the 4-byte body, exact."""
+    shape = (2, 70, 64)
+    a, bb = _rglru_inputs(shape, cuda_device, seed=70)
+    views = []
+    for x in (a, bb):
+        buf = torch.empty(x.numel() + 1, device=cuda_device)
+        buf[1:] = x.reshape(-1)
+        views.append(buf[1:].view(shape))
+    assert views[0].data_ptr() % 16 != 0 and views[0].is_contiguous()
+    got = rglru_mod.rglru_scan(*views)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.rglru_scan_ref(a, bb))
+
+
+def test_rglru_scan_batch_rows_are_independent_on_card(cuda_device):
+    """Each batch row run alone is bit-equal to its row of the batch, and
+    two runs are bit-equal."""
+    a, bb = _rglru_inputs((3, 200, 2560), cuda_device, seed=3)
+    batch = rglru_mod.rglru_scan(a, bb)
+    assert torch.equal(batch, rglru_mod.rglru_scan(a, bb))
+    for i in range(3):
+        alone = rglru_mod.rglru_scan(a[i:i + 1].contiguous(),
+                                     bb[i:i + 1].contiguous())
+        assert torch.equal(alone[0], batch[i])
 
 
 @pytest.mark.parametrize("b,s,d,n", [(1, 64, 64, 8), (2, 33, 125, 3),

@@ -202,12 +202,15 @@ def _scan_inputs(b, s, w, seed):
     return a, bb
 
 
-@pytest.mark.parametrize("b,s,w", [(1, 64, 512), (2, 33, 1024)])
+@pytest.mark.parametrize("b,s,w", [(1, 64, 512), (2, 33, 1024), (1, 1, 512),
+                                   (2, 9, 1000)])
 def test_rglru_scan_ref_matches_pallas_exactly(b, s, w):
-    """The Pallas body is the same sequential recurrence: bit-equal."""
+    """The Pallas body is the same sequential recurrence: bit-equal.  S = 1
+    is one step; W = 1000 runs five 200-channel blocks."""
     a, bb = _scan_inputs(b, s, w, seed=w)
-    exp = np.asarray(jax_rglru_scan(jnp.asarray(a), jnp.asarray(bb), block_w=256,
-                                    interpret=True))
+    block_w = 256 if w % 256 == 0 else 200
+    exp = np.asarray(jax_rglru_scan(jnp.asarray(a), jnp.asarray(bb),
+                                    block_w=block_w, interpret=True))
     got = ref.rglru_scan_ref(torch.from_numpy(a), torch.from_numpy(bb))
     assert got.dtype == torch.float32
     np.testing.assert_array_equal(got.numpy(), exp)

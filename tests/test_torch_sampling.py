@@ -89,8 +89,10 @@ def _uniforms(b, seed):
 
 
 @pytest.mark.parametrize("n,b", [(1, 1), (7, 1000), (1000, 4097),
-                                 (4096, 10000), (1000, 4)])
+                                 (4096, 10000), (1000, 4), (257, 4099)])
 def test_alias_draw_ref_equals_pallas(n, b):
+    """b = 4097, 10000 and 4099 are not multiples of the Pallas kernel's
+    4096-draw block, so it pads the last block."""
     jt = jsamp.build_alias_table(_weights(n, seed=n + b))
     u1, u2 = _uniforms(b, seed=b)
     exp = np.asarray(jax_alias_draw(jt.prob, jt.alias, jnp.asarray(u1),
