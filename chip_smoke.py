@@ -9,10 +9,10 @@ and the script exits non-zero:
 1. device      — the card (nvidia-smi name and power limit), torch and CUDA.
 2. build       — nvcc builds the six kernels from
                  ``src/repro_torch/kernels/csrc``, all at once, and prints
-                 ptxas's registers, spills and shared memory of the four
+                 ptxas's registers, spills and shared memory of the five
                  redesigned kernels (``bfs_frontier``, ``flash_attention``,
-                 ``rglru_scan``, ``alias_draw``) and the bf16 attention
-                 body's HMMA/HGMMA count in the SASS
+                 ``rglru_scan``, ``alias_draw``, ``frame_accum``) and the
+                 bf16 attention body's HMMA/HGMMA count in the SASS
                  (``cuobjdump -sass``); a missing ptxas report, a spill or
                  a bf16 body without tensor-core instructions fails.
 3. wrs table   — the 2**24-item alias table of the wrs full-size run
@@ -20,8 +20,10 @@ and the script exits non-zero:
 4. kernels     — each kernel against its plain PyTorch version at the main
                  paths' full-size shapes, with times (CUDA events, median),
                  the bound and one library call as a yardstick where there
-                 is one: ``frame_accum`` at (4, 2**20) and at the wrs
-                 path's (4, 2**24) and (4, 1) int32 frames; ``bfs_frontier``
+                 is one: ``frame_accum`` at (4, 2**20), at the wrs
+                 path's (4, 2**24) and (4, 1) int32 frames and at the
+                 conformance grid's commonest (2, 1), timed at all four
+                 with the host's time a call beside; ``bfs_frontier``
                  at 256 lanes on the full graph, timed at levels 0–7 of one
                  BFS, with ``torch.sparse.mm`` at levels 2, 4 and 5;
                  ``alias_draw``
@@ -30,12 +32,14 @@ and the script exits non-zero:
                  1−2⁻²⁴ at n = 1000; ``flash_attention`` at recurrentgemma's
                  prefill shape q (2, 10, 4096, 256), k/v (2, 1, 4096, 256),
                  window 2048, in bf16 and f32, at S = 100 and window 0,
-                 and in bf16 at ``adaptive_eval``'s (4, 10, 64, 256);
+                 in bf16 at ``adaptive_eval``'s (4, 10, 64, 256) and in
+                 f32 at the prefill-vs-decode gate's (4, 10, 32, 256);
                  ``rglru_scan`` exactly at the prefill's (2, 4096, 2560),
                  timed there and at ``adaptive_eval``'s (4, 64, 2560), and
                  at a ragged (3, 100, 1000) and (1, 7, 1001); ``ssm_scan``
-                 exactly at falcon-mamba-7b's prefill (2, 4096, 8192, 16)
-                 and at a ragged (3, 100, 125, 3).
+                 exactly at falcon-mamba-7b's prefill (2, 4096, 8192, 16),
+                 at ``adaptive_eval``'s (4, 64, 8192, 16) (both timed) and
+                 at a ragged (3, 100, 125, 3).
 5. accuracy    — KADABRA on erdos_renyi(1000, 5000) for all five strategies
                  within ε of exact Brandes; INDEXED_FRAME bit-identical for
                  W ∈ {1, 2, 4}; τ a whole number of frame units; SHARED == LOCAL.
@@ -143,22 +147,50 @@ KERNEL_NAMES = {  # device kernels of the port's wrappers, by name part
     "frame_accum": ("frame_accum",),
     "bfs_frontier": ("bfs_pack_kernel", "bfs_pull_kernel"),
     "alias_draw": ("alias_draw_kernel",),
-    "flash_attention": ("flash_bf16_kernel", "flash_attention_kernel"),
+    "flash_attention": ("flash_bf16_kernel", "flash_f32_kernel"),
     "rglru_scan": ("rglru_scan_kernel",),
     "ssm_scan": ("ssm_scan",),
 }
 
 
 def kernel_label(mangled: str) -> str:
-    """``flash_bf16_kernel<256>`` from a mangled kernel name of the port (a
-    name part in ``KERNEL_NAMES`` and its int template argument)."""
+    """``flash_f32_kernel<256, 4>`` from a mangled kernel name of the port:
+    the last length-prefixed identifier that starts with a name part in
+    ``KERNEL_NAMES`` and is followed by its template arguments or the end
+    of its nested name, and those template arguments (int literals,
+    builtin types and plain names)."""
     import re
 
     parts = "|".join(p for ps in KERNEL_NAMES.values() for p in ps)
-    found = re.search(rf"((?:{parts})\w*?)(ILi(\d+)E)?E", mangled)
-    if not found:
+    found = None
+    for m in re.finditer(rf"\d+(?={parts})", mangled):
+        digits = m.group()
+        for k in range(len(digits)):  # the length may be a suffix of the run
+            end = m.end() + int(digits[k:])
+            name = mangled[m.end():end]
+            if re.fullmatch(r"[a-z0-9_]+", name) and mangled[end:end + 1] in "IE":
+                found = (name, end)
+                break
+    if found is None:
         return mangled
-    return found.group(1) + (f"<{found.group(3)}>" if found.group(3) else "")
+    name, i = found
+    args = []
+    if mangled[i:i + 1] == "I":
+        i += 1
+        while i < len(mangled) and mangled[i] != "E":
+            if mangled[i] == "L":                    # L<type><value>E
+                end = mangled.index("E", i)
+                args.append(mangled[i + 2:end])
+                i = end + 1
+            elif mangled[i].isdigit():               # <length><name>
+                digits = re.match(r"\d+", mangled[i:]).group()
+                i += len(digits)
+                args.append(mangled[i:i + int(digits)])
+                i += int(digits)
+            else:                                    # a builtin type
+                args.append({"i": "int", "f": "float"}.get(mangled[i], mangled[i]))
+                i += 1
+    return name + (f"<{', '.join(args)}>" if args else "")
 
 
 def ptxas_report(log: str) -> list:
@@ -201,7 +233,7 @@ def sass_mma_counts(lib: Path, nvcc: str) -> dict | None:
 
 def phase_build(torch) -> None:
     """Build every kernel at once; print ptxas's registers, spills and
-    shared memory of the four redesigned kernels (from the log kept beside
+    shared memory of the five redesigned kernels (from the log kept beside
     each library, so also when it was built before) and the bf16 attention
     body's tensor-core instructions in the SASS.  A missing report, a spill
     or a bf16 body without tensor-core instructions fails."""
@@ -211,7 +243,8 @@ def phase_build(torch) -> None:
     build.build_all()
     emit({"phase": "build", "nvcc_s": time.time() - t0,
           "flags": " ".join(build.NVCC_FLAGS)})
-    for name in ("bfs_frontier", "flash_attention", "rglru_scan", "alias_draw"):
+    for name in ("bfs_frontier", "flash_attention", "rglru_scan", "alias_draw",
+                 "frame_accum"):
         report = ptxas_report(build.ptxas_log(name))
         emit({"phase": "build", "source": f"csrc/{name}.cu", "ptxas": report})
         if not report or any(r["spill_stores"] != 0 or r["spill_loads"] != 0
@@ -505,17 +538,19 @@ def device_ms_by(torch, fn, parts, reps: int = 3) -> dict:
 def phase_kernels(torch, timer, check, g, table):
     from repro_torch.kernels import ref
     from repro_torch.kernels.frame_accum import frame_accum
+    from repro_torch.launch.time_kernels import loop_us
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     rows = {}
 
-    # frame_accum at the kadabra path's (W=4, n=2^20) per-vertex counts, and
-    # at the wrs full path's (4, 2^24) int32 hist and (4, 1) scalar leaves
+    # frame_accum at the kadabra path's (W=4, n=2^20) per-vertex counts, at
+    # the wrs full path's (4, 2^24) int32 hist and (4, 1) scalar leaves, and
+    # at conformance's commonest frame (2, 1)
     W, n = 4, FULL_N
     shapes = [(torch.int32, (W, n)), (torch.float32, (W, n)),
               (torch.bfloat16, (W, n)), (torch.int32, (WRS_WORLD, WRS_ITEMS)),
-              (torch.int32, (WRS_WORLD, 1))]
+              (torch.int32, (WRS_WORLD, 1)), (torch.int32, (2, 1))]
     for dtype, shape in shapes:
         if dtype == torch.int32:
             x = torch.randint(0, 2 ** 20, shape, generator=gen, device="cuda",
@@ -524,19 +559,33 @@ def phase_kernels(torch, timer, check, g, table):
             x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
         check.compare_frame_accum(x, frame_accum(x))
         del x
-    x = torch.randint(0, 1000, (W, n), generator=gen, device="cuda",
-                      dtype=torch.int32)
-    t_bound, by = bound_ms((W + 1) * n * 4, (W - 1) * n)
-    rows["frame_accum"] = {
-        "ms": timer(lambda: frame_accum(x)),
-        "plain_ms": timer(lambda: ref.frame_accum_ref(x)),
-        "bound_ms": t_bound, "bound_by": by,
-        "library_ms": timer(lambda: torch.sum(x, dim=0, dtype=torch.int32)),
-    }
-    emit({"phase": "kernels", "kernel": "frame_accum", "shape": [W, n],
-          "checked": [[str(d).split(".")[-1], list(sh)] for d, sh in shapes],
-          "max_abs_err": check.max_err["frame_accum"],
-          "tolerance": check.TOLERANCE["frame_accum"], **rows["frame_accum"]})
+    # timed in int32 at the kadabra path's (4, 2^20), the wrs path's
+    # (4, 2^24) and (4, 1), and conformance's commonest frame (2, 1); the
+    # small ones are bound by the host's time a call (loop_us)
+    timed = {}
+    for shape in ((W, n), (WRS_WORLD, WRS_ITEMS), (WRS_WORLD, 1), (2, 1)):
+        x = torch.randint(0, 1000, shape, generator=gen, device="cuda",
+                          dtype=torch.int32)
+        w, m = shape
+        t_bound, by = bound_ms((w + 1) * m * 4, (w - 1) * m)
+        timed[shape] = {
+            "ms": timer(lambda: frame_accum(x)),
+            "loop_us": loop_us(lambda: frame_accum(x)),
+            "plain_ms": timer(lambda: ref.frame_accum_ref(x)),
+            "bound_ms": t_bound, "bound_by": by,
+            "library_ms": timer(lambda: torch.sum(x, dim=0, dtype=torch.int32)),
+        }
+        emit({"phase": "kernels", "kernel": "frame_accum", "shape": list(shape),
+              "checked": [[str(d).split(".")[-1], list(sh)] for d, sh in shapes],
+              "max_abs_err": check.max_err["frame_accum"],
+              "tolerance": check.TOLERANCE["frame_accum"], **timed[shape]})
+        del x
+    rows["frame_accum"] = dict(timed[(W, n)])
+    for shape, tag in (((WRS_WORLD, WRS_ITEMS), "wrs_hist"),
+                       ((WRS_WORLD, 1), "wrs_scalar"), ((2, 1), "conformance")):
+        rows["frame_accum"].update({f"{key}_{tag}": val
+                                    for key, val in timed[shape].items()
+                                    if key != "bound_by"})
 
     rows["bfs_frontier"] = kernel_bfs_frontier(torch, timer, check, gen, g)
     rows["alias_draw"] = kernel_alias_draw(torch, timer, check, gen, table)
@@ -644,6 +693,7 @@ def kernel_flash_attention(torch, timer, check, gen):
 
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.time_kernels import loop_us
 
     B, S = RG_PREFILL
     H, KV, hd, window = 10, 1, 256, 2048
@@ -718,6 +768,27 @@ def kernel_flash_attention(torch, timer, check, gen):
           "path": "adaptive_eval", **eval_row})
     row.update({f"{key}_eval_shape": val for key, val in eval_row.items()
                 if key != "bound_by"})
+
+    # the f32 prefill-vs-decode gate's shape: B = 4, S = 32, one kv tile
+    Bg, Sg = SERVE_GEN[0], SERVE_GEN[1]
+    q, k, v = qkv(Bg, Sg, torch.float32)
+    check.compare_flash(q, k, v, window, flash_attention(q, k, v, window=window))
+    pos = torch.arange(Sg, device="cuda")
+    mask = pos[None, :] <= pos[:, None]
+    ke, ve = k.expand(Bg, H, Sg, hd), v.expand(Bg, H, Sg, hd)
+    pairs = Bg * H * attention_pairs(Sg, window)
+    t_bound, by = bound_ms(4 * (2 * q.numel() + k.numel() + v.numel()),
+                           4 * hd * pairs)
+    call = lambda: flash_attention(q, k, v, window=window)  # noqa: E731
+    gate_row = {"ms": timer(call), "loop_us": loop_us(call),
+                "bound_ms": t_bound, "bound_by": by,
+                "library_ms": timer(lambda: F.scaled_dot_product_attention(
+                    q, ke, ve, attn_mask=mask))}
+    emit({"phase": "kernels", "kernel": "flash_attention", "dtype": "float32",
+          "shape": {"q": list(q.shape), "kv": list(k.shape), "window": window},
+          "path": "prefill vs decode (f32)", **gate_row})
+    row.update({f"{key}_f32_gate_shape": val for key, val in gate_row.items()
+                if key != "bound_by"})
     torch.cuda.empty_cache()
     return row
 
@@ -761,18 +832,29 @@ def kernel_rglru_scan(torch, timer, check, gen):
 
 def kernel_ssm_scan(torch, timer, check, gen):
     """``ssm_scan`` exactly against its plain version at a ragged
-    (3, 100, 125, 3) and at falcon-mamba-7b's full-width prefill
-    (2, 4096, 8192, 16): 4.3 GB a tensor.  The plain version walks the 4096
-    steps once, with no warm-up."""
+    (3, 100, 125, 3), at ``adaptive_eval``'s (4, 64, 8192, 16) (timed
+    there) and at falcon-mamba-7b's full-width prefill (2, 4096, 8192, 16):
+    4.3 GB a tensor.  The plain version walks the 4096 steps once, with no
+    warm-up."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.ssm_scan import ssm_scan
+    from repro_torch.launch.time_kernels import loop_us
 
     checked = []
-    for shape in ((3, 100, 125, 3), (*MAMBA_PREFILL, 8192, 16)):
+    eval_shape = (SERVE_EVAL["batch"], SERVE_EVAL["seq"], 8192, 16)
+    for shape in ((3, 100, 125, 3), eval_shape, (*MAMBA_PREFILL, 8192, 16)):
         a = torch.rand(shape, generator=gen, device="cuda") * 0.89 + 0.1
         b = torch.randn(shape, generator=gen, device="cuda")
         check.compare_ssm(a, b, ssm_scan(a, b))
         checked.append(list(shape))
+        if shape == eval_shape:
+            # adaptive_eval's shape, where most of the path's launches are
+            t_bound, by = bound_ms(3 * 4 * a.numel(), 2 * a.numel())
+            eval_row = {"ms": timer(lambda: ssm_scan(a, b)),
+                        "loop_us": loop_us(lambda: ssm_scan(a, b)),
+                        "bound_ms": t_bound, "bound_by": by}
+            emit({"phase": "kernels", "kernel": "ssm_scan", "shape": list(shape),
+                  "path": "adaptive_eval", **eval_row})
     torch.cuda.empty_cache()
     t_bound, by = bound_ms(3 * 4 * a.numel(), 2 * a.numel())
     row = {"ms": timer(lambda: ssm_scan(a, b)),
@@ -785,6 +867,8 @@ def kernel_ssm_scan(torch, timer, check, gen):
           **row})
     del a, b
     torch.cuda.empty_cache()
+    row.update({f"{key}_eval_shape": val for key, val in eval_row.items()
+                if key != "bound_by"})
     return row
 
 

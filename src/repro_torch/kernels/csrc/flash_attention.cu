@@ -59,11 +59,48 @@
 //   rate), TMA with mbarriers instead of a block barrier a tile, and reuse
 //   of a K/V tile across the G query heads of a group are left to later work.
 //
-// f32 — the CUDA cores, as ported first: q, k, v, scores, probabilities and
-// acc all f32 (the Pallas body's numerics); 8 warps, 32-key tiles loaded
-// synchronously, K transposed in shared memory; 178 registers at hd 256.
-// It is bound by the f32 core rate (1.92 ms at the prefill shape) and was
-// already faster there than scaled_dot_product_attention in f32.
+// f32 — the CUDA cores: q, k, v, scores, probabilities, m, l and acc all
+// f32 (the Pallas body's numerics).  What bounds it on an H100: the same
+// 1.29e11 flops at the prefill shape at the f32 core rate (67 TFLOP/s),
+// 1.92 ms.  The first port reached 24 % of that (8.15 ms): its score loop
+// made one shared load for every ~2.7 FMAs, its softmax ran full-warp
+// reductions for 8 rows a tile, and K and V were loaded synchronously
+// (K transposed on the way) with no overlap of load and compute.  This body
+// is an SGEMM micro-kernel around a streaming softmax:
+//   - 256 threads; warp w owns query rows 8w … 8w + 7 in both products, so
+//     P and the row rescale pass between the two products inside the warp;
+//   - S = Q·Kᵀ on a 64 × 64 tile: each thread computes 4 rows × 4 keys
+//     from float4s of Q and K along hd (rows 4·tr + i, keys tc + 16·j):
+//     8 shared loads for 64 FMAs; shared rows are padded by 16 bytes, so
+//     the warp's Q loads (2 rows) and K loads (16 rows) hit distinct banks;
+//   - the softmax in f32 in the log2 domain (exp2f, scale·log2 e in one
+//     multiply); a row's max takes 4 shuffles within its half-warp, and l
+//     is kept per thread and summed over the half-warp once at the end;
+//     masked only on tiles that cross the diagonal, the window's edge or S;
+//   - O += P·V: each thread owns R rows × 4·CV columns of O (8 × 8 at hd
+//     256, 8 × 4 at 128, 4 × 4 at 64, 2 × 4 at 32), fed by float4s of P
+//     and V: 16 shared loads for 256 FMAs at hd 256;
+//   - K and V come in by cp.async (16 bytes a copy where every pointer is
+//     16-byte aligned and every stride a multiple of 4, else 4 bytes),
+//     zero-filled past S, into one buffer each, and each is refilled while
+//     the other is in use: V_t lands during Q·K_tᵀ and K_{t+1} during P·V_t
+//     (two block barriers a tile).  A two-stage ring of both would force
+//     32-key tiles at hd 256; this keeps 64 keys (the 4 × 4 score tile) in
+//     (64 + 2·64)·(hd + 4)·4 + 64·68·4 + 512 bytes: 45,568 at hd 32, 70,144
+//     at 64, 119,296 at 128, 217,600 at 256 (one block an SM; two at ≤ 64);
+//   - a warp whose rows all lie past S skips both products;
+//   - query tiles are launched longest first, as in the bf16 body.
+//   Registers (nvcc -Xptxas -v for sm_90a, 256 threads, 1 block an SM, 2 at
+//   hd ≤ 64): 128 at hd 32 and 64, 148 at 128, 168 at 256, no spills.  On
+//   an H100 SXM at 700 W this body takes 3.83–3.94 ms at the prefill shape
+//   (49–50 % of the bound; the first port 8.07).  In trials on the card
+//   these were no faster and were not kept: other unroll depths; register
+//   double-buffering of the Q and K fragments; half the shared-memory
+//   wavefronts in Q·Kᵀ (each row block split over two warps by key
+//   halves); 8 × 8 score tiles over quarters of hd (half the shared loads
+//   an FMA, 254 registers); and 16 warps with tiles half as large (slower).
+//   3xTF32 on the tensor cores (split-precision products) is left to later
+//   work: it changes the numerics and the bound.
 //
 // Plain C entry points; each returns the launch's cudaError_t, and the
 // Python wrapper (repro_torch/kernels/flash_attention.py) raises if it is
@@ -81,189 +118,11 @@ struct Strides {                   // (b, head, position) strides in elements
   long long q[3], k[3], v[3], o[3];
 };
 
-// ---------------------------------------------------------------- f32 body
-
-constexpr int kThreads = 256;      // 8 warps
-constexpr int kWarps = kThreads / 32;
 constexpr int kBQ = 64;            // query rows of a block (both bodies)
-constexpr int kBK = 32;            // keys of a kv tile (one per lane)
-constexpr int kRowsPerWarp = kBQ / kWarps;
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-template <int HD>
-constexpr int smem_floats() {
-  // Q tile, K tile transposed (rows padded to kBK + 1), V tile, P, corr, l
-  return kBQ * HD + HD * (kBK + 1) + kBK * HD + kBQ * kBK + 2 * kBQ;
-}
-
-template <int HD>
-__global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                       const float* __restrict__ v, float* __restrict__ o, int S,
-                       int group, int window, float scale, Strides st) {
-  static_assert(HD % 32 == 0 && kThreads % HD == 0, "head dim 32 … 256");
-  constexpr int kRowGroups = kThreads / HD;        // 1, 2, 4 or 8
-  constexpr int kRowsPerThread = kBQ / kRowGroups;  // 64, 32, 16 or 8
-
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);     // [kBQ][HD]
-  float* Kt = Qs + kBQ * HD;                       // [HD][kBK + 1]
-  float* Vs = Kt + HD * (kBK + 1);                 // [kBK][HD]
-  float* Ps = Vs + kBK * HD;                       // [kBQ][kBK]
-  float* corr_s = Ps + kBQ * kBK;                  // [kBQ]
-  float* l_s = corr_s + kBQ;                       // [kBQ]
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int q0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y, bi = blockIdx.z;
-  const int hk = h / group;
-  const float* qb = q + bi * st.q[0] + h * st.q[1];
-  const float* kb = k + bi * st.k[0] + hk * st.k[1];
-  const float* vb = v + bi * st.v[0] + hk * st.v[1];
-  float* ob = o + bi * st.o[0] + h * st.o[1];
-
-  for (int idx = tid; idx < kBQ * HD; idx += kThreads) {
-    const int r = idx / HD, d = idx % HD;
-    const int qp = q0 + r;
-    Qs[idx] = qp < S ? qb[qp * st.q[2] + d] : 0.0f;
-  }
-
-  // softmax state of this warp's rows, held alike by all 32 lanes
-  float m[kRowsPerWarp], l[kRowsPerWarp];
-#pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.0f;
-  }
-  // acc[i] is row g + kRowGroups*i, column c
-  const int c = tid % HD, g = tid / HD;
-  float acc[kRowsPerThread];
-#pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) acc[i] = 0.0f;
-
-  const int q_last = min(q0 + kBQ, S) - 1;
-  const int kt_lo = window > 0 ? max(0, q0 - window + 1) / kBK : 0;
-  const int kt_hi = q_last / kBK;
-
-  for (int kt = kt_lo; kt <= kt_hi; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();  // the previous tile's P·V has read Vs and Ps
-    for (int idx = tid; idx < kBK * HD; idx += kThreads) {
-      const int j = idx / HD, d = idx % HD;
-      const int kp = k0 + j;
-      const bool in = kp < S;
-      Kt[d * (kBK + 1) + j] = in ? kb[kp * st.k[2] + d] : 0.0f;
-      Vs[idx] = in ? vb[kp * st.v[2] + d] : 0.0f;
-    }
-    __syncthreads();
-
-    // scores: warp w, lane j → rows w*kRowsPerWarp + i, key k0 + j
-    float s[kRowsPerWarp];
-#pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) s[i] = 0.0f;
-    const float* qrow = Qs + warp * kRowsPerWarp * HD;
-#pragma unroll 4
-    for (int d = 0; d < HD; d += 4) {
-      const float k_0 = Kt[(d + 0) * (kBK + 1) + lane];
-      const float k_1 = Kt[(d + 1) * (kBK + 1) + lane];
-      const float k_2 = Kt[(d + 2) * (kBK + 1) + lane];
-      const float k_3 = Kt[(d + 3) * (kBK + 1) + lane];
-#pragma unroll
-      for (int i = 0; i < kRowsPerWarp; ++i) {
-        const float4 q4 = *reinterpret_cast<const float4*>(qrow + i * HD + d);
-        s[i] += q4.x * k_0 + q4.y * k_1 + q4.z * k_2 + q4.w * k_3;
-      }
-    }
-
-    const int kp = k0 + lane;
-#pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) {
-      const int r = warp * kRowsPerWarp + i;
-      const int qp = q0 + r;
-      const bool ok = kp <= qp && kp < S && (window <= 0 || kp > qp - window);
-      const float sc = ok ? s[i] * scale : -INFINITY;
-      const float m_new = fmaxf(m[i], warp_max(sc));
-      float p = 0.0f, corr = 1.0f;
-      if (m_new != -INFINITY) {  // some admissible key seen in this row
-        p = expf(sc - m_new);
-        corr = expf(m[i] - m_new);
-      }
-      l[i] = l[i] * corr + warp_sum(p);
-      m[i] = m_new;
-      Ps[r * kBK + lane] = p;
-      if (lane == 0) corr_s[r] = corr;
-    }
-    __syncthreads();
-
-    // acc = acc·corr + P·V
-    float vr[kBK];
-#pragma unroll
-    for (int j = 0; j < kBK; ++j) vr[j] = Vs[j * HD + c];
-#pragma unroll
-    for (int i = 0; i < kRowsPerThread; ++i) {
-      const int r = g + kRowGroups * i;
-      const float* prow = Ps + r * kBK;
-      float a = acc[i] * corr_s[r];
-#pragma unroll
-      for (int j = 0; j < kBK; j += 4) {
-        const float4 p4 = *reinterpret_cast<const float4*>(prow + j);
-        a += p4.x * vr[j] + p4.y * vr[j + 1] + p4.z * vr[j + 2] + p4.w * vr[j + 3];
-      }
-      acc[i] = a;
-    }
-  }
-
-  if (lane == 0) {
-#pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) l_s[warp * kRowsPerWarp + i] = l[i];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) {
-    const int r = g + kRowGroups * i;
-    const int qp = q0 + r;
-    if (qp < S) ob[qp * st.o[2] + c] = acc[i] / fmaxf(l_s[r], 1e-30f);
-  }
-}
-
-// --------------------------------------------------------- bf16 tensor cores
-
-namespace tc {
-
-using bf16 = __nv_bfloat16;
-constexpr int kThreads = 128;      // 4 warps × 16 query rows
 constexpr unsigned kFull = 0xffffffffu;
-
-template <int HD>
-struct Cfg {
-  static constexpr int BK = HD == 256 ? 32 : 64;   // keys of a kv tile
-  static constexpr int LD = HD + 8;                // padded row, in bf16
-  static constexpr int kSmemBytes = (kBQ + 4 * BK) * LD * 2;  // Q, 2×(K, V)
-};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool in) {
-  const int bytes = in ? 16 : 0;  // 0: the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(bytes)
-               : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -272,6 +131,286 @@ __device__ __forceinline__ void cp_async_commit() {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------- f32 body
+
+namespace fp {
+
+constexpr int kThreads = 256;      // 8 warps; warp w owns query rows 8w … 8w + 7
+constexpr int kBK = 64;            // keys of a kv tile
+
+template <int HD>
+struct Cfg {
+  static constexpr int LD = HD + 4;         // padded Q, K, V row: rows 4 banks apart
+  static constexpr int LDP = kBK + 4;       // padded P row
+  // P·V: a thread owns R rows × CV float4s of O's columns
+  static constexpr int CG = HD / 4 < 32 ? HD / 4 : 32;  // column groups a row
+  static constexpr int CV = HD / (4 * CG);               // 1, 1, 1, 2
+  static constexpr int R = 8 * CG / 32;                  // 2, 4, 8, 8
+  static constexpr int kSmemBytes =
+      ((kBQ + 2 * kBK) * LD + kBQ * LDP + 2 * kBQ) * 4;  // Q, K, V, P, corr, l
+  static constexpr int kMinBlocks = HD <= 64 ? 2 : 1;
+};
+
+// kVec floats a copy: 4 (16 bytes, .cg) or 1 (4 bytes, .ca); `in` false
+// zero-fills the destination.
+template <int kVec>
+__device__ __forceinline__ void cp_async(uint32_t dst, const float* src, bool in) {
+  if constexpr (kVec == 4) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+                 "l"(src), "r"(in ? 16 : 0)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+                 "l"(src), "r"(in ? 4 : 0)
+                 : "memory");
+  }
+}
+
+// 64 rows of HD floats from rows row0… of a strided tensor into a padded
+// shared tile, by cp.async; rows at or past S are zero-filled.
+template <int HD, int kVec>
+__device__ __forceinline__ void load_rows(float* tile, const float* src,
+                                          long long stride, int row0, int S,
+                                          int tid) {
+  constexpr int kPieces = HD / kVec;  // copies a row
+  static_assert(64 * kPieces % kThreads == 0, "whole copies a thread");
+#pragma unroll 4
+  for (int it = 0; it < 64 * kPieces / kThreads; ++it) {
+    const int i = tid + it * kThreads;
+    const int r = i / kPieces, c = (i % kPieces) * kVec;
+    const int pos = row0 + r;
+    const bool in = pos < S;
+    cp_async<kVec>(smem_u32(tile + r * Cfg<HD>::LD + c),
+                   src + (in ? pos : 0) * stride + c, in);
+  }
+}
+
+template <int HD, int kVec>
+__global__ void __launch_bounds__(kThreads, Cfg<HD>::kMinBlocks)
+flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int S,
+                 int group, int window, float scale_log2, Strides st) {
+  using C = Cfg<HD>;
+  constexpr int LD = C::LD, LDP = C::LDP, R = C::R, CV = C::CV, CG = C::CG;
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;                  // [kBQ][LD]
+  float* Ks = Qs + kBQ * LD;         // [kBK][LD]
+  float* Vs = Ks + kBK * LD;         // [kBK][LD]
+  float* Ps = Vs + kBK * LD;         // [kBQ][LDP]
+  float* corr_s = Ps + kBQ * LDP;    // [kBQ]
+  float* l_s = corr_s + kBQ;         // [kBQ]
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;  // longest rows first
+  const int h = blockIdx.y, bi = blockIdx.z, hk = h / group;
+  const float* qb = q + bi * st.q[0] + h * st.q[1];
+  const float* kb = k + bi * st.k[0] + hk * st.k[1];
+  const float* vb = v + bi * st.v[0] + hk * st.v[1];
+  float* ob = o + bi * st.o[0] + h * st.o[1];
+
+  const int q_last = min(q0 + kBQ, S) - 1;
+  const int kt_lo = window > 0 ? max(0, q0 - window + 1) / kBK : 0;
+  const int kt_hi = q_last / kBK;
+  // a warp whose 8 rows all lie past S computes nothing (S < 64 or ragged)
+  const bool live = q0 + 8 * warp < S;
+
+  // Q·Kᵀ: thread (tr, tc) holds rows 4·tr + i and keys tc + 16·j (i, j < 4);
+  // the 16 lanes of a half-warp share its rows
+  const int tr = 2 * warp + lane / 16, tc = lane % 16;
+  // P·V: rows pr0 + i (i < R), columns 4·cg + 4·CG·c + e (c < CV, e < 4)
+  const int cg = lane % CG, pr0 = 8 * warp + (lane / CG) * R;
+
+  load_rows<HD, kVec>(Qs, qb, st.q[2], q0, S, tid);
+  load_rows<HD, kVec>(Ks, kb, st.k[2], kt_lo * kBK, S, tid);
+  cp_async_commit();
+
+  float m[4], l[4];  // running max (log2 domain); this thread's part of l
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.0f;
+  }
+  float acc[R][CV][4];
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int c = 0; c < CV; ++c) acc[i][c][0] = acc[i][c][1] = acc[i][c][2] = acc[i][c][3] = 0.0f;
+
+  for (int kt = kt_lo; kt <= kt_hi; ++kt) {
+    const int k0 = kt * kBK;
+    cp_async_wait_all();
+    __syncthreads();  // K_t is in; every warp is done with V_{t−1} and P
+    load_rows<HD, kVec>(Vs, vb, st.v[2], k0, S, tid);  // lands during Q·K_tᵀ
+    cp_async_commit();
+
+    if (live) {
+      // s = Q·K_tᵀ, 4 × 4 a thread from float4s along hd: 8 shared loads
+      // for 64 FMAs
+      float s[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.0f;
+      const float* qr = Qs + 4 * tr * LD;
+      const float* kr = Ks + tc * LD;
+#pragma unroll 8
+      for (int d = 0; d < HD; d += 4) {
+        float4 a[4], b[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = *reinterpret_cast<const float4*>(qr + i * LD + d);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) b[j] = *reinterpret_cast<const float4*>(kr + 16 * j * LD + d);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            s[i][j] = fmaf(a[i].x, b[j].x, s[i][j]);
+            s[i][j] = fmaf(a[i].y, b[j].y, s[i][j]);
+            s[i][j] = fmaf(a[i].z, b[j].z, s[i][j]);
+            s[i][j] = fmaf(a[i].w, b[j].w, s[i][j]);
+          }
+      }
+
+      // mask (only tiles that cross the diagonal, the window's edge or S),
+      // into the log2 domain; the row max over the half-warp
+      const bool inside = k0 + kBK - 1 <= q0 && k0 + kBK <= S &&
+                          (window <= 0 || k0 > q_last - window);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = q0 + 4 * tr + i;
+        float t = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float x = s[i][j] * scale_log2;
+          if (!inside) {
+            const int kp = k0 + tc + 16 * j;
+            const bool ok = kp <= r && kp < S && (window <= 0 || kp > r - window);
+            x = ok ? x : -INFINITY;
+          }
+          s[i][j] = x;
+          t = fmaxf(t, x);
+        }
+#pragma unroll
+        for (int off = 1; off < 16; off <<= 1)
+          t = fmaxf(t, __shfl_xor_sync(kFull, t, off));
+        const float mn = fmaxf(m[i], t);
+        // a row with no admissible key yet: base 0 gives p = exp2(−inf) = 0
+        // and corr = 0 on a state that is still all zeros
+        const float base = mn == -INFINITY ? 0.0f : mn;
+        const float corr = exp2f(m[i] - base);
+        m[i] = mn;
+        float ls = 0.0f;
+        float* prow = Ps + (4 * tr + i) * LDP + tc;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float p = exp2f(s[i][j] - base);
+          ls += p;
+          prow[16 * j] = p;
+        }
+        l[i] = l[i] * corr + ls;
+        if (tc == 0) corr_s[4 * tr + i] = corr;
+      }
+    }
+
+    cp_async_wait_all();
+    __syncthreads();  // V_t is in; every warp is done with K_t
+    if (kt < kt_hi)   // lands during P·V_t
+      load_rows<HD, kVec>(Ks, kb, st.k[2], k0 + kBK, S, tid);
+    cp_async_commit();
+
+    if (live) {
+      // acc = acc·corr + P·V_t; the warp's own rows of P and corr
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const float c = corr_s[pr0 + i];
+#pragma unroll
+        for (int cc = 0; cc < CV; ++cc)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][cc][e] *= c;
+      }
+      const float* pr = Ps + pr0 * LDP;
+      const float* vc = Vs + 4 * cg;
+#pragma unroll 4
+      for (int j = 0; j < kBK; j += 4) {
+        float4 p4[R];
+#pragma unroll
+        for (int i = 0; i < R; ++i) p4[i] = *reinterpret_cast<const float4*>(pr + i * LDP + j);
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          float4 v4[CV];
+#pragma unroll
+          for (int cc = 0; cc < CV; ++cc)
+            v4[cc] = *reinterpret_cast<const float4*>(vc + (j + jj) * LD + 4 * CG * cc);
+#pragma unroll
+          for (int i = 0; i < R; ++i) {
+            const float p = jj == 0 ? p4[i].x : jj == 1 ? p4[i].y : jj == 2 ? p4[i].z : p4[i].w;
+#pragma unroll
+            for (int cc = 0; cc < CV; ++cc) {
+              acc[i][cc][0] = fmaf(p, v4[cc].x, acc[i][cc][0]);
+              acc[i][cc][1] = fmaf(p, v4[cc].y, acc[i][cc][1]);
+              acc[i][cc][2] = fmaf(p, v4[cc].z, acc[i][cc][2]);
+              acc[i][cc][3] = fmaf(p, v4[cc].w, acc[i][cc][3]);
+            }
+          }
+        }
+      }
+    }
+  }
+
+  if (!live) return;
+  // the row sums over the half-warp, then acc / l
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int off = 1; off < 16; off <<= 1) l[i] += __shfl_xor_sync(kFull, l[i], off);
+    if (tc == 0) l_s[4 * tr + i] = l[i];
+  }
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int row = q0 + pr0 + i;
+    if (row >= S) continue;
+    const float d = fmaxf(l_s[pr0 + i], 1e-30f);
+    float* orow = ob + row * st.o[2] + 4 * cg;
+#pragma unroll
+    for (int cc = 0; cc < CV; ++cc) {
+      const float4 r = make_float4(acc[i][cc][0] / d, acc[i][cc][1] / d,
+                                   acc[i][cc][2] / d, acc[i][cc][3] / d);
+      float* dst = orow + 4 * CG * cc;
+      if constexpr (kVec == 4) {
+        *reinterpret_cast<float4*>(dst) = r;
+      } else {
+        dst[0] = r.x;
+        dst[1] = r.y;
+        dst[2] = r.z;
+        dst[3] = r.w;
+      }
+    }
+  }
+}
+
+}  // namespace fp
+
+// --------------------------------------------------------- bf16 tensor cores
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+constexpr int kThreads = 128;      // 4 warps × 16 query rows
+
+template <int HD>
+struct Cfg {
+  static constexpr int BK = HD == 256 ? 32 : 64;   // keys of a kv tile
+  static constexpr int LD = HD + 8;                // padded row, in bf16
+  static constexpr int kSmemBytes = (kBQ + 4 * BK) * LD * 2;  // Q, 2×(K, V)
+};
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool in) {
+  const int bytes = in ? 16 : 0;  // 0: the 16 bytes are zero-filled
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
@@ -485,21 +624,38 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 }  // namespace tc
 
-template <int HD>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
-               int H, int KV, int S, int window, const Strides& st,
-               cudaStream_t stream) {
-  constexpr int bytes = smem_floats<HD>() * 4;
-  auto kernel = flash_attention_kernel<HD>;
+template <int HD, int kVec>
+int launch_f32_body(const void* q, const void* k, const void* v, void* o,
+                    int B, int H, int KV, int S, int window, const Strides& st,
+                    cudaStream_t stream) {
+  constexpr int bytes = fp::Cfg<HD>::kSmemBytes;
+  auto kernel = fp::flash_f32_kernel<HD, kVec>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  kernel<<<grid, kThreads, bytes, stream>>>(
+  kernel<<<grid, fp::kThreads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), S, H / KV, window,
-      1.0f / sqrtf(static_cast<float>(HD)), st);
+      1.4426950408889634f / sqrtf(static_cast<float>(HD)), st);
   return static_cast<int>(cudaGetLastError());
+}
+
+// 16-byte copies and stores where every base pointer is 16-byte aligned and
+// every stride a multiple of 4 floats; 4-byte ones otherwise (a choice by
+// the views' layout, not a fallback).
+template <int HD>
+int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
+               int H, int KV, int S, int window, const Strides& st,
+               cudaStream_t stream) {
+  bool vec = (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+              reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) %
+                 16 == 0;
+  for (int i = 0; i < 3; ++i)
+    vec = vec && st.q[i] % 4 == 0 && st.k[i] % 4 == 0 && st.v[i] % 4 == 0 &&
+          st.o[i] % 4 == 0;
+  return vec ? launch_f32_body<HD, 4>(q, k, v, o, B, H, KV, S, window, st, stream)
+             : launch_f32_body<HD, 1>(q, k, v, o, B, H, KV, S, window, st, stream);
 }
 
 template <int HD>

@@ -9,8 +9,11 @@ catches a failure and tries the other):
   (``mma.sync`` bf16 with f32 accumulation), K/V tiles loaded by
   ``cp.async`` into a two-stage ring; the probabilities are rounded to bf16
   for the P·V product.
-- float32 → ``flash_attention_f32``, the scalar body on the CUDA cores with
-  everything in f32, as the Pallas kernel computes.
+- float32 → ``flash_attention_f32``, on the CUDA cores with everything in
+  f32, as the Pallas kernel computes: register-tiled Q·Kᵀ and P·V (an SGEMM
+  micro-kernel a thread), K/V tiles loaded by ``cp.async`` (16 bytes a
+  copy where the views allow it, else 4), each refilled while the other is
+  multiplied.
 
 Replaces :func:`repro.kernels.flash_attention.flash_attention`.  Its plain
 version is :func:`repro_torch.kernels.ref.flash_attention_ref`; :mod:`.ops`

@@ -1,12 +1,18 @@
 """Time, on one CUDA card, the calls that the driven paths make most of with
 the redesigned kernels (``bfs_frontier``, ``flash_attention``,
-``rglru_scan``, ``alias_draw``), so that two trees of the port can be held
-side by side:
+``rglru_scan``, ``alias_draw``, ``frame_accum``), so that two trees of the
+port can be held side by side:
 
 - ``flash_attention`` in bf16 at ``adaptive_eval``'s shape, q (4, 10, 64,
   256) and k/v (4, 1, 64, 256), window 2048, and at recurrentgemma-2b's
   prefill shape, q (2, 10, 4096, 256) and k/v (2, 1, 4096, 256), both as
-  the model's (B, S, heads, hd) memory in (B, heads, S, hd) views;
+  the model's (B, S, heads, hd) memory in (B, heads, S, hd) views; in f32
+  at the prefill shape and at the f32 prefill-vs-decode gate's q (4, 10,
+  32, 256);
+- ``frame_accum`` on int32 frames at the kadabra path's (4, 2²⁰), the wrs
+  path's (4, 2²⁴) and (4, 1), and the conformance grid's commonest (2, 1);
+  at the first two also after an L2 flush that leaves clean lines
+  (``ms_clean_l2``);
 - the conformance grid, ``run_all(device="cuda")`` (6 instances × 5
   strategies × W ∈ {1, 2, 4}), by its wall time, once to warm up and then
   ``--reps`` times;
@@ -26,12 +32,17 @@ side by side:
   12 bytes a draw.
 
 Each kernel time is the median of CUDA-event times with L2 flushed before
-every call (``ms``), and the host's time a call in a loop of 200 calls
-(``loop_us``), where launches and allocations show.  The package is the
+every call (``ms``), and the host's time a call in a loop of 200 calls,
+the median of five loops (``loop_us``), where launches and allocations
+show.  The package is the
 one that ``PYTHONPATH`` gives, so the file can time another tree::
 
     PYTHONPATH=src python src/repro_torch/launch/time_kernels.py --label new
     PYTHONPATH=old/src python src/repro_torch/launch/time_kernels.py --label old
+
+``--only flash,frame_accum`` times only those groups (``flash``,
+``frame_accum``, ``rglru``, ``alias``, ``conformance``; the last times
+``bfs_frontier`` too).
 
 Prints one JSON line.
 """
@@ -46,13 +57,20 @@ import time
 import torch
 
 
-def event_ms(fn, flush: torch.Tensor, reps: int = 25, warmup: int = 3) -> float:
+def event_ms(fn, flush: torch.Tensor, reps: int = 25, warmup: int = 3,
+             clean: bool = False) -> float:
+    """Median CUDA-event time of ``fn`` in ms; before each call L2 is
+    flushed by zeroing ``flush``, which leaves its last lines dirty in L2,
+    or with ``clean`` by reading it, which leaves them clean."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
-        flush.zero_()
+        if clean:
+            flush.view(torch.float32).sum()
+        else:
+            flush.zero_()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -63,28 +81,39 @@ def event_ms(fn, flush: torch.Tensor, reps: int = 25, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def loop_us(fn, calls: int = 200) -> float:
+def loop_us(fn, calls: int = 200, loops: int = 5) -> float:
+    """The median over ``loops`` loops of the host's time a call in a loop
+    of ``calls`` calls (the host is shared, so a single loop is noisy)."""
     fn()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t0) / calls * 1e6
+    times = []
+    for _ in range(loops):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) / calls * 1e6)
+    return statistics.median(times)
+
+
+GROUPS = ("flash", "frame_accum", "rglru", "alias", "conformance")
 
 
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--label", default="")
     p.add_argument("--reps", type=int, default=10)
+    p.add_argument("--only", default=",".join(GROUPS),
+                   help="comma-separated groups to time: " + ", ".join(GROUPS))
     args = p.parse_args(argv)
+    only = set(args.only.split(","))
+    if not only <= set(GROUPS):
+        p.error(f"--only takes {', '.join(GROUPS)}")
 
     import repro_torch
-    from repro_torch.core.conformance import run_all
-    from repro_torch.kernels import build, ops
-    from repro_torch.kernels.alias_draw import alias_draw
-    from repro_torch.kernels.bfs_frontier import bfs_frontier
+    from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.frame_accum import frame_accum
     from repro_torch.kernels.rglru_scan import rglru_scan
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -96,22 +125,51 @@ def main(argv=None) -> dict:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
 
-    for name, (B, S) in (("flash_bf16_eval", (4, 64)),
-                         ("flash_bf16_prefill", (2, 4096))):
+    flash = (("flash_bf16_eval", torch.bfloat16, (4, 64)),
+             ("flash_bf16_prefill", torch.bfloat16, (2, 4096)),
+             ("flash_f32_gate", torch.float32, (4, 32)),
+             ("flash_f32_prefill", torch.float32, (2, 4096)))
+    for name, dtype, (B, S) in flash if "flash" in only else ():
         q, k, v = [torch.randn((B, S, n, 256), generator=gen, device="cuda")
-                   .to(torch.bfloat16).transpose(1, 2) for n in (10, 1, 1)]
+                   .to(dtype).transpose(1, 2) for n in (10, 1, 1)]
         call = lambda: flash_attention(q, k, v, window=2048)  # noqa: E731
         out[name] = {"q": list(q.shape), "ms": event_ms(call, flush),
                      "loop_us": loop_us(call)}
+        del q, k, v
 
-    for name, shape in (("rglru_eval", (4, 64, 2560)),
-                        ("rglru_prefill", (2, 4096, 2560))):
+    accum = (("frame_accum_kadabra", (4, 1 << 20)),
+             ("frame_accum_wrs_hist", (4, 1 << 24)),
+             ("frame_accum_wrs_scalar", (4, 1)),
+             ("frame_accum_conformance", (2, 1)))
+    for name, shape in accum if "frame_accum" in only else ():
+        x = torch.randint(0, 1000, shape, generator=gen, device="cuda",
+                          dtype=torch.int32)
+        call = lambda: frame_accum(x)  # noqa: E731
+        out[name] = {"shape": list(shape), "ms": event_ms(call, flush),
+                     "loop_us": loop_us(call)}
+        if shape[1] > 1:  # the streams: what the dirty lines cost them
+            out[name]["ms_clean_l2"] = event_ms(call, flush, clean=True)
+        del x
+
+    rglru = (("rglru_eval", (4, 64, 2560)), ("rglru_prefill", (2, 4096, 2560)))
+    for name, shape in rglru if "rglru" in only else ():
         a = torch.rand(shape, generator=gen, device="cuda") * 0.75 + 0.2
         b = torch.randn(shape, generator=gen, device="cuda")
         call = lambda: rglru_scan(a, b)  # noqa: E731
         out[name] = {"shape": list(shape), "ms": event_ms(call, flush),
                      "loop_us": loop_us(call)}
         del a, b
+
+    if "alias" in only:
+        time_alias_draw(out, flush, gen)
+    if "conformance" in only:
+        time_conformance(out, flush, args.reps)
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def time_alias_draw(out, flush, gen):
+    from repro_torch.kernels.alias_draw import alias_draw
 
     out["alias_draw"] = []
     for n, top, draws in ((1 << 24, 1.0, (1 << 18, 1 << 20, 1 << 22, 1 << 24)),
@@ -147,7 +205,12 @@ def main(argv=None) -> dict:
     probe_ms["streams_only_torch_add"] = event_ms(lambda: torch.add(u1, u2),
                                                   flush)
     out["alias_draw_probes"] = {"draws": n, **probe_ms}
-    del prob, alias, u1, u2, probes
+
+
+def time_conformance(out, flush, reps):
+    from repro_torch.core.conformance import run_all
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.bfs_frontier import bfs_frontier
 
     # the warm-up run records the first inputs of each (lanes, n) shape
     seen = {}
@@ -173,7 +236,7 @@ def main(argv=None) -> dict:
     if not all(r.ok for r in reports.values()):
         raise AssertionError("a conformance cell failed")
     walls = []
-    for _ in range(args.reps):
+    for _ in range(reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         run_all(device="cuda")
@@ -188,8 +251,6 @@ def main(argv=None) -> dict:
         out["bfs_frontier"].append({"shape": list(shape), "calls": count,
                                     "ms": event_ms(call, flush),
                                     "loop_us": loop_us(call)})
-    print(json.dumps(out), flush=True)
-    return out
 
 
 if __name__ == "__main__":

@@ -39,6 +39,45 @@ def test_frame_accum_kernel_on_card(cuda_device, dtype):
     torch.testing.assert_close(got, ref.frame_accum_ref(x), rtol=1e-6, atol=0.0)
 
 
+def _left_to_right_sum(x):
+    """The sum over W in the order w = 0, 1, …, W − 1 from 0: int32 in
+    int32, f32 in f32, bf16 in f32 rounded once to bf16."""
+    acc_dtype = torch.int32 if x.dtype == torch.int32 else torch.float32
+    acc = torch.zeros(x.shape[1], dtype=acc_dtype, device=x.device)
+    for w in range(x.shape[0]):
+        acc = acc + x[w].to(acc_dtype)
+    return acc.to(x.dtype)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("w", [1, 2, 3, 4, 8, 16])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32, torch.bfloat16])
+def test_frame_accum_is_the_left_to_right_sum_on_card(cuda_device, dtype, w,
+                                                      offset):
+    """Bit-equal to the left-to-right sum at W below, at and above the
+    loop's unroll depth of 4, at n below a vector, ragged (element-wise
+    body) and 2²² (16-byte vectors), on fresh tensors and on
+    contiguous views one element into their storage (as
+    ``core/frames.py``'s ``.contiguous()`` reshapes may be), which are not
+    16-byte aligned and take the element-wise body."""
+    gen = torch.Generator(device=cuda_device).manual_seed(w)
+    for n in (1, 3, 31, 1000, 4097, 2 ** 20 + 3, 2 ** 22):
+        if dtype == torch.int32:
+            x = torch.randint(-1000, 1000, (w, n), generator=gen,
+                              device=cuda_device, dtype=dtype)
+        else:
+            x = torch.randn((w, n), generator=gen, device=cuda_device).to(dtype)
+        if offset:
+            buf = torch.empty(w * n + offset, dtype=dtype, device=cuda_device)
+            buf[offset:] = x.reshape(-1)
+            x = buf[offset:].view(w, n)
+            assert x.is_contiguous() and x.data_ptr() % 16 != 0
+        got = accum_mod.frame_accum(x)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == (n,)
+        assert torch.equal(got, _left_to_right_sum(x)), (w, n)
+
+
 def test_bfs_frontier_kernel_on_card(cuda_device):
     g = erdos_renyi(200, 600, seed=2, device=cuda_device)
     rng = np.random.default_rng(2)
@@ -275,3 +314,31 @@ def test_flash_attention_bf16_refuses_unaligned_views(cuda_device):
     q = x[1:].view(1, 2, 64, 64)
     with pytest.raises(ValueError, match="16-byte"):
         flash_mod.flash_attention(q, q[:, :1], q[:, :1])
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("window", [0, 33, 2048])
+@pytest.mark.parametrize("group", [1, 2, 10])
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 100, 4096])
+@pytest.mark.parametrize("hd", flash_mod.HEAD_DIMS)
+def test_flash_attention_f32_on_card(cuda_device, hd, s, group, window, offset):
+    """The f32 body at every head dim, ragged and whole tiles, MHA / GQA /
+    recurrentgemma's 10-on-1, with and without a window, on the model's
+    (B, S, H, hd) layout as views; offset 1 puts each view one float into
+    its storage, so no pointer is 16-byte aligned and the body takes its
+    4-byte copies.  The f32 tolerance unchanged."""
+    b = 1 if s == 4096 else 2
+    kv = 1 if group == 10 else 2
+    gen = torch.Generator(device=cuda_device).manual_seed(hd * s + group)
+    views = []
+    for heads in (kv * group, kv, kv):
+        x = torch.randn((b, s, heads, hd), generator=gen, device=cuda_device)
+        buf = torch.empty(x.numel() + offset, device=cuda_device)
+        buf[offset:] = x.reshape(-1)
+        views.append(buf[offset:].view(x.shape).transpose(1, 2))
+    q, k, v = views
+    assert (q.data_ptr() % 16 != 0) == bool(offset)
+    got = flash_mod.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref.flash_attention_ref(q, k, v, window=window),
+                               rtol=1e-5, atol=1e-5)

@@ -40,7 +40,8 @@ def _frames(dtype, w, n):
 
 
 @pytest.mark.parametrize("dtype", ["int32", "float32", "bfloat16"])
-@pytest.mark.parametrize("w,n", [(1, 64), (4, 1000), (16, 257), (3, 8192)])
+@pytest.mark.parametrize("w,n", [(1, 64), (4, 1000), (16, 257), (3, 8192),
+                                 (8, 1), (8, 3), (8, 4097)])
 def test_frame_accum_matches_pallas(dtype, w, n):
     xj, xt = _frames(dtype, w, n)
     exp = np.asarray(jax_frame_accum(xj, block_n=256, interpret=True), np.float32)
@@ -161,6 +162,8 @@ FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
     (2, 4, 4, 256, 32, 0),     # MHA (kv = h)
     (1, 8, 1, 128, 64, 0),     # MQA
     (1, 4, 2, 256, 64, 64),    # sliding window
+    (1, 4, 1, 128, 128, 48),   # hd 128, window shorter than S
+    (1, 2, 1, 128, 256, 64),   # hd 256 (recurrentgemma's), window < S
 ])
 def test_flash_attention_ref_matches_pallas(dtype, b, h, kv, s, hd, window):
     """The sweep of tests/test_kernels.py; tolerance as there (f32: other
