@@ -56,7 +56,22 @@ and the script exits non-zero:
                  batch 65,536 per worker, LOCAL and SHARED at W = 4 and
                  INDEXED at W = 1 and 4: within 2·rtol·μ of the exact mean,
                  SHARED == LOCAL, INDEXED W = 1 == W = 4.
-9. rg serve    — recurrentgemma-2b at full width (26 layers, d 2560, vocab
+9. pool        — the adaptive-query pool (``repro_torch.serve``) at full
+                 size: kadabra-full (phase 6's graph and configuration) and
+                 wrs-full (phase 8's table) registered as instances, the
+                 queries ``POOL_QUERIES`` (kadabra-full SHARED and LOCAL at
+                 W = 4, wrs-full SHARED and INDEXED at W = 4, and the CLI's
+                 wrs:local:2 and triangles:local:2:1) through
+                 ``EpochScheduler`` (2 in flight, a pool of 4 worker slots,
+                 shrink-regrow pressure, a checkpoint every tick), in an
+                 order in which a full-size SHARED session is shrunk and
+                 later regrown; each query's (τ, estimate, stop epoch) equal
+                 to its solo session's and each solo session's to
+                 ``run_instance``'s; a second drain stopped after 2 ticks
+                 and resumed from its checkpoints, with the same results;
+                 one checkpoint of the kadabra-full SHARED session timed
+                 (save, restore, bytes); ``--pool``, then ``--resume``.
+10. rg serve   — recurrentgemma-2b at full width (26 layers, d 2560, vocab
                  256,000, bf16, random weights from seed 0) through the
                  port's serving entry points: ``make_prefill_step`` on
                  B = 2, S = 4096 (twice the local window) with a profile;
@@ -64,17 +79,17 @@ and the script exits non-zero:
                  prefill's last logits against 32 decode steps of the same
                  prompt, in bf16 and in f32; ``adaptive_eval`` at B = 4,
                  seq 64, ε = 0.5, δ = 0.1, and a profile of one sample.
-10. mamba serve — falcon-mamba-7b at full width and depth (64 layers,
+11. mamba serve — falcon-mamba-7b at full width and depth (64 layers,
                  d 4096, d_inner 8192, N 16, vocab 65,024, bf16, random
                  weights from seed 0), once recurrentgemma's model is freed,
-                 through the same steps as phase 9: prefill B = 2, S = 4096,
+                 through the same steps as phase 10: prefill B = 2, S = 4096,
                  ``generate``, prefill against decode, ``adaptive_eval``.
-11. kernels    — every kernel with its launches on the five paths (phases
-                 5–6, 7, 8, 9 and 10), each counted from 0 just before its
-                 path; each path's line also splits its kernel calls by
+12. kernels    — every kernel with its launches on the six paths (phases
+                 5–6, 7, 8, 9, 10 and 11), each counted from 0 just before
+                 its path; each path's line also splits its kernel calls by
                  shape.
 
-While phases 5–10 run, the kernels behind ``kernels.ops`` are wrapped so
+While phases 5–11 run, the kernels behind ``kernels.ops`` are wrapped so
 that their calls are held against the plain versions on the same tensors:
 every call on the conformance path, and elsewhere each call whose kernel,
 shapes and types phase 4 or an earlier call has not compared yet.
@@ -1065,6 +1080,7 @@ def phase_full(torch, g, full):
     emit({"phase": "full", "strategy": "local", "world": world,
           "profile": prof})
     full["profile"] = prof
+    full["pre"] = pre
     local, shared = out[FS.LOCAL_FRAME], out[FS.SHARED_FRAME]
     if shared.data.shape != local.data.shape:
         raise AssertionError(f"SHARED reassembly shape {shared.data.shape} != "
@@ -1174,6 +1190,254 @@ def phase_wrs_full(torch, inst, table_build_s):
     emit({"phase": "wrs full", "run": f"local-W{WRS_WORLD}", "profile": prof})
     emit({"phase": "wrs full", "shared_equals_local": True,
           "indexed_bit_identical_W14": True})
+
+
+POOL_QUERIES = ("kadabra-full:shared:4:0", "kadabra-full:local:4:1",
+                "wrs-full:shared:4:0", "wrs-full:indexed:4:1",
+                "wrs:local:2", "triangles:local:2:1")
+POOL_SLOTS = 4              # DevicePool(4): worker slots of the vmap sessions
+POOL_IN_FLIGHT = 2
+
+
+def kadabra_full_instance():
+    """Phase 6's configuration as a registered instance; the pool reuses
+    phase 6's graph and preprocessing (no oracle at this size)."""
+    from repro_torch.core.instances import KadabraInstance
+    return KadabraInstance(name="kadabra-full", n_vertices=FULL_N,
+                           n_edges=FULL_M, graph_seed=0, eps=0.02, delta=0.1,
+                           batch=64, rounds_per_epoch=4, compute_oracle=False)
+
+
+def pool_order(solo) -> list:
+    """The queries in submission order, chosen from their solo epochs so
+    that a full-size SHARED session X is shrunk and later regrown: the other
+    width-4 queries, then the other width-2 one, then X, then the width-2
+    query Y with the fewest epochs.  X takes the pool's 4 slots; the next
+    tick the pressure policy halves it to admit Y and empties the queue, and
+    once Y retires X grows back — if X still has an epoch to run then,
+    which needs Y's steps ≤ X's steps − 2."""
+    steps = {q: solo[q][1].epochs - 1 for q in POOL_QUERIES}
+    x = max((q for q in POOL_QUERIES if q.endswith(":shared:4:0")),
+            key=lambda q: steps[q])
+    y = min((q for q in POOL_QUERIES if q.split(":")[2] == "2"),
+            key=lambda q: steps[q])
+    if steps[y] > steps[x] - 2:
+        raise AssertionError(f"no order shrinks and regrows a full-size SHARED "
+                             f"session: steps {steps}")
+    rest = [q for q in POOL_QUERIES if q not in (x, y)]
+    return [q for q in rest if q.split(":")[2] == "4"] + \
+        [q for q in rest if q.split(":")[2] == "2"] + [x, y]
+
+
+def phase_pool(torch, kad, wrs, graph=None, device="cuda"):
+    """The adaptive-query pool at full size: ``POOL_QUERIES`` through
+    ``EpochScheduler`` (2 in flight, 4 slots, shrink-regrow, a checkpoint
+    every tick), each query held against its solo session and the solo
+    session against ``run_instance``; a second drain stopped after 2 ticks
+    and resumed from its checkpoints; a checkpoint of the kadabra-full
+    SHARED session timed; the ``--pool`` CLI, then ``--resume``.
+    ``graph`` is phase 6's (graph, preprocessing), which ``kad``'s build
+    then finds in the instance cache instead of building them again."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.core import instances
+    from repro_torch.core.instances import register_instance, run_instance
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.serve import (AdaptiveSession, DevicePool, EpochScheduler,
+                                   PressurePolicy, SessionSpec, StepperCache)
+
+    def sync():
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+
+    if graph is not None:
+        instances._CACHE[("kadabra", kad, torch.device(device))] = (
+            *graph, np.full((kad.n_vertices,), np.nan))
+    for inst in (kad, wrs):
+        register_instance(inst, overwrite=True)
+    specs = {q: SessionSpec.parse(q) for q in POOL_QUERIES}
+    qid = {q: q.replace(":", "-") for q in POOL_QUERIES}
+
+    # 1. each query alone, and against run_instance
+    solo_cache = StepperCache(device)
+    solo = {}
+    for q, spec in specs.items():
+        session = AdaptiveSession.create(spec, cache=solo_cache)
+        sync()
+        session.start().run()
+        sync()
+        est, res = session.result()
+        est_i, res_i, built = run_instance(
+            spec.instance, strategy=spec.strategy, world=spec.world,
+            seed=spec.seed, device=device)
+        same = (res.num, res.epochs, res.stop_epoch) == \
+            (res_i.num, res_i.epochs, res_i.stop_epoch) and \
+            np.array_equal(est, est_i)
+        emit({"phase": "pool", "solo": q, "tau": res.num,
+              "epochs": res.epochs, "stop_epoch": res.stop_epoch,
+              "wall_s": session.wall_s, "equals_run_instance": same,
+              "estimate_head": [float(v) for v in np.ravel(est)[:3]]})
+        if not (same and res.stopped):
+            raise AssertionError(f"pool: solo {q} (τ {res.num}, epochs "
+                                 f"{res.epochs}, stopped {res.stopped}) differs "
+                                 f"from run_instance (τ {res_i.num}, epochs "
+                                 f"{res_i.epochs})")
+        if spec.instance == wrs.name and \
+                abs(float(est[0]) - float(built.oracle[0])) > built.eps:
+            raise AssertionError(f"pool: {q}: |μ̂ − μ| > 2·rtol·μ = {built.eps}")
+        solo[q] = (est, res, session.wall_s)
+    order = pool_order(solo)
+
+    def scheduler(**kw):
+        return EpochScheduler(max_in_flight=POOL_IN_FLIGHT,
+                              pool=DevicePool(POOL_SLOTS),
+                              pressure=PressurePolicy.parse("shrink-regrow"),
+                              checkpoint_every=1, device=device, **kw)
+
+    def check_results(results, what):
+        for q in POOL_QUERIES:
+            r = results[qid[q]]
+            est, res, _ = solo[q]
+            if not (r.stopped and (r.tau, r.epochs, r.stop_epoch) ==
+                    (res.num, res.epochs, res.stop_epoch)
+                    and np.array_equal(r.estimate, est)):
+                raise AssertionError(f"pool: {what} {q}: τ {r.tau}, epochs "
+                                     f"{r.epochs} differ from its solo run "
+                                     f"(τ {res.num}, epochs {res.epochs})")
+
+    # the pool's checkpoint writes, timed apart from its stepping
+    saves = {"s": 0.0, "n": 0}
+    save = AdaptiveSession.save
+
+    def timed_save(session, directory):
+        t0 = time.time()
+        path = save(session, directory)
+        saves["s"] += time.time() - t0
+        saves["n"] += 1
+        return path
+
+    tmp = Path(tempfile.mkdtemp(prefix="repro-pool-"))
+    try:
+        # 2. the pool
+        sched = scheduler(checkpoint_dir=tmp / "drain")
+        for q in order:
+            sched.submit(specs[q], qid=qid[q])
+        AdaptiveSession.save = timed_save
+        events, ticks = [], []   # ticks: (in flight after admission, s)
+        sync()
+        t0 = time.time()
+        try:
+            while not sched.idle:
+                t1 = time.time()
+                events.append(sched.tick())
+                sync()
+                ticks.append((sched.in_flight + len(events[-1].retired),
+                              time.time() - t1))
+        finally:
+            AdaptiveSession.save = save
+        wall = time.time() - t0
+        ckpt_bytes = sum(f.stat().st_size for f in (tmp / "drain").rglob("*")
+                         if f.is_file())
+        shutil.rmtree(tmp / "drain")
+        check_results(sched.results, "pool")
+        reshards = [(ev.tick, q, old, new) for ev in events
+                    for q, old, new in ev.resharded]
+        for q in order:
+            r = sched.results[qid[q]]
+            emit({"phase": "pool", "query": q, "tau": r.tau,
+                  "epochs": r.epochs, "wait_ticks": r.wait_ticks,
+                  "placement_wait_ticks": r.placement_wait_ticks,
+                  "devices_leased": r.devices_leased, "final_world":
+                      r.spec.world, "wall_s": r.wall_s,
+                  "equals_solo": True})
+        x = order[-2]
+        shrunk = [t for t, q, old, new in reshards if q == qid[x] and new < old]
+        regrown = [t for t, q, old, new in reshards
+                   if q == qid[x] and new > old and shrunk and t > shrunk[0]]
+        taus = sum(r.tau for r in sched.results.values())
+        stepping = sum(r.wall_s for r in sched.results.values())
+        emit({"phase": "pool", "order": order, "ticks": sched.tick_count,
+              "wall_s": wall, "checked_samples_per_s": taus / wall,
+              "samples": taus, "solo_wall_s_sum":
+                  sum(w for _, _, w in solo.values()),
+              "stepping_s": stepping, "checkpoint_save_s": saves["s"],
+              "checkpoint_saves": saves["n"],
+              "other_s": wall - stepping - saves["s"],
+              "tick_s": [t for _, t in ticks],
+              "in_flight": [n for n, _ in ticks],
+              "reshards": reshards, "checkpoint_bytes_written": ckpt_bytes,
+              "steppers_built": len(sched.cache)})
+        if not (shrunk and regrown):
+            raise AssertionError(f"pool: {x} was not shrunk and regrown: "
+                                 f"{reshards}")
+
+        # 3. a second drain stopped after 2 ticks, resumed from disk
+        sched = scheduler(checkpoint_dir=tmp / "resume")
+        for q in order:
+            sched.submit(specs[q], qid=qid[q])
+        sched.tick()
+        sched.tick()
+        early = dict(sched.results)
+        del sched
+        sync()
+        t0 = time.time()
+        resumed = EpochScheduler.resume(
+            tmp / "resume", max_in_flight=POOL_IN_FLIGHT,
+            pool=DevicePool(POOL_SLOTS),
+            pressure=PressurePolicy.parse("shrink-regrow"),
+            checkpoint_every=1, device=device)
+        pending = resumed.pending
+        # the resumed drain under the profiler: the card's busy share
+        prof = None
+        if torch.device(device).type == "cuda":
+            prof = profiled(torch, resumed.drain)
+        else:
+            resumed.drain()
+        check_results({**early, **resumed.results}, "resumed")
+        emit({"phase": "pool", "resume": "after 2 ticks",
+              "retired_before": sorted(early), "resumed_pending": pending,
+              "unresumed": resumed.unresumed, "resumed_wall_s":
+                  time.time() - t0, "equals_solo": True, "profile": prof})
+        shutil.rmtree(tmp / "resume")
+
+        # 4. one checkpoint of the kadabra-full SHARED session, timed
+        spec = specs["kadabra-full:shared:4:0"]
+        session = AdaptiveSession.create(spec, cache=solo_cache).start()
+        session.step()
+        sync()
+        t0 = time.time()
+        path = session.save(tmp / "ckpt")
+        save_s = time.time() - t0
+        nbytes = sum(f.stat().st_size for f in path.iterdir())
+        t0 = time.time()
+        back = AdaptiveSession.restore(tmp / "ckpt", cache=solo_cache)
+        sync()
+        restore_s = time.time() - t0
+        est, res = back.run().result()
+        ref_est, ref_res, _ = solo["kadabra-full:shared:4:0"]
+        if res.num != ref_res.num or not np.array_equal(est, ref_est):
+            raise AssertionError("pool: the restored kadabra-full SHARED "
+                                 "session differs from its solo run")
+        emit({"phase": "pool", "checkpoint": "kadabra-full:shared:4:0",
+              "epoch": session.epoch, "save_s": save_s,
+              "restore_s": restore_s, "bytes_per_tick": nbytes,
+              "leaves": len(json.loads((path / "manifest.json").read_text())
+                            ["leaves"]), "restored_equals_solo": True})
+
+        # 5. the CLI at its default queries, then --resume
+        cli = ["--pool", "--device", str(device), "--checkpoint-dir",
+               str(tmp / "cli")]
+        for argv in (cli, cli + ["--resume"]):
+            rc = serve_cli.main(argv)
+            emit({"phase": "pool", "cli": " ".join(argv[5:]) or "drain",
+                  "rc": rc})
+            if rc != 0:
+                raise AssertionError(f"pool: serve --pool {argv} returned {rc}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def serve_model(torch, arch, path, expect_params):
@@ -1409,6 +1673,10 @@ def main() -> int:
           "bfs_frontier_ms_weighted": weighted,
           "bfs_frontier_ms_profiled": measured["ms"],
           "levels_past_timed": sum(c for lv, c in levels.items() if lv > last)})
+    by_path["pool"] = drive(
+        "pool", lambda: phase_pool(torch, kadabra_full_instance(), wrs,
+                                   graph=(g, full["pre"])),
+        ("frame_accum", "bfs_frontier", "alias_draw"))
     del g, table, wrs
     torch.cuda.empty_cache()
     model = serve_model(torch, RG_ARCH, "rg serve", RG_PARAMS)

@@ -17,6 +17,13 @@ JAX's threefry, so the port does not reproduce the reference's samples.
 A ``sample_fn(gens, carry) -> (delta, carry)`` runs one round for all the
 workers whose generators it is given and returns their deltas stacked
 (W, ...); worker w's random inputs come only from ``gens[w]``.
+
+The seed is an argument of ``init`` and ``body``, not of the program, so
+one program (and one :class:`~repro_torch.core.substrate.EpochStepper`)
+serves every seed of a shape.  Generators are mutable: ``body`` advances
+the generators of the state it is given and hands them on, so a state is
+consumed by the step that advances it.  Whatever keeps a state beside its
+successor (a checkpoint, a reshard) copies the generators' states.
 """
 
 from __future__ import annotations
@@ -27,8 +34,9 @@ from typing import Any, Callable, List, Optional, Sequence, Tuple
 import torch
 
 from ..device import to_host
-from .frames import (Collectives, FrameStrategy, StateFrame, combine, frame_at,
-                     leaves, stacked_zeros, tree_map, zeros_like_frame)
+from .frames import (Collectives, FrameStrategy, StateFrame, combine,
+                     fold_frames, frame_at, leaves, stacked_zeros, tree_map,
+                     zeros_like_frame)
 
 SampleFn = Callable[[Sequence[torch.Generator], Any], Tuple[StateFrame, Any]]
 CheckFn = Callable[[StateFrame], Tuple[torch.Tensor, Any]]
@@ -95,7 +103,7 @@ class EpochState:
                            # stacked (W, n/F) shards under SHARED_FRAME
     pending: StateFrame    # stacked (W, ...) deltas of the epoch just sampled
     stop: bool
-    aux: Any               # the check's aux (None before the first check)
+    aux: Any               # the check's aux (zeros before the first check)
     epoch: int
     stop_epoch: int        # epoch at which stop was first seen
 
@@ -112,13 +120,16 @@ def _sample_epoch(sample_fn: SampleFn, template, rounds: int,
 
 @dataclasses.dataclass(frozen=True)
 class EpochProgram:
-    """The engine as single-epoch pieces: ``init(carry)`` builds the primed
-    epoch-0 state, ``body(state)`` advances one epoch, ``cond(state)`` is
-    the keep-running predicate."""
+    """The engine as single-epoch pieces: ``init(carry, seed)`` builds the
+    primed epoch-0 state, ``body(state, seed)`` advances one epoch,
+    ``cond(state)`` is the keep-running predicate, and ``blank(carry)`` is
+    a state of the same layout that nothing has sampled into (zero frames
+    and aux, unseeded generators)."""
 
-    init: Callable[[Any], EpochState]
-    body: Callable[[EpochState], EpochState]
+    init: Callable[[Any, int], EpochState]
+    body: Callable[[EpochState, int], EpochState]
     cond: Callable[[EpochState], bool]
+    blank: Callable[[Any], EpochState]
 
 
 def _shard_zeros(template, world: int, shards: int) -> StateFrame:
@@ -137,27 +148,48 @@ def _shard_zeros(template, world: int, shards: int) -> StateFrame:
                       data=tree_map(shard, template))
 
 
+def _zero_aux(aux):
+    """The check's aux with every tensor zeroed (dicts walked)."""
+    if isinstance(aux, dict):
+        return {k: _zero_aux(v) for k, v in aux.items()}
+    return torch.zeros_like(aux) if isinstance(aux, torch.Tensor) else aux
+
+
 def make_program(sample_fn: SampleFn, check_fn: CheckFn, template,
-                 cfg: EpochConfig, colls: Collectives, seed: int = 0
-                 ) -> EpochProgram:
+                 cfg: EpochConfig, colls: Collectives,
+                 fold: Optional[int] = None) -> EpochProgram:
     """Build the epoch program of one strategy for ``colls.world`` workers.
 
     ``template`` — the shape/dtype of ``frame.data`` (the full frame also
     for SHARED_FRAME; the engine keeps the sharded total).
+
+    ``fold = k`` runs k logical workers per physical worker (elastic
+    re-sharding, :mod:`repro_torch.serve.elastic`): the state holds W·k
+    generators, physical worker p carrying the logical streams p·k …
+    p·k+k−1; ``sample_fn`` gets all W·k of them and the (W·k, ...) deltas
+    are summed per physical worker into (W, ...) with ``frame_accum``.
+    ``∘`` is exact over integer frames, so (τ, estimate) equal the
+    unfolded run's with W·k workers.  Every strategy but INDEXED_FRAME
+    (whose frames do not depend on W) supports it.
 
     The run stops sampling once the verdict has fired: the reference's
     fused loop samples one more (discarded) epoch after a lagged check,
     this host loop does not, so a stopped state's ``pending`` is empty.
     """
     strat = cfg.strategy
+    if fold is not None and strat == FrameStrategy.INDEXED_FRAME:
+        raise ValueError("fold is not supported for INDEXED_FRAME (its "
+                         "result is already worker-count independent)")
     W = colls.world
     F = colls.frame_shards or W
+    k = fold or 1
     device = leaves(template)[0].device
 
     def sample_epoch(gens, carry, rounds):
-        return _sample_epoch(sample_fn, template, rounds, gens, carry)
+        frame, carry = _sample_epoch(sample_fn, template, rounds, gens, carry)
+        return (frame if k == 1 else fold_frames(frame, k)), carry
 
-    def sample_indexed(epoch: int, carry):
+    def sample_indexed(seed: int, epoch: int, carry):
         gens = [frame_generator(seed, epoch * W + w, device) for w in range(W)]
         return sample_epoch(gens, carry, cfg.rounds_per_epoch)
 
@@ -187,7 +219,7 @@ def make_program(sample_fn: SampleFn, check_fn: CheckFn, template,
     if strat in (FrameStrategy.LOCK, FrameStrategy.BARRIER):
         rounds = 1 if strat == FrameStrategy.LOCK else cfg.rounds_per_epoch
 
-        def body(st: EpochState) -> EpochState:
+        def body(st: EpochState, seed: int = 0) -> EpochState:
             delta, carry = sample_epoch(st.gens, st.carry, rounds)
             total = combine(st.total, colls.reduce_frames(delta))  # barrier
             stop, aux = check_full(total)
@@ -195,7 +227,7 @@ def make_program(sample_fn: SampleFn, check_fn: CheckFn, template,
 
     elif strat == FrameStrategy.LOCAL_FRAME:
 
-        def body(st: EpochState) -> EpochState:
+        def body(st: EpochState, seed: int = 0) -> EpochState:
             # fold in the PREVIOUS epoch's deltas, check, then sample.
             total = combine(st.total, colls.reduce_frames(st.pending))
             stop, aux = check_full(total)
@@ -205,7 +237,7 @@ def make_program(sample_fn: SampleFn, check_fn: CheckFn, template,
 
     elif strat == FrameStrategy.SHARED_FRAME:
 
-        def body(st: EpochState) -> EpochState:
+        def body(st: EpochState, seed: int = 0) -> EpochState:
             total = combine(st.total, colls.scatter_frames(st.pending))
             stop, aux = check_sharded(total)
             delta, carry = (empty_pending(), st.carry) if stop else \
@@ -214,7 +246,7 @@ def make_program(sample_fn: SampleFn, check_fn: CheckFn, template,
 
     elif strat == FrameStrategy.INDEXED_FRAME:
 
-        def body(st: EpochState) -> EpochState:
+        def body(st: EpochState, seed: int = 0) -> EpochState:
             gathered = colls.all_frames(st.pending)  # (W, ...) frame deltas
             total, stop, aux, stop_epoch = st.total, st.stop, st.aux, st.stop_epoch
             # consume frames in index order; freeze at the FIRST stopping
@@ -227,7 +259,7 @@ def make_program(sample_fn: SampleFn, check_fn: CheckFn, template,
                 if s_j:
                     stop, aux, stop_epoch = True, aux_j, st.epoch + 1
             delta, carry = (empty_pending(), st.carry) if stop else \
-                sample_indexed(st.epoch, st.carry)
+                sample_indexed(seed, st.epoch, st.carry)
             return EpochState(st.gens, carry, total, delta, stop, aux,
                               st.epoch + 1, stop_epoch)
 
@@ -237,15 +269,31 @@ def make_program(sample_fn: SampleFn, check_fn: CheckFn, template,
     def cond(st: EpochState) -> bool:
         return (not st.stop) and st.epoch < cfg.max_epochs
 
-    def init(carry=None) -> EpochState:
-        total0 = _shard_zeros(template, W, F) \
+    def total_zeros():
+        return _shard_zeros(template, W, F) \
             if strat == FrameStrategy.SHARED_FRAME else zeros_like_frame(template)
-        st = EpochState(gens=worker_generators(seed, W, device), carry=carry,
-                        total=total0, pending=empty_pending(), stop=False,
-                        aux=None, epoch=0, stop_epoch=0)
+
+    # the aux of a check before the first one: the check on a zero frame
+    # (worker 0's zero shard under SHARED_FRAME), zeroed — the reference's
+    # eval_shape of the check.
+    z = total_zeros()
+    if strat == FrameStrategy.SHARED_FRAME:
+        z = StateFrame(num=z.num, data=tree_map(lambda x: x[0], z.data))
+    zero_aux = _zero_aux(check_fn(z)[1])
+
+    def blank(carry=None) -> EpochState:
+        return EpochState(gens=[torch.Generator(device=device)
+                                for _ in range(W * k)],
+                          carry=carry, total=total_zeros(),
+                          pending=empty_pending(), stop=False,
+                          aux=_zero_aux(zero_aux), epoch=0, stop_epoch=0)
+
+    def init(carry=None, seed: int = 0) -> EpochState:
+        st = blank(carry)
+        st.gens = worker_generators(seed, W * k, device)
         # Epoch 0 produces the first pending frame (Alg. 2 note on line 9).
         if strat == FrameStrategy.INDEXED_FRAME:
-            st.pending, st.carry = sample_indexed(0, carry)
+            st.pending, st.carry = sample_indexed(seed, 0, carry)
             st.epoch = 1
         elif strat in (FrameStrategy.LOCAL_FRAME, FrameStrategy.SHARED_FRAME):
             st.pending, st.carry = sample_epoch(st.gens, carry,
@@ -253,4 +301,4 @@ def make_program(sample_fn: SampleFn, check_fn: CheckFn, template,
             st.epoch = 1
         return st
 
-    return EpochProgram(init=init, body=body, cond=cond)
+    return EpochProgram(init=init, body=body, cond=cond, blank=blank)

@@ -150,6 +150,22 @@ def _accum_leaf(x: torch.Tensor) -> torch.Tensor:
     return ops.frame_accum(x.reshape(w, -1).contiguous()).reshape(x.shape[1:])
 
 
+def _fold_leaf(x: torch.Tensor, k: int) -> torch.Tensor:
+    """(W·k, ...) → (W, ...): each run of k consecutive rows summed, as one
+    ``frame_accum`` over the (k, W·n) matrix whose row j holds the j-th
+    row of every group."""
+    w = x.shape[0] // k
+    groups = x.reshape(w, k, -1).transpose(0, 1).reshape(k, -1).contiguous()
+    return ops.frame_accum(groups).reshape(w, *x.shape[1:])
+
+
+def fold_frames(f: StateFrame, k: int) -> StateFrame:
+    """Sum the stacked frames of k logical workers per physical worker:
+    (W·k, ...) → (W, ...), worker p getting rows p·k … p·k+k−1."""
+    return StateFrame(num=_fold_leaf(f.num, k),
+                      data=tree_map(lambda x: _fold_leaf(x, k), f.data))
+
+
 def virtual_collectives(world: int, frame_shards: int = 0) -> Collectives:
     """W virtual workers as a leading dim (the reference's vmap form).
 

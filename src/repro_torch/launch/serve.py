@@ -1,10 +1,17 @@
-"""Serving launcher of the port: batched greedy generation and **adaptive
-metric evaluation** — the paper's engine estimating mean per-token loss
-over a prompt distribution to (ε, δ) with Empirical-Bernstein stopping, one
-forward pass a sample.  Port of :mod:`repro.launch.serve` for the model
-zoo's ``--arch`` path; the adaptive-query pool (``--pool``) is still to
-port (ROADMAP queue 1 item 9).
+"""Serving launcher of the port: the adaptive-query pool (``--pool``, the
+serving subsystem's CLI), batched greedy generation and **adaptive metric
+evaluation** — the paper's engine estimating mean per-token loss over a
+prompt distribution to (ε, δ) with Empirical-Bernstein stopping, one
+forward pass a sample.  Port of :mod:`repro.launch.serve`.
 
+    # epoch-granular continuous batching over a mixed query stream
+    PYTHONPATH=src python -m repro_torch.launch.serve --pool \
+        --queries wrs:shared:4,triangles:local:2:1 --max-in-flight 2 \
+        [--checkpoint-dir CKPT [--resume] [--checkpoint-every 2]]
+    # a pool of worker slots, SHARED_FRAME sessions resized under load
+    PYTHONPATH=src python -m repro_torch.launch.serve --pool --topology 4 \
+        --pressure-policy shrink-regrow \
+        --queries reachability:shared:4,wrs:local:2
     PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b \\
         --batch 4 --prompt-len 32 --gen 16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b
@@ -14,7 +21,8 @@ port (ROADMAP queue 1 item 9).
 ``--arch`` names a config of the ``hybrid`` (recurrentgemma) or ``ssm``
 (falcon-mamba) family, or its ``-reduced`` cut; ``generate`` and
 ``adaptive_eval`` take any ported model.  Everything runs on the CUDA card
-unless ``--device`` (or ``device=``) names another device.
+unless ``--device`` (or ``device=``) names another device; a pool resumed
+with ``--resume`` must run on the device type it was checkpointed on.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ from __future__ import annotations
 import argparse
 import time
 
+import numpy as np
 import torch
 
 from ..core.adaptive import AdaptiveResult, run_adaptive
@@ -78,6 +87,74 @@ def adaptive_eval(model: Model, stream: TokenStream, *, eps: float,
     return float(res.data["s1"]) / max(res.num, 1), res
 
 
+DEFAULT_POOL_QUERIES = "wrs:local:2,triangles:local:2:1"
+
+
+def serve_pool(args) -> int:
+    """Drive the epoch-granular scheduler over a query stream."""
+    from ..serve import EpochScheduler, PressurePolicy, SessionSpec
+    from .mesh import make_device_pool
+
+    device = resolve_device(args.device)
+    # --resume restores the checkpointed stream; the default query list only
+    # applies to fresh pools (explicit --queries adds to a resumed one).
+    queries = args.queries if args.queries is not None \
+        else ("" if args.resume else DEFAULT_POOL_QUERIES)
+
+    pool = make_device_pool(args.topology) if args.topology else None
+    pressure = PressurePolicy.parse(args.pressure_policy)
+    if pressure is not None and pool is None:
+        print("[serve] --pressure-policy needs --topology (a device pool)")
+        return 2
+    if pool is not None:
+        print(f"[serve] device pool: {pool.capacity} slot(s) in "
+              f"{len(pool.topology.groups)} group(s)"
+              + (f", pressure={args.pressure_policy}" if pressure else ""))
+
+    if args.resume:
+        if not args.checkpoint_dir:
+            print("[serve] --resume needs --checkpoint-dir")
+            return 2
+        sched = EpochScheduler.resume(
+            args.checkpoint_dir, max_in_flight=args.max_in_flight,
+            substrate=args.substrate, pool=pool, pressure=pressure,
+            checkpoint_every=args.checkpoint_every, device=device)
+        print(f"[serve] resumed {sched.pending} session(s) from "
+              f"{args.checkpoint_dir}")
+    else:
+        sched = EpochScheduler(max_in_flight=args.max_in_flight,
+                               substrate=args.substrate,
+                               pool=pool, pressure=pressure,
+                               checkpoint_dir=args.checkpoint_dir or None,
+                               checkpoint_every=args.checkpoint_every,
+                               device=device)
+    for q in (s for s in queries.split(",") if s):
+        sched.submit(SessionSpec.parse(q))
+
+    t0 = time.time()
+    while not sched.idle:
+        ev = sched.tick()
+        for qid, old_w, new_w in ev.resharded:
+            word = "shrunk" if new_w < old_w else "regrown"
+            print(f"[serve] tick {ev.tick}: {word} {qid} "
+                  f"W={old_w} → {new_w} (pressure)")
+        for qid in ev.retired:
+            r = sched.results[qid]
+            est = np.array2string(r.estimate, precision=4)
+            place = f" dev={r.devices_leased}" \
+                f" pwait={r.placement_wait_ticks}" if pool else ""
+            print(f"[serve] tick {ev.tick}: retired {qid} "
+                  f"τ={r.tau} epochs={r.epochs} wait={r.wait_ticks}"
+                  f"{place} est={est}")
+    dt = time.time() - t0
+    n = len(sched.results)
+    taus = sum(r.tau for r in sched.results.values())
+    print(f"[serve] pool drained: {n} queries, {sched.tick_count} ticks, "
+          f"{taus} samples in {dt:.1f}s ({taus / max(dt, 1e-9):.0f} "
+          f"samples/s, {len(sched.cache)} built steppers)")
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="recurrentgemma-2b-reduced")
@@ -91,13 +168,31 @@ def main(argv=None) -> int:
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
+    # ----- adaptive-query pool (repro_torch.serve scheduler) -----
     ap.add_argument("--pool", action="store_true",
-                    help="the adaptive-query pool (not ported yet)")
+                    help="run the adaptive-query pool scheduler")
+    ap.add_argument("--queries", default=None,
+                    help="comma-separated instance:strategy:world[:seed] "
+                         f"(default for fresh pools: {DEFAULT_POOL_QUERIES}; "
+                         "--resume defaults to the restored stream only)")
+    ap.add_argument("--max-in-flight", type=int, default=2)
+    ap.add_argument("--substrate", default=None)
+    ap.add_argument("--topology", default="",
+                    help="device pool topology: 'auto' (the host's CUDA "
+                         "devices), 'N' (one group of N slots), or 'GxN' "
+                         "(G groups of N); empty = no placement pool")
+    ap.add_argument("--pressure-policy", default="none",
+                    help="none | shrink | shrink-regrow[:min=N] — resize "
+                         "SHARED_FRAME sessions under queued load "
+                         "(needs --topology)")
+    ap.add_argument("--checkpoint-dir", default="")
+    ap.add_argument("--checkpoint-every", type=int, default=0)
+    ap.add_argument("--resume", action="store_true",
+                    help="restore sessions from --checkpoint-dir")
     args = ap.parse_args(argv)
 
     if args.pool:
-        raise NotImplementedError("the adaptive-query pool (--pool) is still "
-                                  "to port: ROADMAP queue 1 item 9")
+        return serve_pool(args)
     device = resolve_device(args.device)
     cfg = resolve_config(args.arch)
     gen = torch.Generator(device=device)

@@ -33,6 +33,9 @@ assert main(["--arch", "falcon-mamba-7b-reduced", "--device", "cpu",
              "--batch", "2", "--prompt-len", "8", "--gen", "4"]) == 0
 assert main(["--arch", "falcon-mamba-7b-reduced", "--device", "cpu",
              "--adaptive-eval", "--eps", "2.0", "--batch", "2", "--seq", "8"]) == 0
+assert main(["--pool", "--device", "cpu", "--topology", "4",
+             "--pressure-policy", "shrink-regrow",
+             "--queries", "reachability:shared:4,wrs:local:2"]) == 0
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LEAKED", bad)
 """

@@ -272,6 +272,10 @@ def test_unported_paths_raise_naming_their_roadmap_item():
         Model(dataclasses.replace(cfg, family="dense"), device=CPU)
     with pytest.raises(NotImplementedError, match="queue 1 item 10"):
         Model(dataclasses.replace(cfg, family="encdec"), device=CPU)
-    from repro_torch.launch.serve import main
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        main(["--pool", "--device", "cpu"])
+    # the pool's sessions run on the sequential and vmap substrates; the
+    # shard_map one waits for the multi-device substrate
+    from repro_torch.serve import AdaptiveSession, SessionSpec
+    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+        AdaptiveSession.create(SessionSpec("wrs", "local", world=1,
+                                           substrate="shard_map"),
+                               device=CPU)
