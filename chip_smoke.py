@@ -71,6 +71,20 @@ and the script exits non-zero:
                  and resumed from its checkpoints, with the same results;
                  one checkpoint of the kadabra-full SHARED session timed
                  (save, restore, bytes); ``--pool``, then ``--resume``.
+9a. substrate  — the shard_map substrate (``torch.distributed``, one worker
+                 a process) at phase 6's size: kadabra-full LOCAL and SHARED
+                 in one NCCL rank against VMAP and SEQUENTIAL at W = 1; in W
+                 gloo ranks sharing the card (NCCL puts one rank on each
+                 card) at W = 2 (LOCAL, SHARED) and W = 4 (LOCAL, SHARED
+                 F = 4, SHARED F = 2 — the grouped reduce-scatter and
+                 all-reduce —, INDEXED) against VMAP at the same W and
+                 INDEXED W = 4 against W = 1; then the six registered
+                 instances' substrate-equivalence grid at W = 1 (NCCL) and
+                 W ∈ {2, 4} (gloo).  The graph goes to the ranks as files;
+                 each rank holds its kernel calls against the plain
+                 versions, counts its launches and checks that it imported
+                 no jax or repro.  W processes on one card: no line is a
+                 multi-GPU number.
 10. rg serve   — recurrentgemma-2b at full width (26 layers, d 2560, vocab
                  256,000, bf16, random weights from seed 0) through the
                  port's serving entry points: ``make_prefill_step`` on
@@ -84,12 +98,14 @@ and the script exits non-zero:
                  weights from seed 0), once recurrentgemma's model is freed,
                  through the same steps as phase 10: prefill B = 2, S = 4096,
                  ``generate``, prefill against decode, ``adaptive_eval``.
-12. kernels    — every kernel with its launches on the six paths (phases
-                 5–6, 7, 8, 9, 10 and 11), each counted from 0 just before
+12. kernels    — every kernel with its launches on the seven paths (phases
+                 5–6, 7, 8, 9, 9a — this process's and its worker
+                 processes' —, 10 and 11), each counted from 0 just before
                  its path; each path's line also splits its kernel calls by
                  shape.
 
-While phases 5–11 run, the kernels behind ``kernels.ops`` are wrapped so
+While phases 5–11 run, in this process and in the worker processes of 9a,
+the kernels behind ``kernels.ops`` are wrapped so
 that their calls are held against the plain versions on the same tensors:
 every call on the conformance path, and elsewhere each call whose kernel,
 shapes and types phase 4 or an earlier call has not compared yet.
@@ -110,6 +126,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
+# at import, so that the worker processes of the substrate phase, which
+# import this script without running main(), find the port too
+sys.path.insert(0, str(SRC))
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
@@ -333,6 +352,7 @@ class PlainCheck:
         self.seen = set()
         self.max_err = dict.fromkeys(self.NAMES, 0.0)
         self.calls = dict.fromkeys(self.NAMES, 0)
+        self.compare_s = 0.0  # host seconds spent in the comparisons
 
     def _done(self, name, key, got, exp):
         self.seen.add(key)
@@ -456,7 +476,9 @@ class PlainCheck:
                 shape = str(key[1] if len(key) == 2 else key[1:])
                 by_shape[name][shape] = by_shape[name].get(shape, 0) + 1
                 if every or key not in self.seen:
+                    t0 = time.time()
                     compare(*args, got)
+                    self.compare_s += time.time() - t0
                     made[name] += 1
                 return got
             return call
@@ -1061,6 +1083,7 @@ def phase_full(torch, g, full):
             ops._bfs_kernel = kernel
         syncs = dev_mod.host_syncs
         out[strat] = res
+        full.setdefault("walls", {})[strat] = wall
         emit({"phase": "full", "strategy": strat.value, "world": world,
               "tau": res.num, "epochs": res.epochs, "stopped": res.stopped,
               "stop_epoch": res.stop_epoch, "wall_s": wall,
@@ -1081,6 +1104,7 @@ def phase_full(torch, g, full):
           "profile": prof})
     full["profile"] = prof
     full["pre"] = pre
+    full["runs"] = out
     local, shared = out[FS.LOCAL_FRAME], out[FS.SHARED_FRAME]
     if shared.data.shape != local.data.shape:
         raise AssertionError(f"SHARED reassembly shape {shared.data.shape} != "
@@ -1440,6 +1464,265 @@ def phase_pool(torch, kad, wrs, graph=None, device="cuda"):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# phase 9a: (world, backend) → the (strategy, F) runs of kadabra-full in
+# that many ranks on the one card (F = 0: F = W)
+SUBSTRATE_RUNS = {
+    (1, "nccl"): (("local", 0), ("shared", 0)),
+    (2, "gloo"): (("local", 0), ("shared", 0)),
+    (4, "gloo"): (("local", 0), ("shared", 0), ("shared", 2), ("indexed", 0)),
+}
+SUBSTRATE_INSTANCES = ("diameter", "gradvar", "kadabra", "reachability",
+                       "triangles", "wrs")
+SUBSTRATE_TIMEOUT_S = 300.0
+GRAPH_ARRAYS = ("indptr", "indices_padded", "src", "dst", "components")
+
+
+def kernel_modules() -> dict:
+    from repro_torch.kernels import alias_draw as alias_mod
+    from repro_torch.kernels import bfs_frontier as bfs_mod
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.kernels import frame_accum as accum_mod
+    from repro_torch.kernels import rglru_scan as rglru_mod
+    from repro_torch.kernels import ssm_scan as ssm_mod
+    return {"frame_accum": accum_mod, "bfs_frontier": bfs_mod,
+            "alias_draw": alias_mod, "flash_attention": flash_mod,
+            "rglru_scan": rglru_mod, "ssm_scan": ssm_mod}
+
+
+@contextlib.contextmanager
+def probed(group, every: bool):
+    """In a worker process: hold the kernels' calls against their plain
+    versions (every call, or each new shape), count the launches from 0,
+    and yield (report, check); the report is filled when the block ends:
+    launches, comparisons and calls by shape per kernel, the largest
+    error, the seconds spent comparing, and the jax/repro modules the
+    process imported (raises if there are any)."""
+    import torch
+    mods = kernel_modules()
+    check = PlainCheck(torch)
+    report = {"rank": group.rank, "world": group.world,
+              "backend": group.backend}
+    with check.installed(every) as (compared, by_shape):
+        for m in mods.values():
+            m.launches = 0
+        yield report, check
+        report["launches"] = {name: m.launches for name, m in mods.items()}
+    report["compared"] = dict(compared)
+    report["by_shape"] = {k: v for k, v in by_shape.items() if v}
+    report["max_err"] = dict(check.max_err)
+    report["compare_s"] = check.compare_s
+    report["leaked"] = sorted(m for m in sys.modules
+                              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+    if report["leaked"]:
+        raise AssertionError(f"rank {group.rank} imported {report['leaked']}")
+
+
+@contextlib.contextmanager
+def rank_probe(group):
+    """``probed`` with every call compared, yielding the report only: the
+    ``rank_probe`` of ``run_substrate_equivalence_all``."""
+    with probed(group, every=True) as (report, _):
+        yield report
+
+
+def substrate_rank(group, graph_dir, runs):
+    """One rank of phase 9a: phase 6's graph and preprocessing from
+    ``graph_dir`` on the rank's card, kadabra-full registered over them
+    (the registry is per process), and each (strategy, F) of ``runs`` as
+    SHARD_MAP in ``group``.  Returns, per run, τ, epochs, the wall, the
+    collectives issued and a digest of (τ, trimmed data, estimate), rank 0
+    with the data and estimate themselves; and the rank's probe report."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import distributed, instances
+    from repro_torch.core.instances import register_instance, run_instance
+    from repro_torch.graphs.csr import graph_from_arrays
+    from repro_torch.graphs.kadabra import Preprocessed
+
+    d = Path(graph_dir)
+    meta = json.loads((d / "meta.json").read_text())
+    a = {k: np.load(d / f"{k}.npy") for k in GRAPH_ARRAYS}
+    dev = group.device
+    g = graph_from_arrays(meta["n"], a["indptr"], a["indices_padded"],
+                          a["src"], a["dst"], dev)
+    pre = Preprocessed(omega=meta["omega"], vd_upper=meta["vd_upper"],
+                       components=torch.from_numpy(a["components"]).to(dev),
+                       diam_levels=meta["diam_levels"])
+    kad = kadabra_full_instance()
+    instances._CACHE[("kadabra", kad, dev)] = (g, pre,
+                                               np.full((g.n,), np.nan))
+    register_instance(kad, overwrite=True)
+    # the first collective sets up the backend's connections (NCCL's
+    # communicator): take it before the timed runs
+    distributed.all_reduce(torch.zeros(1, dtype=torch.int32, device=dev),
+                           group.pg)
+    out = []
+    with probed(group, every=False) as (report, check):
+        for strat, F in runs:
+            torch.cuda.synchronize()
+            t0, c0 = time.time(), check.compare_s
+            with distributed.record_collectives() as calls:
+                est, res, built = run_instance(
+                    kad.name, strategy=strat, world=group.world, seed=0,
+                    substrate="shard_map", frame_shards=F, group=group)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            data = np.ascontiguousarray(built.trim(res.data))
+            ops = {}
+            for op, _, _, where in calls:
+                ops[f"{op} ({where})"] = ops.get(f"{op} ({where})", 0) + 1
+            out.append({
+                "strategy": strat, "F": F, "tau": res.num,
+                "epochs": res.epochs, "stop_epoch": res.stop_epoch,
+                "stopped": res.stopped, "wall_s": wall,
+                "plain_compare_s": check.compare_s - c0, "collectives": ops,
+                "digest": hashlib.sha256(
+                    np.int64(res.num).tobytes() + data.tobytes()
+                    + np.ascontiguousarray(est).tobytes()).hexdigest(),
+                **({"data": data, "est": est} if group.rank == 0 else {})})
+    return out, report
+
+
+def phase_substrate(torch, g, full, check, rank_reports):
+    """Phase 9a: the shard_map substrate on the card.
+
+    a. kadabra-full (phase 6's configuration) LOCAL and SHARED in one NCCL
+       rank, against VMAP and SEQUENTIAL at W = 1 in this process.
+    b. the same at W = 2 (LOCAL, SHARED) and W = 4 (LOCAL, SHARED F = 4,
+       SHARED F = 2 — the grouped form —, INDEXED) in W gloo ranks sharing
+       the card (NCCL puts one rank on each card), each against VMAP at
+       the same W (phase 6's W = 4 LOCAL and SHARED runs), and INDEXED
+       W = 4 against INDEXED W = 1.
+    c. ``run_substrate_equivalence_all`` over the six registered instances
+       at W = 1 (NCCL) and W ∈ {2, 4} (gloo), every cell required.
+
+    Every rank holds its kernel calls against their plain versions and
+    counts its launches (``probed``); the reports go to ``rank_reports``.
+    A wall includes the comparisons made in it, whose seconds each line
+    gives (``plain_compare_s``; ``check`` is this process's).  Nothing falls back: a rank that fails or runs past
+    ``SUBSTRATE_TIMEOUT_S`` fails the phase."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.core import instances
+    from repro_torch.core.conformance import run_substrate_equivalence_all
+    from repro_torch.core.frames import FrameStrategy
+    from repro_torch.core.instances import register_instance, run_instance
+    from repro_torch.launch.spawn import spawn_workers
+
+    kad = kadabra_full_instance()
+    pre = full["pre"]
+    instances._CACHE[("kadabra", kad, torch.device("cuda"))] = (
+        g, pre, np.full((g.n,), np.nan))
+    register_instance(kad, overwrite=True)
+
+    def one_process(strat, world, F, substrate="vmap"):
+        torch.cuda.synchronize()
+        t0, c0 = time.time(), check.compare_s
+        est, res, built = run_instance(kad.name, strategy=strat, world=world,
+                                       seed=0, substrate=substrate,
+                                       frame_shards=F, device="cuda")
+        torch.cuda.synchronize()
+        return {"tau": res.num, "data": np.asarray(built.trim(res.data)),
+                "est": est, "wall_s": time.time() - t0,
+                "plain_compare_s": check.compare_s - c0}
+
+    ref = {}
+    for strat in ("local", "shared"):  # phase 6's W = 4 runs
+        res = full["runs"][FrameStrategy(strat)]
+        data = np.asarray(res.data[: g.n])
+        ref[(strat, 4, 0, "vmap")] = {
+            "tau": res.num, "data": data, "plain_compare_s": None,
+            "wall_s": full["walls"][FrameStrategy(strat)],
+            "est": data.astype(np.float64) / max(float(res.num), 1.0)}
+    need = [(s, w, F, "vmap") for (w, _), runs in SUBSTRATE_RUNS.items()
+            for s, F in runs] + [("local", 1, 0, "sequential"),
+                                 ("shared", 1, 0, "sequential"),
+                                 ("indexed", 1, 0, "vmap")]
+    for key in need:
+        if key not in ref:
+            ref[key] = one_process(key[0], key[1], key[2], key[3])
+
+    def same(a, b):
+        return a["tau"] == b["tau"] and np.array_equal(a["data"], b["data"]) \
+            and np.array_equal(a["est"], b["est"])
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_graph_") as tmp:
+        arrays = {"indptr": g.indptr, "indices_padded": g.indices_padded,
+                  "src": g.src, "dst": g.dst, "components": pre.components}
+        for name in GRAPH_ARRAYS:
+            np.save(Path(tmp) / f"{name}.npy", arrays[name].cpu().numpy())
+        (Path(tmp) / "meta.json").write_text(json.dumps(
+            {"n": g.n, "omega": pre.omega, "vd_upper": pre.vd_upper,
+             "diam_levels": pre.diam_levels}))
+        for (world, backend), runs in SUBSTRATE_RUNS.items():
+            t0 = time.time()
+            out = spawn_workers(substrate_rank, world, backend=backend,
+                                device="cuda", args=(tmp, runs),
+                                timeout=SUBSTRATE_TIMEOUT_S)
+            spawn_wall = time.time() - t0
+            rank_reports += [report for _, report in out]
+            for i, (strat, F) in enumerate(runs):
+                rows = [ranks_runs[i] for ranks_runs, _ in out]
+                got = rows[0]
+                if len({r["digest"] for r in rows}) != 1:
+                    raise AssertionError(f"substrate: the {world} ranks of "
+                                         f"{strat} F={F} hold different results")
+                checks = {"vmap": ref[(strat, world, F, "vmap")]}
+                if world == 1:
+                    checks["sequential"] = ref[(strat, 1, F, "sequential")]
+                if strat == "indexed":
+                    checks["indexed W=1"] = ref[("indexed", 1, 0, "vmap")]
+                equal = {k: same(got, v) for k, v in checks.items()}
+                emit({"phase": "substrate", "step": "a" if world == 1 else "b",
+                      "instance": kad.name, "backend": backend, "world": world,
+                      "frame_shards": F or world, "strategy": strat,
+                      "processes": f"{world} process(es) on one card, not a "
+                                   f"multi-GPU number",
+                      "tau": got["tau"], "epochs": got["epochs"],
+                      "stop_epoch": got["stop_epoch"], "wall_s": got["wall_s"],
+                      "checked_samples_per_s": got["tau"] / got["wall_s"],
+                      "plain_compare_s": got["plain_compare_s"],
+                      "first_run_in_ranks": i == 0,
+                      "vmap_wall_s": checks["vmap"]["wall_s"],
+                      "vmap_plain_compare_s": checks["vmap"]["plain_compare_s"],
+                      "spawn_wall_s": spawn_wall,
+                      "collectives_rank0": got["collectives"],
+                      "equals": equal})
+                if not (got["stopped"] and all(equal.values())):
+                    raise AssertionError(f"substrate: {backend} W={world} "
+                                         f"{strat} F={F or world} differs: "
+                                         f"{equal}")
+
+    t0 = time.time()
+    failed = []
+    for worlds, backend in (((1,), "nccl"), ((2, 4), "gloo")):
+        reports = run_substrate_equivalence_all(
+            SUBSTRATE_INSTANCES, worlds=worlds, seed=0, require_all=True,
+            backend=backend, device="cuda", rank_probe=rank_probe,
+            timeout=SUBSTRATE_TIMEOUT_S)
+        for name, rep in reports.items():
+            emit({"phase": "substrate", "step": "c", "instance": name,
+                  "backend": backend, "worlds": list(worlds),
+                  "cells_ok": sum(c.ok for c in rep.cells),
+                  "cells": len(rep.cells),
+                  "ran": sorted({s for c in rep.cells for s in c.ran})})
+            failed += rep.failures
+        rank_reports += [r for w in worlds for r in
+                         next(iter(reports.values())).rank_reports[w]]
+    emit({"phase": "substrate", "step": "c", "wall_s": time.time() - t0,
+          "worker_processes": len(rank_reports),
+          "imported_jax_or_repro": sorted({m for r in rank_reports
+                                           for m in r["leaked"]})})
+    if failed:
+        raise AssertionError("substrate equivalence failed:\n"
+                             + "\n".join(failed))
+
+
 def serve_model(torch, arch, path, expect_params):
     """A model of the zoo at full width, random weights drawn on the card
     from seed 0 by the port's own initialiser; it must hold
@@ -1593,7 +1876,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(SRC))
 
     smi = nvidia_smi()
     emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
@@ -1603,12 +1885,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from repro_torch.kernels import alias_draw as alias_mod
-    from repro_torch.kernels import bfs_frontier as bfs_mod
-    from repro_torch.kernels import flash_attention as flash_mod
-    from repro_torch.kernels import frame_accum as accum_mod
-    from repro_torch.kernels import rglru_scan as rglru_mod
-    from repro_torch.kernels import ssm_scan as ssm_mod
+    mods = kernel_modules()
     phase_build(torch)
 
     from repro_torch.graphs import erdos_renyi
@@ -1623,26 +1900,39 @@ def main() -> int:
     check = PlainCheck(torch)
     rows = phase_kernels(torch, Timer(torch), check, g, table)
 
-    mods = {"frame_accum": accum_mod, "bfs_frontier": bfs_mod,
-            "alias_draw": alias_mod, "flash_attention": flash_mod,
-            "rglru_scan": rglru_mod, "ssm_scan": ssm_mod}
-
-    def drive(path, run, needs, every=False):
+    def drive(path, run, needs, every=False, ranks=None):
         """Run one path with every count set to 0 just before it and read
         just after; each kernel in ``needs`` must have launched.  Its kernel
         calls are held against the plain versions: each call with
-        ``every``, else each (kernel, shape, type) not yet compared."""
+        ``every``, else each (kernel, shape, type) not yet compared.
+        ``ranks`` collects the reports of the worker processes the path
+        starts (``rank_probe``); their launches, comparisons and calls by
+        shape are added to this process's, and each kernel in ``needs``
+        must have launched in them too."""
         with check.installed(every) as (compared, by_shape):
             for m in mods.values():
                 m.launches = 0
             run()
             counts = {name: m.launches for name, m in mods.items()}
+        in_ranks = dict.fromkeys(mods, 0)
+        for r in ranks or ():
+            for name in mods:
+                in_ranks[name] += r["launches"][name]
+                compared[name] += r["compared"][name]
+                check.calls[name] += r["compared"][name]
+                check.max_err[name] = max(check.max_err[name],
+                                          r["max_err"][name])
+                for shape, n in r["by_shape"].get(name, {}).items():
+                    by_shape[name][shape] = by_shape[name].get(shape, 0) + n
+        counts = {name: counts[name] + in_ranks[name] for name in mods}
         emit({"phase": "launches", "path": path, **counts,
+              **({"in_worker_processes": in_ranks,
+                  "worker_processes": len(ranks)} if ranks is not None else {}),
               "compared_with_plain": compared,
               "every_call_compared": every,
               "calls_by_shape": {k: v for k, v in by_shape.items() if v}})
         for name in needs:
-            if counts[name] <= 0:
+            if counts[name] <= 0 or (ranks is not None and in_ranks[name] <= 0):
                 raise AssertionError(f"{name} was not launched on the {path} path")
         return counts
 
@@ -1677,6 +1967,11 @@ def main() -> int:
         "pool", lambda: phase_pool(torch, kadabra_full_instance(), wrs,
                                    graph=(g, full["pre"])),
         ("frame_accum", "bfs_frontier", "alias_draw"))
+    substrate_ranks = []
+    by_path["substrate"] = drive(
+        "substrate",
+        lambda: phase_substrate(torch, g, full, check, substrate_ranks),
+        ("bfs_frontier", "alias_draw"), every=False, ranks=substrate_ranks)
     del g, table, wrs
     torch.cuda.empty_cache()
     model = serve_model(torch, RG_ARCH, "rg serve", RG_PARAMS)

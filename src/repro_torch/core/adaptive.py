@@ -4,6 +4,10 @@ Port of :mod:`repro.core.adaptive`::
 
     result = run_adaptive(sample_fn, check_fn, template=torch.zeros(n),
                           strategy="local", world=4, rounds_per_epoch=4)
+
+With ``substrate="shard_map"`` every rank of a worker group of ``world``
+ranks makes the same call (the group in place of the reference's
+``mesh``/``mesh_axis``) and gets the same result.
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ import numpy as np
 from ..device import resolve_device
 from .epoch import EpochConfig, EpochState, rounds_for_world
 from .frames import FrameStrategy, tree_map
-from .substrate import resolve_substrate, run_on_substrate
+from .substrate import group_and_device, resolve_substrate, run_on_substrate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,18 +71,22 @@ def run_adaptive(sample_fn, check_fn, template, *,
                  rounds_per_epoch: int = 4, max_epochs: int = 10_000,
                  xi: float = 0.0, round_batch: int = 1, init_carry=None,
                  substrate=None, frame_shards: int = 0,
-                 device=None) -> AdaptiveResult:
+                 device=None, group=None) -> AdaptiveResult:
     """Run the adaptive loop to its end.  ``template`` (a tensor or a dict
-    of tensors) is moved to ``device`` (``None`` → the CUDA card)."""
+    of tensors) is moved to ``device`` (``None`` → the CUDA card, or on
+    SHARD_MAP the rank's device).  SHARD_MAP runs on ``group``, else this
+    process's current worker group."""
+    sub = resolve_substrate(substrate, world)
+    group, device = group_and_device(sub, world, device, group)
     device = resolve_device(device)
     template = tree_map(lambda x: x.to(device), template)
     strat = FrameStrategy(strategy) if isinstance(strategy, str) else strategy
     rounds = rounds_for_world(rounds_per_epoch * round_batch, round_batch,
                               world, xi) if xi else rounds_per_epoch
-    sub = resolve_substrate(substrate, world)
     cfg = EpochConfig(strategy=strat, rounds_per_epoch=rounds,
                       max_epochs=max_epochs, xi=xi, substrate=sub.value)
     st = run_on_substrate(sample_fn, check_fn, template, init_carry, seed,
-                          world, cfg, substrate=sub, frame_shards=frame_shards)
+                          world, cfg, substrate=sub, frame_shards=frame_shards,
+                          group=group)
     return result_from_state(st, strategy=strat, world=world,
                              frame_shards=frame_shards)

@@ -16,7 +16,13 @@ JAX's threefry, so the port does not reproduce the reference's samples.
 
 A ``sample_fn(gens, carry) -> (delta, carry)`` runs one round for all the
 workers whose generators it is given and returns their deltas stacked
-(W, ...); worker w's random inputs come only from ``gens[w]``.
+(len(gens), ...); worker w's random inputs come only from ``gens[w]``, so a
+worker's samples do not depend on which other workers share its call.
+
+A process holds the workers ``colls.workers`` of the W: all of them on the
+sequential and vmap substrates, its rank's one on shard_map.  It builds
+only their streams and samples only their frames; W stays global (seeds,
+INDEXED_FRAME's frame indices, the reductions).
 
 The seed is an argument of ``init`` and ``body``, not of the program, so
 one program (and one :class:`~repro_torch.core.substrate.EpochStepper`)
@@ -67,11 +73,11 @@ def make_generator(device: torch.device, *xs: int) -> torch.Generator:
     return gen
 
 
-def worker_generators(seed: int, world: int,
+def worker_generators(seed: int, streams: Sequence[int],
                       device: torch.device) -> List[torch.Generator]:
-    """Worker w's sampling stream, the same on every substrate."""
-    return [make_generator(device, _WORKER_STREAM, seed, w)
-            for w in range(world)]
+    """The sampling streams ``streams`` (stream w seeded by (seed, w)), the
+    same on every substrate."""
+    return [make_generator(device, _WORKER_STREAM, seed, w) for w in streams]
 
 
 def frame_generator(seed: int, m: int, device: torch.device) -> torch.Generator:
@@ -97,11 +103,13 @@ def rounds_for_world(n_samples_between_checks: int, round_batch: int,
 
 @dataclasses.dataclass
 class EpochState:
-    gens: List[torch.Generator]  # per-worker streams (unused by INDEXED)
+    gens: List[torch.Generator]  # the held streams (unused by INDEXED)
     carry: Any
     total: StateFrame      # consistent reduced state: one frame, or the
-                           # stacked (W, n/F) shards under SHARED_FRAME
-    pending: StateFrame    # stacked (W, ...) deltas of the epoch just sampled
+                           # held workers' stacked (h, n/F) shards under
+                           # SHARED_FRAME
+    pending: StateFrame    # the held workers' stacked (h, ...) deltas of
+                           # the epoch just sampled
     stop: bool
     aux: Any               # the check's aux (zeros before the first check)
     epoch: int
@@ -122,14 +130,16 @@ def _sample_epoch(sample_fn: SampleFn, template, rounds: int,
 class EpochProgram:
     """The engine as single-epoch pieces: ``init(carry, seed)`` builds the
     primed epoch-0 state, ``body(state, seed)`` advances one epoch,
-    ``cond(state)`` is the keep-running predicate, and ``blank(carry)`` is
-    a state of the same layout that nothing has sampled into (zero frames
-    and aux, unseeded generators)."""
+    ``cond(state)`` is the keep-running predicate, ``blank(carry)`` is a
+    state of the same layout that nothing has sampled into (zero frames
+    and aux, unseeded generators), and ``gather(state)`` is a state in the
+    layout of one process holding all W workers (the identity there)."""
 
     init: Callable[[Any, int], EpochState]
     body: Callable[[EpochState, int], EpochState]
     cond: Callable[[EpochState], bool]
     blank: Callable[[Any], EpochState]
+    gather: Callable[[EpochState], EpochState]
 
 
 def _shard_zeros(template, world: int, shards: int) -> StateFrame:
@@ -158,16 +168,18 @@ def _zero_aux(aux):
 def make_program(sample_fn: SampleFn, check_fn: CheckFn, template,
                  cfg: EpochConfig, colls: Collectives,
                  fold: Optional[int] = None) -> EpochProgram:
-    """Build the epoch program of one strategy for ``colls.world`` workers.
+    """Build the epoch program of one strategy for ``colls.world`` workers,
+    of which this process holds ``colls.workers``.
 
     ``template`` — the shape/dtype of ``frame.data`` (the full frame also
     for SHARED_FRAME; the engine keeps the sharded total).
 
     ``fold = k`` runs k logical workers per physical worker (elastic
-    re-sharding, :mod:`repro_torch.serve.elastic`): the state holds W·k
-    generators, physical worker p carrying the logical streams p·k …
-    p·k+k−1; ``sample_fn`` gets all W·k of them and the (W·k, ...) deltas
-    are summed per physical worker into (W, ...) with ``frame_accum``.
+    re-sharding, :mod:`repro_torch.serve.elastic`): the state holds k
+    generators a held worker, physical worker p carrying the logical
+    streams p·k … p·k+k−1; ``sample_fn`` gets all h·k of them and the
+    (h·k, ...) deltas are summed per physical worker into (h, ...) with
+    ``frame_accum``.
     ``∘`` is exact over integer frames, so (τ, estimate) equal the
     unfolded run's with W·k workers.  Every strategy but INDEXED_FRAME
     (whose frames do not depend on W) supports it.
@@ -183,6 +195,8 @@ def make_program(sample_fn: SampleFn, check_fn: CheckFn, template,
     W = colls.world
     F = colls.frame_shards or W
     k = fold or 1
+    held = colls.workers
+    h = len(held)
     device = leaves(template)[0].device
 
     def sample_epoch(gens, carry, rounds):
@@ -190,23 +204,28 @@ def make_program(sample_fn: SampleFn, check_fn: CheckFn, template,
         return (frame if k == 1 else fold_frames(frame, k)), carry
 
     def sample_indexed(seed: int, epoch: int, carry):
-        gens = [frame_generator(seed, epoch * W + w, device) for w in range(W)]
+        gens = [frame_generator(seed, epoch * W + w, device) for w in held]
         return sample_epoch(gens, carry, cfg.rounds_per_epoch)
 
     def check_full(total: StateFrame):
         stop, aux = check_fn(total)
-        return bool(to_host(stop)), aux
+        return colls.agree(bool(to_host(stop))), aux
+
+    def shard_check(shards: StateFrame, j: int):
+        return check_fn(StateFrame(
+            num=shards.num, data=tree_map(lambda x: x[j], shards.data)))
 
     def check_sharded(shards: StateFrame):
-        # per-shard verdicts, AND-combined (repro/core/epoch.py:198-201);
-        # the aux reported is worker 0's, as result_from_state takes it.
+        # per-shard verdicts of the held workers, AND-combined here and
+        # across processes (repro/core/epoch.py:198-201); the aux reported
+        # is the first held worker's (worker 0's in one process, as
+        # result_from_state takes it; ``gather`` brings worker 0's).
         verdicts, aux0 = [], None
-        for w in range(W):
-            stop_w, aux_w = check_fn(StateFrame(
-                num=shards.num, data=tree_map(lambda x: x[w], shards.data)))
-            verdicts.append(stop_w)
-            aux0 = aux_w if aux0 is None else aux0
-        return bool(to_host(torch.stack(verdicts).all())), aux0
+        for j in range(h):
+            stop_j, aux_j = shard_check(shards, j)
+            verdicts.append(stop_j)
+            aux0 = aux_j if aux0 is None else aux0
+        return colls.all_of(bool(to_host(torch.stack(verdicts).all()))), aux0
 
     def advance(st, carry, total, pending, stop, aux, epoch=None):
         e = st.epoch + 1 if epoch is None else epoch
@@ -214,7 +233,7 @@ def make_program(sample_fn: SampleFn, check_fn: CheckFn, template,
                           e if stop and not st.stop else st.stop_epoch)
 
     def empty_pending():
-        return stacked_zeros(template, W)
+        return stacked_zeros(template, h)
 
     if strat in (FrameStrategy.LOCK, FrameStrategy.BARRIER):
         rounds = 1 if strat == FrameStrategy.LOCK else cfg.rounds_per_epoch
@@ -270,7 +289,7 @@ def make_program(sample_fn: SampleFn, check_fn: CheckFn, template,
         return (not st.stop) and st.epoch < cfg.max_epochs
 
     def total_zeros():
-        return _shard_zeros(template, W, F) \
+        return _shard_zeros(template, h, F) \
             if strat == FrameStrategy.SHARED_FRAME else zeros_like_frame(template)
 
     # the aux of a check before the first one: the check on a zero frame
@@ -283,14 +302,15 @@ def make_program(sample_fn: SampleFn, check_fn: CheckFn, template,
 
     def blank(carry=None) -> EpochState:
         return EpochState(gens=[torch.Generator(device=device)
-                                for _ in range(W * k)],
+                                for _ in range(h * k)],
                           carry=carry, total=total_zeros(),
                           pending=empty_pending(), stop=False,
                           aux=_zero_aux(zero_aux), epoch=0, stop_epoch=0)
 
     def init(carry=None, seed: int = 0) -> EpochState:
         st = blank(carry)
-        st.gens = worker_generators(seed, W * k, device)
+        st.gens = worker_generators(
+            seed, [w * k + j for w in held for j in range(k)], device)
         # Epoch 0 produces the first pending frame (Alg. 2 note on line 9).
         if strat == FrameStrategy.INDEXED_FRAME:
             st.pending, st.carry = sample_indexed(seed, 0, carry)
@@ -301,4 +321,22 @@ def make_program(sample_fn: SampleFn, check_fn: CheckFn, template,
             st.epoch = 1
         return st
 
-    return EpochProgram(init=init, body=body, cond=cond, blank=blank)
+    def gather(st: EpochState) -> EpochState:
+        """The held workers' state → the layout of one process holding all
+        W: pending (W, ...) and, under SHARED_FRAME, the (W, n/F) shards,
+        with worker 0's aux (recomputed from its shard once the state has
+        been checked: the aux of the last check).  The generators stay the
+        held ones."""
+        if h == W:
+            return st
+        pending = colls.all_frames(st.pending)
+        total, aux = st.total, st.aux
+        if strat == FrameStrategy.SHARED_FRAME:
+            total = StateFrame(num=total.num, data=colls.all_frames(
+                StateFrame(num=total.num.reshape(1), data=total.data)).data)
+            if st.epoch >= 2 and held[0] != 0:
+                aux = shard_check(total, 0)[1]
+        return dataclasses.replace(st, total=total, pending=pending, aux=aux)
+
+    return EpochProgram(init=init, body=body, cond=cond, blank=blank,
+                        gather=gather)

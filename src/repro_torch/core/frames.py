@@ -4,24 +4,28 @@ Port of :mod:`repro.core.frames`.  A frame holds ``num`` (samples
 accumulated, an int32 tensor) and ``data`` (one tensor, or a dict of
 tensors, holding the sampled data).  ``∘`` is elementwise ``+``.
 
-Virtual workers: the W workers of one device are a leading W dimension on
-the per-worker frames ("stacked" frames: ``num`` (W,), each data leaf
-(W, ...)), in place of the reference's ``vmap`` over a named axis.  A
-:class:`Collectives` turns the stacked deltas of an epoch into what each
-strategy keeps: the full sum (``reduce_frames``), the per-worker shards of
-the sum (``scatter_frames``) or the deltas themselves (``all_frames``).
-The sums over W go through the ``frame_accum`` kernel.
+Stacked frames: the workers a process holds are a leading dimension on
+the per-worker frames (``num`` (h,), each data leaf (h, ...)).  One process
+holds all W workers on the sequential and vmap substrates (in place of the
+reference's ``vmap`` over a named axis), and one worker on each of W
+processes on shard_map.  A :class:`Collectives` turns the stacked deltas of
+an epoch into what each strategy keeps: the full sum (``reduce_frames``),
+the held workers' shards of the sum (``scatter_frames``) or every worker's
+delta (``all_frames``).  In one process the sums over W go through the
+``frame_accum`` kernel; across processes they are ``torch.distributed``
+collectives (:func:`process_collectives`).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import Callable, Dict, Union
+from typing import Callable, Dict, Tuple, Union
 
 import torch
 
 from ..kernels import ops
+from . import distributed
 
 Data = Union[torch.Tensor, Dict[str, torch.Tensor]]
 
@@ -115,11 +119,20 @@ def shard_frame_pad(n: int, world: int) -> int:
 class Collectives:
     """How the stacked per-worker frames of an epoch are combined.
 
-    ``reduce_frames``  — stacked (W, ...) → one frame holding ``⊕_t Δ_t``
-                         (every worker's replicated copy, held once).
-    ``scatter_frames`` — stacked → stacked shards: worker w holds shard
-                         ``w % F`` of ``⊕_t Δ_t`` (``num`` fully reduced).
-    ``all_frames``     — the per-worker deltas, stacked in worker order.
+    ``workers``        — the worker ids this process holds, in stacking
+                         order (all W in one process; ``(rank,)`` in a
+                         worker process).
+    ``reduce_frames``  — stacked (h, ...) → one frame holding ``⊕_t Δ_t``
+                         over all W workers (replicated, held once).
+    ``scatter_frames`` — stacked → stacked shards: held worker w holds
+                         shard ``w % F`` of ``⊕_t Δ_t`` (``num`` fully
+                         reduced).
+    ``all_frames``     — every worker's delta, stacked (W, ...) in worker
+                         order.
+    ``agree``          — a verdict every process holds (raises if they
+                         differ; the identity in one process).
+    ``all_of``         — the AND of the processes' verdicts on their own
+                         shards (the identity in one process).
     """
 
     world: int
@@ -127,6 +140,9 @@ class Collectives:
     reduce_frames: Callable[[StateFrame], StateFrame]
     scatter_frames: Callable[[StateFrame], StateFrame]
     all_frames: Callable[[StateFrame], StateFrame]
+    workers: Tuple[int, ...]
+    agree: Callable[[bool], bool] = bool
+    all_of: Callable[[bool], bool] = bool
 
 
 def _identity(f: StateFrame) -> StateFrame:
@@ -142,7 +158,8 @@ def sequential_collectives() -> Collectives:
         return StateFrame(num=f.num[0], data=f.data)
 
     return Collectives(world=1, frame_shards=1, reduce_frames=reduce_frames,
-                       scatter_frames=scatter_frames, all_frames=_identity)
+                       scatter_frames=scatter_frames, all_frames=_identity,
+                       workers=(0,))
 
 
 def _accum_leaf(x: torch.Tensor) -> torch.Tensor:
@@ -198,4 +215,111 @@ def virtual_collectives(world: int, frame_shards: int = 0) -> Collectives:
         return StateFrame(num=total.num, data=tree_map(shard, total.data))
 
     return Collectives(world=world, frame_shards=F, reduce_frames=reduce_frames,
-                       scatter_frames=scatter_frames, all_frames=_identity)
+                       scatter_frames=scatter_frames, all_frames=_identity,
+                       workers=tuple(range(world)))
+
+
+def _int_leaf(x: torch.Tensor) -> torch.Tensor:
+    if x.dtype.is_floating_point:
+        raise TypeError(f"frames crossing processes must be integer (a sum "
+                        f"in another order is then the same sum); got a "
+                        f"{x.dtype} leaf of shape {tuple(x.shape)}")
+    return x
+
+
+def process_collectives(group: "distributed.WorkerGroup",
+                        frame_shards: int = 0) -> Collectives:
+    """Collectives of a worker process: rank r holds worker r, so stacked
+    frames are (1, ...) and the sums run over ``group``.  Port of
+    ``axis_collectives(..., grouped=True)`` (``repro/core/frames.py:147``).
+
+    ``reduce_frames`` all-reduces the held frame.  ``scatter_frames`` with
+    F = W reduce-scatters it over the world; with F < W it is the paper's
+    grouped form (§3.2, Fig. 3b): a reduce-scatter within each group of F
+    consecutive ranks, then an all-reduce of the n/F partial across the
+    W/F groups, so that worker g·F + i holds shard i of the sum, as in
+    :func:`virtual_collectives`; ``num`` is fully reduced.  ``all_frames``
+    all-gathers the (W, ...) deltas in rank order.  Frame leaves must be
+    integer: then no order of the sums can change a bit.
+
+    The tensors stay on the rank's device with either backend: gloo takes
+    CUDA tensors for all three collectives (torch 2.11 on an H100 host;
+    gloo copies them through host memory itself), so no op is staged
+    here.
+    """
+    W, rank = group.world, group.rank
+    F = frame_shards or W
+    within, across = shard_groups(W, F)
+    g_within = group.block_group(within)
+    g_across = group.block_group(across) if F < W else None
+
+    def total(x):
+        """(1, ...) → the (...) sum over the world."""
+        y = _int_leaf(x).reshape(1, -1)[0].clone()
+        distributed.all_reduce(y, group.pg)
+        return y.reshape(x.shape[1:])
+
+    def reduce_frames(f: StateFrame) -> StateFrame:
+        return StateFrame(num=total(f.num), data=tree_map(total, f.data))
+
+    def scatter_frames(f: StateFrame) -> StateFrame:
+        def shard(x):
+            if x.dim() == 1:  # scalar leaves are fully reduced
+                return total(x).reshape(1)
+            _int_leaf(x)
+            if x.shape[1] % F:
+                raise ValueError(
+                    f"SHARED_FRAME needs leading dim divisible by F={F}; pad "
+                    f"the frame (got {tuple(x.shape[1:])}) — see "
+                    f"shard_frame_pad")
+            flat = x[0].reshape(-1).contiguous()
+            out = torch.empty(flat.numel() // F, dtype=x.dtype,
+                              device=x.device)
+            distributed.reduce_scatter(out, flat, g_within)
+            if g_across is not None:
+                distributed.all_reduce(out, g_across)
+            return out.reshape(1, x.shape[1] // F, *x.shape[2:])
+
+        return StateFrame(num=total(f.num), data=tree_map(shard, f.data))
+
+    def all_frames(f: StateFrame) -> StateFrame:
+        def gather(x):
+            x = _int_leaf(x).contiguous()
+            out = torch.empty((W, *x.shape[1:]), dtype=x.dtype,
+                              device=x.device)
+            distributed.all_gather(out, x, group.pg)
+            return out
+        return StateFrame(num=gather(f.num), data=tree_map(gather, f.data))
+
+    return Collectives(world=W, frame_shards=F, reduce_frames=reduce_frames,
+                       scatter_frames=scatter_frames, all_frames=all_frames,
+                       workers=(rank,), agree=group.agree,
+                       all_of=group.all_of)
+
+
+def collectives_on_rank(group: "distributed.WorkerGroup", num, data,
+                        frame_shards=(0,)) -> dict:
+    """A check entry for :func:`repro_torch.launch.spawn.spawn_workers`:
+    this rank's row of stacked numpy frames (``num`` (W,), ``data``
+    leaves (W, ...)) through :func:`process_collectives` for each F of
+    ``frame_shards``.  Returns ``{F: {op: (num, data, calls)}}`` for the
+    ops ``reduce_frames``, ``scatter_frames`` and ``all_frames``, as numpy,
+    with the ``torch.distributed`` collectives each op issued
+    (:func:`~repro_torch.core.distributed.record_collectives`)."""
+    r, dev = group.rank, group.device
+
+    def row(a):
+        return torch.from_numpy(a[r:r + 1].copy()).to(dev)
+
+    held = StateFrame(num=row(num), data=tree_map(row, data))
+    out = {}
+    for F in frame_shards:
+        colls = process_collectives(group, F)  # builds its groups first
+        out[F] = {}
+        for op in ("reduce_frames", "scatter_frames", "all_frames"):
+            with distributed.record_collectives() as calls:
+                f = getattr(colls, op)(held)
+            out[F][op] = (f.num.cpu().numpy(),
+                          tree_map(lambda x: x.cpu().numpy(), f.data),
+                          list(calls))
+    return out

@@ -26,6 +26,7 @@ import torch
 from ..device import resolve_device
 from .adaptive import AdaptiveResult, run_adaptive
 from .frames import FrameStrategy, shard_frame_pad, tree_map
+from .substrate import group_and_device
 
 PyTree = Any
 
@@ -98,11 +99,14 @@ def run_instance(instance: "str | AdaptiveInstance", *,
                  strategy: "str | FrameStrategy" = FrameStrategy.LOCAL_FRAME,
                  world: int = 1, seed: int = 0,
                  substrate: "str | None" = None, frame_shards: int = 0,
-                 device=None,
+                 device=None, group=None,
                  ) -> Tuple[np.ndarray, AdaptiveResult, BuiltInstance]:
     """Build and run one workload on ``device`` (``None`` → the CUDA card);
-    returns (estimate, result, built).  ``substrate`` and ``frame_shards``
-    are as in :func:`repro_torch.core.adaptive.run_adaptive`."""
+    returns (estimate, result, built).  ``substrate``, ``frame_shards`` and
+    ``group`` are as in :func:`repro_torch.core.adaptive.run_adaptive`: on
+    SHARD_MAP each rank builds the instance on its own device (the rank's,
+    unless ``device`` names one)."""
+    group, device = group_and_device(substrate, world, device, group)
     device = resolve_device(device)
     inst = get_instance(instance) if isinstance(instance, str) else instance
     strat = FrameStrategy(strategy) if isinstance(strategy, str) else strategy
@@ -113,7 +117,7 @@ def run_instance(instance: "str | AdaptiveInstance", *,
                        max_epochs=built.max_epochs,
                        init_carry=built.init_carry,
                        substrate=substrate, frame_shards=frame_shards,
-                       device=device)
+                       device=device, group=group)
     est = built.estimate(built.trim(res.data), float(res.num))
     return est, res, built
 

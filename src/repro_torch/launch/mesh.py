@@ -1,10 +1,18 @@
-"""Device pools for the serving scheduler.  Port of the part of
-:mod:`repro.launch.mesh` that the adaptive-query pool uses; the meshes of
-the multi-device substrate and of the model zoo wait for ROADMAP queue 1
-items 8 and 11.
+"""Device pools and worker groups.  Port of the parts of
+:mod:`repro.launch.mesh` that the adaptive-query pool and the shard_map
+substrate use; the model zoo's meshes wait for ROADMAP queue 1 item 11.
 """
 
 from __future__ import annotations
+
+
+def make_worker_group(world: int, group=None):
+    """The worker group of ``world`` ranks that the epoch engine's
+    shard_map substrate runs on — ``group``, or this process's current one
+    (raises, saying how to launch, when there is none of that size).  The
+    counterpart of the reference's ``make_worker_mesh``."""
+    from ..core.substrate import worker_group
+    return worker_group(world, group)
 
 
 def make_device_pool(topology: str = "auto"):

@@ -176,7 +176,9 @@ def main(argv=None) -> int:
                          f"(default for fresh pools: {DEFAULT_POOL_QUERIES}; "
                          "--resume defaults to the restored stream only)")
     ap.add_argument("--max-in-flight", type=int, default=2)
-    ap.add_argument("--substrate", default=None)
+    ap.add_argument("--substrate", default=None,
+                    help="sequential | vmap (the pool's shard_map sessions "
+                         "wait for ROADMAP queue 1 item 9 and raise)")
     ap.add_argument("--topology", default="",
                     help="device pool topology: 'auto' (the host's CUDA "
                          "devices), 'N' (one group of N slots), or 'GxN' "

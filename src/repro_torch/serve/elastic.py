@@ -116,7 +116,8 @@ def reshard_session(session: AdaptiveSession, new_world: int, *,
     session continues the identical logical trajectory — per-worker shard
     memory becomes Θ(n/W′) — and its final (τ, estimate) is bit-identical
     to the uninterrupted original run.  ``placement`` pins it to device
-    ids and implies ``substrate="shard_map"`` (queued in the port).
+    ids and implies ``substrate="shard_map"``, whose pool sessions wait for
+    the pool's process-group sessions (ROADMAP queue 1 item 9).
     """
     spec = session.spec
     if spec.frame_strategy != FrameStrategy.SHARED_FRAME:

@@ -28,8 +28,9 @@ Meyerhenke 2019, exploits across hosts).  This module models that:
 
 The pool accounts in **worker slots**: a session's footprint is its
 ``world``.  Under ``shard_map`` each slot is a physical device and the
-lease's ids become the session's devices (``lease_devices``; the port's
-shard_map substrate is queued, ROADMAP queue 1 item 8); under ``vmap``
+lease's ids become the session's devices (``lease_devices``; the port
+runs shard_map in worker processes, and the pool's sessions on it wait
+for its process-group sessions, ROADMAP queue 1 item 9); under ``vmap``
 the W virtual workers timeshare one device, but the lease still reserves W
 slots so admission and pressure behave identically across substrates (and
 are testable on a 1-device host with an abstract topology).

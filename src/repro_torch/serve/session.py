@@ -152,6 +152,13 @@ class StepperCache:
 
 def _build(spec: SessionSpec, device: torch.device
            ) -> Tuple[BuiltInstance, EpochStepper]:
+    if spec.substrate == "shard_map":
+        # the pool is one controller process; a session whose workers are
+        # other processes needs a controller/worker protocol of its own
+        raise NotImplementedError(
+            "the pool's sessions run on the sequential and vmap substrates; "
+            "shard_map sessions (workers in other processes) wait for the "
+            "pool's process-group sessions: ROADMAP queue 1 item 9")
     inst = get_instance(spec.instance)
     lw = spec.logical_world or spec.world
     # build() pads SHARED frames for the LOGICAL world; every W' | lw then

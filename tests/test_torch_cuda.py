@@ -342,3 +342,33 @@ def test_flash_attention_f32_on_card(cuda_device, hd, s, group, window, offset):
     torch.cuda.synchronize()
     torch.testing.assert_close(got, ref.flash_attention_ref(q, k, v, window=window),
                                rtol=1e-5, atol=1e-5)
+
+
+# -------------------------------------------- the shard_map substrate
+
+
+def _equivalence(worlds, backend, instances):
+    from repro_torch.core.conformance import run_substrate_equivalence_all
+    from repro_torch.core.frames import FrameStrategy
+    return run_substrate_equivalence_all(
+        instances, worlds=worlds, backend=backend, device="cuda",
+        strategies=list(FrameStrategy), require_all=True)
+
+
+def test_shard_map_world_1_over_nccl_equals_vmap_on_card(cuda_device):
+    """One NCCL rank on the card: every strategy's τ, trimmed data and
+    estimate equal VMAP's and SEQUENTIAL's at W = 1."""
+    for rep in _equivalence((1,), "nccl", ("kadabra", "wrs")).values():
+        assert rep.ok, rep.summary()
+        assert all(set(c.ran) == {"sequential", "vmap", "shard_map"}
+                   for c in rep.cells)
+
+
+def test_shard_map_two_gloo_ranks_on_one_card_equal_vmap(cuda_device):
+    """Two gloo ranks sharing the card (NCCL puts one rank on each card):
+    every strategy at W = 2, and SHARED F = 1, equal VMAP's."""
+    reps = _equivalence((2,), "gloo", ("kadabra", "wrs"))
+    for rep in reps.values():
+        assert rep.ok, rep.summary()
+        assert all("shard_map" in c.ran for c in rep.cells)
+        assert len(rep.cells) == 6

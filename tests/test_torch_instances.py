@@ -138,7 +138,8 @@ def test_unregistered_instance_runs_and_shard_map_is_queued():
     assert res.stopped and abs(est[0] - built.oracle[0]) <= built.eps
     with pytest.raises(KeyError):
         get_instance("wrs-small")
-    with pytest.raises(NotImplementedError):
+    # shard_map runs in a worker group; outside one it says how to launch
+    with pytest.raises(RuntimeError, match="spawn_workers"):
         run_instance("wrs", world=2, substrate="shard_map", device=CPU)
 
 

@@ -273,9 +273,9 @@ def test_unported_paths_raise_naming_their_roadmap_item():
     with pytest.raises(NotImplementedError, match="queue 1 item 10"):
         Model(dataclasses.replace(cfg, family="encdec"), device=CPU)
     # the pool's sessions run on the sequential and vmap substrates; the
-    # shard_map one waits for the multi-device substrate
+    # shard_map one waits for the pool's process-group sessions
     from repro_torch.serve import AdaptiveSession, SessionSpec
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
         AdaptiveSession.create(SessionSpec("wrs", "local", world=1,
                                            substrate="shard_map"),
                                device=CPU)

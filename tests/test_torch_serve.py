@@ -340,7 +340,7 @@ def test_same_spec_sessions_interleaved_share_no_generators():
 
 def test_shard_map_substrate_raises_naming_queue_item():
     spec = SessionSpec(INSTANCE, "local", world=1, substrate="shard_map")
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
         AdaptiveSession.create(spec, device="cpu")
 
 
