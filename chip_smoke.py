@@ -34,6 +34,11 @@ and the script exits non-zero:
                  window 2048, in bf16 and f32, at S = 100 and window 0,
                  in bf16 at ``adaptive_eval``'s (4, 10, 64, 256) and in
                  f32 at the prefill-vs-decode gate's (4, 10, 32, 256);
+                 and at phase 12's shapes (``FLASH_FAMILY_SHAPES``:
+                 h2o-danube-3-4b's hd 120 prefill in bf16 and f32, its
+                 ``adaptive_eval`` and f32 gate shapes, smollm-360m's hd 64,
+                 qwen3-moe's hd 128), each timed beside its bound at the
+                 true hd, the plain version and SDPA;
                  ``rglru_scan`` exactly at the prefill's (2, 4096, 2560),
                  timed there and at ``adaptive_eval``'s (4, 64, 2560), and
                  at a ragged (3, 100, 1000) and (1, 7, 1001); ``ssm_scan``
@@ -98,13 +103,30 @@ and the script exits non-zero:
                  weights from seed 0), once recurrentgemma's model is freed,
                  through the same steps as phase 10: prefill B = 2, S = 4096,
                  ``generate``, prefill against decode, ``adaptive_eval``.
-12. kernels    — every kernel with its launches on the seven paths (phases
+12. families   — the dense, moe, vlm and encdec families (random weights
+                 from seed 0, each model freed before the next):
+                 h2o-danube-3-4b at full width and depth (24 layers, d 3840,
+                 32 heads on 8, hd 120, window 4096, bf16) through phase
+                 10's steps (prefill B = 2, S = 8192, ``generate``, prefill
+                 vs decode in bf16 and f32, ``adaptive_eval``);
+                 smollm-360m (full size) through prefill B = 2, S = 4096,
+                 ``generate`` and prefill vs decode; one prefill each of
+                 internlm2-20b (full size, B = 1, S = 4096, peak memory),
+                 mixtral-8x22b and qwen3-moe-235b-a22b (full width, 2
+                 layers, B = 1, S = 4096, tokens dropped per expert, and
+                 prefill vs decode at a capacity no expert overflows),
+                 internvl2-76b (full width, 2 layers, 256 patches + 3840
+                 tokens) and seamless-m4t-large-v2 (full size, B = 2,
+                 S = 4096, 1024 frames).  ``flash_attention`` must run at
+                 hd 120, 64 and 128 there.
+13. kernels    — every kernel with its launches on the eight paths (phases
                  5–6, 7, 8, 9, 9a — this process's and its worker
-                 processes' —, 10 and 11), each counted from 0 just before
-                 its path; each path's line also splits its kernel calls by
-                 shape.
+                 processes' —, 10, 11 and 12), each counted from 0 just
+                 before its path; each path's line also splits its kernel
+                 calls by shape (the kernels line repeats
+                 ``flash_attention``'s on the families path).
 
-While phases 5–11 run, in this process and in the worker processes of 9a,
+While phases 5–12 run, in this process and in the worker processes of 9a,
 the kernels behind ``kernels.ops`` are wrapped so
 that their calls are held against the plain versions on the same tensors:
 every call on the conformance path, and elsewhere each call whose kernel,
@@ -152,6 +174,33 @@ SERVE_EVAL = {"batch": 4, "seq": 64, "eps": 0.5, "delta": 0.1}
 # configs on the CPU), bf16 0.15 (the two paths round at other places, over
 # all the layers; 0.009–0.019 on the reduced configs)
 SERVE_GATES = {"bf16": 0.15, "f32": 1e-3}
+
+# phase 12: the dense, moe, vlm and encdec families (random weights, seed 0)
+DANUBE_ARCH = "h2o-danube-3-4b"   # the slice's main model, full width and depth
+DANUBE_PREFILL = (2, 8192)        # twice the window of 4096
+DANUBE_PARAMS = 3_961_839_360     # the config's closed form + the final norm
+SMOLLM_ARCH = "smollm-360m"
+SMOLLM_PREFILL = (2, 4096)
+SMOLLM_PARAMS = 409_007_040
+# (arch, depth kept or None for the full depth, parameters held, prefill
+# (B, S)): one prefill each, the moe ones also prefill vs decode
+FAMILY_PREFILLS = (
+    ("internlm2-20b", None, 19_861_149_696, (1, 4096)),
+    ("mixtral-8x22b", 2, 5_410_781_184, (1, 4096)),
+    ("qwen3-moe-235b-a22b", 2, 6_220_173_312, (1, 4096)),
+    ("internvl2-76b", 2, 3_812_663_296, (1, 4096)),        # 256 patches + 3840 tokens
+    ("seamless-m4t-large-v2", None, 2_034_886_656, (2, 4096)),  # 1024 frames
+)
+# flash_attention at the families' shapes (phase 4): name, (B, H, KV, S, hd),
+# window, dtype
+FLASH_FAMILY_SHAPES = (
+    ("danube prefill", (2, 32, 8, 8192, 120), 4096, "bfloat16"),
+    ("danube adaptive_eval", (4, 32, 8, 64, 120), 4096, "bfloat16"),
+    ("danube prefill f32", (2, 32, 8, 8192, 120), 4096, "float32"),
+    ("danube f32 gate", (4, 32, 8, 32, 120), 4096, "float32"),
+    ("smollm prefill", (2, 15, 5, 4096, 64), 0, "bfloat16"),
+    ("qwen3-moe prefill", (1, 64, 4, 4096, 128), 0, "bfloat16"),
+)
 
 MAMBA_ARCH = "falcon-mamba-7b"
 MAMBA_PREFILL = (2, 4096)   # batch, prompt length
@@ -826,6 +875,54 @@ def kernel_flash_attention(torch, timer, check, gen):
           "path": "prefill vs decode (f32)", **gate_row})
     row.update({f"{key}_f32_gate_shape": val for key, val in gate_row.items()
                 if key != "bound_by"})
+    torch.cuda.empty_cache()
+    row["families_shapes"] = [flash_family_shape(torch, timer, check, gen, *spec)
+                              for spec in FLASH_FAMILY_SHAPES]
+    return row
+
+
+def flash_family_shape(torch, timer, check, gen, name, shape, window, dtype):
+    """``flash_attention`` at one of phase 12's shapes, held against its
+    plain version and timed beside its bound, counted at the true hd (the
+    kernel pads hd to 16, 32, 64, 128 or 256), the plain version and
+    ``scaled_dot_product_attention`` on the same GQA inputs and boolean
+    mask."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import PADDED_HEAD_DIMS, flash_attention
+
+    B, H, KV, S, hd = shape
+    dt = getattr(torch, dtype)
+    q, k, v = [torch.randn((B, S, n, hd), generator=gen, device="cuda")
+               .to(dt).transpose(1, 2) for n in (H, KV, KV)]
+    check.compare_flash(q, k, v, window, flash_attention(q, k, v, window=window))
+    pairs = B * H * attention_pairs(S, window)
+    nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+    ops = 4 * hd * pairs
+    padded = min(p for p in PADDED_HEAD_DIMS if p >= hd)
+    t_bound, by = bound_ms(nbytes, ops, BF16_OPS_PER_S if dt == torch.bfloat16
+                           else F32_OPS_PER_S)
+    pos = torch.arange(S, device="cuda")
+    mask = pos[None, :] <= pos[:, None]
+    if window > 0:
+        mask &= pos[None, :] > pos[:, None] - window
+    row = {"name": name, "dtype": dtype, "q": list(q.shape), "kv": list(k.shape),
+           "window": window, "padded_hd": padded,
+           "padded_products_share": 1 - hd / padded,
+           "admissible_pairs": pairs, "flops_true_hd": ops, "bytes": nbytes,
+           "ms": timer(lambda: flash_attention(q, k, v, window=window)),
+           "plain_ms": timer(lambda: ref.flash_attention_ref(q, k, v, window=window),
+                             reps=3, warmup=1),
+           "bound_ms": t_bound, "bound_by": by,
+           "library_ms": timer(lambda: F.scaled_dot_product_attention(
+               q, k, v, attn_mask=mask, enable_gqa=True)),
+           "library": "F.scaled_dot_product_attention(enable_gqa=True, "
+                      "boolean mask)"}
+    emit({"phase": "kernels", "kernel": "flash_attention", "path": "families",
+          "max_abs_err": check.max_err["flash_attention"],
+          "tolerance": check.TOLERANCE["flash_attention"], **row})
+    del q, k, v, mask
     torch.cuda.empty_cache()
     return row
 
@@ -1723,13 +1820,18 @@ def phase_substrate(torch, g, full, check, rank_reports):
                              + "\n".join(failed))
 
 
-def serve_model(torch, arch, path, expect_params):
+def serve_model(torch, arch, path, expect_params, layers=None):
     """A model of the zoo at full width, random weights drawn on the card
-    from seed 0 by the port's own initialiser; it must hold
-    ``expect_params`` parameters."""
+    from seed 0 by the port's own initialiser, at the config's depth or cut
+    to ``layers``; it must hold ``expect_params`` parameters."""
+    import dataclasses
+
     from repro_torch.models import Model, resolve_config
 
     cfg = resolve_config(arch)
+    full_depth = cfg.n_layers
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     torch.cuda.synchronize()
@@ -1739,7 +1841,10 @@ def serve_model(torch, arch, path, expect_params):
     params = list(model.parameters())
     count = sum(p.numel() for p in params)
     emit({"phase": path, "step": "weights", "arch": cfg.name,
-          "layers": cfg.n_layers, "d_model": cfg.d_model, "vocab": cfg.vocab,
+          "family": cfg.family, "layers": cfg.n_layers,
+          "depth_cut": None if layers is None else
+          f"{full_depth} → {layers} layers, every width kept",
+          "d_model": cfg.d_model, "vocab": cfg.vocab,
           "params": count, "param_count_formula": cfg.param_count(),
           "weight_gb": sum(p.numel() * p.element_size() for p in params) / 1e9,
           "init_s": time.time() - t0})
@@ -1761,16 +1866,45 @@ def decode_prompt(torch, model, prompts):
     return logits
 
 
-def phase_serve(torch, model, path, prefill_shape):
+def prefill_vs_decode(torch, model, path, prompts):
+    """Prefill's last logits against decoding the same prompt token by
+    token, in the model's bf16 and in an f32 copy of the same weights,
+    gated by ``SERVE_GATES``."""
+    import math
+
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import Model
+
+    Bg, P = prompts.shape
+    m32 = Model(model.cfg, device="cuda").float()
+    m32.load_state_dict(model.state_dict())
+    for m, gate in ((model, SERVE_GATES["bf16"]), (m32, SERVE_GATES["f32"])):
+        full = make_prefill_step(m)({"tokens": prompts}).float()
+        dec = decode_prompt(torch, m, prompts).float()
+        err = float((full - dec).abs().max())
+        rel = err / float(full.abs().max())
+        agree = float((full.argmax(-1) == dec.argmax(-1)).float().mean())
+        emit({"phase": path, "step": "prefill vs decode", "arch": model.cfg.name,
+              "dtype": str(m.dtype).split(".")[-1], "batch": Bg, "prompt": P,
+              "max_abs_err": err, "max_abs_logit": float(full.abs().max()),
+              "rel_err": rel, "gate_rel": gate, "argmax_agree": agree})
+        if not (math.isfinite(rel) and rel <= gate):
+            raise AssertionError(f"{path} prefill vs decode ({m.dtype}): "
+                                 f"relative error {rel} > {gate}")
+    del m32, full, dec
+    torch.cuda.empty_cache()
+
+
+def phase_serve(torch, model, path, prefill_shape, evaluate=True):
     """A model's serving path at full width: prefill at ``prefill_shape``,
     greedy generation at the CLI's defaults, prefill against decode in bf16
-    and f32 (``SERVE_GATES``), adaptive evaluation (``SERVE_EVAL``)."""
+    and f32 (``SERVE_GATES``), adaptive evaluation (``SERVE_EVAL``) unless
+    ``evaluate`` is False."""
     import math
 
     from repro_torch.data import TokenStream
     from repro_torch.launch.serve import adaptive_eval, generate
     from repro_torch.launch.steps import make_prefill_step
-    from repro_torch.models import Model
 
     cfg = model.cfg
     with torch.inference_mode():
@@ -1789,8 +1923,9 @@ def phase_serve(torch, model, path, prefill_shape):
             walls.append(time.time() - t0)
         peak = torch.cuda.max_memory_allocated() / 1e9
         finite = bool(torch.isfinite(logits).all())
-        emit({"phase": path, "step": "prefill", "batch": B, "seq": S,
-              "window": cfg.local_window, "wall_s": walls,
+        emit({"phase": path, "step": "prefill", "arch": cfg.name,
+              "batch": B, "seq": S,
+              "window": cfg.local_window or cfg.window, "wall_s": walls,
               "tokens_per_s": B * S / min(walls[1:]), "peak_mem_gb": peak,
               "logits_shape": list(logits.shape), "finite": finite})
         if not finite or tuple(logits.shape) != (B, cfg.padded_vocab):
@@ -1813,7 +1948,7 @@ def phase_serve(torch, model, path, prefill_shape):
         dt = time.time() - t0
         ok = tuple(out.shape) == (Bg, P + G) and torch.equal(out[:, :P], prompts) \
             and int(out.min()) >= 0 and int(out.max()) < cfg.padded_vocab
-        emit({"phase": path, "step": "generate", "batch": Bg,
+        emit({"phase": path, "step": "generate", "arch": cfg.name, "batch": Bg,
               "prompt": P, "gen": G, "wall_s": dt,
               "decode_steps": P + G - 1,
               "new_tokens_per_s": Bg * G / dt,
@@ -1826,23 +1961,9 @@ def phase_serve(torch, model, path, prefill_shape):
 
         # 3. prefill's last logits against decoding the same prompt token by
         # token, in the model's bf16 and in an f32 copy of the same weights
-        m32 = Model(cfg, device="cuda").float()
-        m32.load_state_dict(model.state_dict())
-        for m, gate in ((model, SERVE_GATES["bf16"]), (m32, SERVE_GATES["f32"])):
-            full = make_prefill_step(m)({"tokens": prompts}).float()
-            dec = decode_prompt(torch, m, prompts).float()
-            err = float((full - dec).abs().max())
-            rel = err / float(full.abs().max())
-            agree = float((full.argmax(-1) == dec.argmax(-1)).float().mean())
-            emit({"phase": path, "step": "prefill vs decode",
-                  "dtype": str(m.dtype).split(".")[-1], "batch": Bg, "prompt": P,
-                  "max_abs_err": err, "max_abs_logit": float(full.abs().max()),
-                  "rel_err": rel, "gate_rel": gate, "argmax_agree": agree})
-            if not (math.isfinite(rel) and rel <= gate):
-                raise AssertionError(f"{path} prefill vs decode ({m.dtype}): "
-                                     f"relative error {rel} > {gate}")
-        del m32, full, dec
-        torch.cuda.empty_cache()
+        prefill_vs_decode(torch, model, path, prompts)
+        if not evaluate:
+            return
 
         # 4. adaptive evaluation of the mean per-token loss
         e = SERVE_EVAL
@@ -1851,7 +1972,7 @@ def phase_serve(torch, model, path, prefill_shape):
         t0 = time.time()
         mean, res = adaptive_eval(model, stream, eps=e["eps"], delta=e["delta"])
         dt = time.time() - t0
-        emit({"phase": path, "step": "adaptive eval", **e,
+        emit({"phase": path, "step": "adaptive eval", "arch": cfg.name, **e,
               "value_range": 15.0, "strategy": "local", "rounds_per_epoch": 2,
               "max_epochs": 200, "mean_loss": mean, "tau": res.num,
               "epochs": res.epochs, "stopped": res.stopped,
@@ -1865,6 +1986,128 @@ def phase_serve(torch, model, path, prefill_shape):
         prof = profiled(torch, lambda: model.train_loss(one))
         emit({"phase": path, "step": "adaptive eval",
               "profile_of_one_sample": prof})
+
+
+@contextlib.contextmanager
+def moe_drops(torch):
+    """Count, while the block runs, the (token, choice) pairs that each
+    expert's capacity dropped, summed over the moe layers' routing calls:
+    yields a dict that gets ``chosen`` and ``dropped`` (E,) lists and the
+    calls."""
+    from repro_torch.models import moe
+
+    route = moe.route_topk
+    out = {"calls": 0}
+
+    def counted(logits, k, capacity):
+        dispatch, combine, aux = route(logits, k, capacity)
+        _, _, topi, _ = moe._route(logits, k)
+        E = logits.shape[-1]
+        chosen = torch.bincount(topi.flatten(), minlength=E)
+        dropped = chosen - dispatch.sum((0, 1, 3)).long()
+        for key, val in (("chosen", chosen), ("dropped", dropped)):
+            out[key] = out[key] + val if key in out else val
+        out["calls"] += 1
+        return dispatch, combine, aux
+
+    moe.route_topk = counted
+    try:
+        yield out
+    finally:
+        moe.route_topk = route
+        for key in ("chosen", "dropped"):
+            if key in out:
+                out[key] = out[key].tolist()
+
+
+def family_prefill(torch, model, path, shape):
+    """One prefill of ``data.family_batch``'s layout (patches for vlm,
+    frames for encdec) at ``shape`` = (B, S), timed after a warm-up, with
+    its peak memory; moe models report the tokens each expert dropped."""
+    import math
+
+    from repro_torch.data import family_batch
+    from repro_torch.launch.steps import make_prefill_step
+
+    cfg = model.cfg
+    B, S = shape
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    batch = family_batch(cfg, B, S, gen)
+    prefill = make_prefill_step(model)
+    with torch.inference_mode():
+        prefill(batch)                                   # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        with moe_drops(torch) as drops:
+            t0 = time.time()
+            logits = prefill(batch)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+    finite = bool(torch.isfinite(logits).all())
+    line = {"phase": path, "step": "prefill", "arch": cfg.name,
+            "family": cfg.family, "layers": cfg.n_layers, "batch": B, "seq": S,
+            "inputs": {k: list(v.shape) for k, v in batch.items()},
+            "window": cfg.window, "hd": cfg.hd, "wall_s": wall,
+            "tokens_per_s": B * S / wall,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "logits_shape": list(logits.shape), "finite": finite}
+    if cfg.family == "moe":
+        chosen, dropped = drops["chosen"], drops["dropped"]
+        line["moe"] = {"experts": cfg.n_experts, "top_k": cfg.top_k,
+                       "capacity_factor": cfg.capacity_factor,
+                       "group": cfg.moe_group, "routing_calls": drops["calls"],
+                       "choices": sum(chosen), "dropped": sum(dropped),
+                       "dropped_share": sum(dropped) / max(sum(chosen), 1),
+                       "dropped_per_expert": dropped}
+    emit(line)
+    if not finite or tuple(logits.shape) != (B, cfg.padded_vocab) or \
+            not math.isfinite(wall):
+        raise AssertionError(f"{path} {cfg.name} prefill: logits "
+                             f"{tuple(logits.shape)}, finite {finite}")
+
+
+def phase_families(torch):
+    """Phase 12: the dense, moe, vlm and encdec families.  h2o-danube-3-4b
+    (dense, hd 120, window 4096) at full width and depth through every
+    serving step; smollm-360m (hd 64, GQA groups of 3) through prefill,
+    ``generate`` and prefill vs decode; then one prefill each of
+    internlm2-20b (full size), mixtral-8x22b and qwen3-moe-235b-a22b (full
+    width, 2 layers; also prefill vs decode, with a capacity no expert can
+    overflow), internvl2-76b (full width, 2 layers, 256 patches) and
+    seamless-m4t-large-v2 (full size, 1024 frames).  Each model is freed
+    before the next."""
+    import dataclasses
+
+    from repro_torch.data import TokenStream
+
+    path = "families"
+    model = serve_model(torch, DANUBE_ARCH, path, DANUBE_PARAMS)
+    phase_serve(torch, model, path, DANUBE_PREFILL)
+    del model
+    torch.cuda.empty_cache()
+    model = serve_model(torch, SMOLLM_ARCH, path, SMOLLM_PARAMS)
+    phase_serve(torch, model, path, SMOLLM_PREFILL, evaluate=False)
+    del model
+    torch.cuda.empty_cache()
+    Bg, P, _ = SERVE_GEN
+    for arch, layers, params, shape in FAMILY_PREFILLS:
+        model = serve_model(torch, arch, path, params, layers=layers)
+        family_prefill(torch, model, path, shape)
+        if model.cfg.family == "moe":
+            # a capacity no expert can overflow: decode routes B tokens a
+            # group and prefill B·S, so a drop in prefill alone would make
+            # the two paths different functions
+            cfg = model.cfg
+            model.cfg = dataclasses.replace(
+                cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+            prompts = TokenStream(vocab=cfg.vocab, seq_len=P, batch=Bg,
+                                  seed=0).batch_at(0, device="cuda")["tokens"]
+            with torch.inference_mode():
+                prefill_vs_decode(torch, model, path, prompts)
+            model.cfg = cfg
+        del model
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -1912,7 +2155,9 @@ def main() -> int:
         with check.installed(every) as (compared, by_shape):
             for m in mods.values():
                 m.launches = 0
+            t0 = time.time()
             run()
+            wall = time.time() - t0
             counts = {name: m.launches for name, m in mods.items()}
         in_ranks = dict.fromkeys(mods, 0)
         for r in ranks or ():
@@ -1925,7 +2170,7 @@ def main() -> int:
                 for shape, n in r["by_shape"].get(name, {}).items():
                     by_shape[name][shape] = by_shape[name].get(shape, 0) + n
         counts = {name: counts[name] + in_ranks[name] for name in mods}
-        emit({"phase": "launches", "path": path, **counts,
+        emit({"phase": "launches", "path": path, "wall_s": wall, **counts,
               **({"in_worker_processes": in_ranks,
                   "worker_processes": len(ranks)} if ranks is not None else {}),
               "compared_with_plain": compared,
@@ -1934,7 +2179,10 @@ def main() -> int:
         for name in needs:
             if counts[name] <= 0 or (ranks is not None and in_ranks[name] <= 0):
                 raise AssertionError(f"{name} was not launched on the {path} path")
+        shapes_by_path[path] = by_shape
         return counts
+
+    shapes_by_path = {}
 
     full = {"levels": {}}  # the full-size LOCAL run's calls and profile
     by_path = {
@@ -1987,6 +2235,15 @@ def main() -> int:
         ("ssm_scan",))
     del model
     torch.cuda.empty_cache()
+    by_path["families"] = drive("families", lambda: phase_families(torch),
+                                ("flash_attention",))
+    import ast
+    flash_shapes = shapes_by_path["families"]["flash_attention"]
+    hds = {ast.literal_eval(key)[1][3] for key in flash_shapes}
+    if not {120, 64, 128} <= hds:
+        raise AssertionError(f"flash_attention on the families path ran at "
+                             f"hd {sorted(hds)}, not at 120, 64 and 128")
+    rows["flash_attention"]["families_calls_by_shape"] = flash_shapes
 
     meta = {
         "frame_accum": ("src/repro_torch/kernels/csrc/frame_accum.cu",

@@ -70,15 +70,22 @@ def _tensor_keep_dtype(a) -> torch.Tensor:
     return torch.from_numpy(a.copy())
 
 
+_STACKS = ("units", "layers", "enc_layers", "dec_layers")
+
+
 def model_params_from_numpy(cfg, tree, device=None) -> dict:
     """The reference model's parameter tree (``Model(cfg).init(key)``, its
-    leaves as numpy arrays) as a state dict of the port's ``Model``:
-    nested keys joined by dots, the stacked leading ``layers`` dimension of
-    ``units`` (hybrid) or ``layers`` (ssm) split into ``units.<i>`` or
-    ``layers.<i>``, every dtype kept.  Load it with
+    leaves as numpy arrays) as a state dict of the port's ``Model``, for
+    every family: nested keys joined by dots, the stacked leading layer
+    dimension of ``units`` (hybrid), ``layers`` (dense, moe, vlm, ssm) or
+    ``enc_layers`` and ``dec_layers`` (encdec) split into ``<stack>.<i>``
+    (the moe experts' (E, d, ff) leaves stay stacked by expert), every
+    dtype kept; a stack whose depth is not ``cfg``'s raises.  Load it with
     ``model.load_state_dict(state, assign=True)``."""
     device = resolve_device(device)
     state = {}
+    depth = {"units": cfg.n_layers // 3, "layers": cfg.n_layers,
+             "enc_layers": cfg.enc_layers, "dec_layers": cfg.n_layers}
 
     def walk(prefix, node):
         if isinstance(node, dict):
@@ -87,15 +94,14 @@ def model_params_from_numpy(cfg, tree, device=None) -> dict:
             return
         t = _tensor_keep_dtype(node).to(device)
         stack, _, rest = prefix.partition(".")
-        if stack in ("units", "layers") and rest:
+        if stack in _STACKS and rest:
+            if t.shape[0] != depth[stack]:
+                raise ValueError(f"{prefix}: {t.shape[0]} stacked layers, "
+                                 f"{cfg.name} has {depth[stack]}")
             for i in range(t.shape[0]):
                 state[f"{stack}.{i}.{rest}"] = t[i].clone()
         else:
             state[prefix] = t
 
-    if cfg.family not in ("hybrid", "ssm"):
-        raise NotImplementedError(f"model_params_from_numpy: the {cfg.family} "
-                                  "family is still to port (ROADMAP queue 1 "
-                                  "item 10)")
     walk("", tree)
     return state

@@ -1,3 +1,3 @@
-from .pipeline import TokenStream
+from .pipeline import TokenStream, family_batch
 
-__all__ = ["TokenStream"]
+__all__ = ["TokenStream", "family_batch"]

@@ -1,4 +1,4 @@
-"""Deterministic synthetic token stream.
+"""Deterministic synthetic token stream, and the families' batch layouts.
 
 Port of :mod:`repro.data.pipeline`'s ``TokenStream``: every batch is a pure
 function of ``(seed, step, shard, n_shards)``, with zipf-ish tokens
@@ -7,6 +7,9 @@ next-token labels.  Row r of a step draws from a CPU ``torch.Generator``
 seeded by a fixed mix of (seed, step, global row), so a row does not depend
 on the shard count, and the same tokens come out on every device.  The bits
 differ from the reference's threefry draws; the distribution is the same.
+
+``family_batch`` makes a serving or training batch in the layout the
+reference's ``launch/specs.py`` ``batch_struct`` gives each family.
 """
 
 from __future__ import annotations
@@ -48,3 +51,41 @@ class TokenStream:
             toks.append(torch.where(de < 1.0 / self.mean_doc_len, self.eos, t))
         toks = torch.stack(toks).to(torch.int32).to(resolve_device(device))
         return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def family_batch(cfg, batch: int, seq: int, generator: torch.Generator, *,
+                 train: bool = False) -> Dict[str, torch.Tensor]:
+    """A batch of B = ``batch`` sequences of ``seq`` positions in the
+    family's layout (the reference's ``launch/specs.py`` ``batch_struct``),
+    drawn from ``generator`` on its device:
+
+    - ``tokens`` (B, S_text) int32, uniform over the vocab; S_text = seq,
+      but seq − n_patches for vlm;
+    - vlm: ``patches`` (B, n_patches, d) bf16, standard normal (the stubbed
+      ViT's patch embeddings, prepended to the tokens');
+    - encdec: ``frames`` (B, seq // frame_ratio, d) bf16, standard normal
+      (the stubbed audio frontend's frame embeddings);
+    - with ``train``: ``labels`` (B, S_text) int32, the next tokens.
+
+    The reference's specs give shapes only; the values here are the
+    caller's draws."""
+    dev = generator.device
+    text = seq - cfg.n_patches if cfg.family == "vlm" else seq
+    if text <= 0:
+        raise ValueError(f"{cfg.name}: seq {seq} leaves no text after "
+                         f"{cfg.n_patches} patches")
+    toks = torch.randint(0, cfg.vocab, (batch, text + 1), generator=generator,
+                         device=dev, dtype=torch.int32)
+    out = {}
+    if cfg.family == "vlm":
+        out["patches"] = torch.randn((batch, cfg.n_patches, cfg.d_model),
+                                     generator=generator, device=dev
+                                     ).to(torch.bfloat16)
+    if cfg.family == "encdec":
+        out["frames"] = torch.randn((batch, seq // cfg.frame_ratio, cfg.d_model),
+                                    generator=generator, device=dev
+                                    ).to(torch.bfloat16)
+    out["tokens"] = toks[:, :-1]
+    if train:
+        out["labels"] = toks[:, 1:]
+    return out

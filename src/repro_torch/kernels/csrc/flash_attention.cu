@@ -23,6 +23,17 @@
 // contiguous.  The model passes its (B, S, H, hd) projections as
 // (B, H, S, hd) views, so no transpose is copied.
 //
+// Head dims: any hd from 1 to 256.  Each body is instantiated for a padded
+// head dim HD ∈ {16, 32, 64, 128, 256} and runs the smallest HD ≥ hd: the
+// hd real columns are loaded into shared rows of HD columns and the rest
+// zero-filled, so the padding adds nothing to Q·Kᵀ, and its output columns
+// are not stored.  The softmax scale is 1/√hd of the true hd.  The Pallas
+// kernel's blocks span the whole head dim, so it takes any hd too.  The
+// padding costs products: hd 120 runs as 128 (6.7 % of them wasted), hd 20
+// as 32 (37.5 %).  Copies are as wide as the views' layout allows (pointers,
+// strides and hd): 16 or 4 bytes in f32, 16, 8 or 4 in bf16 (smollm-360m's
+// hd 20 with a position stride of 60 takes 8).
+//
 // Two bodies, chosen by dtype at the entry point (not a fallback):
 //
 // bf16 — tensor cores.  What bounds it on an H100: at recurrentgemma-2b's
@@ -35,7 +46,7 @@
 //   - 4 warps, 16 query rows each; Q (64 × hd) is copied once into shared
 //     memory and read per 16-wide k-step with ldmatrix;
 //   - K and V tiles of BK keys (64, or 32 at hd = 256) come in by cp.async
-//     (16 bytes a copy, zero-filled past S) into a two-stage ring: tile t+1
+//     (16, 8 or 4 bytes a copy, zero-filled past S) into a two-stage ring: tile t+1
 //     is in flight while tile t is multiplied; one block barrier a tile
 //     both publishes the landed tile and frees the other stage;
 //   - S = Q·Kᵀ stays in registers (the mma's f32 accumulators), is masked
@@ -50,7 +61,7 @@
 //     fall in distinct banks;
 //   - query tiles are launched longest first (the last tiles of a causal
 //     row have the most kv tiles).
-//   Shared memory (dynamic): (64 + 4·BK)·(hd + 8)·2 bytes: 25,600 at hd 32,
+//   Shared memory (dynamic): (64 + 4·BK)·(HD + 8)·2 bytes: 15,360 at HD 16, 25,600 at 32,
 //   46,080 at 64, 87,040 at 128, 101,376 at 256, two blocks an SM.
 //   Registers (nvcc -Xptxas -v for sm_90a, launch bounds 128 threads and 2
 //   blocks an SM): 114 at hd 32, 153 at 64, 222 at 128, 254 at 256, no
@@ -81,7 +92,7 @@
 //     256, 8 × 4 at 128, 4 × 4 at 64, 2 × 4 at 32), fed by float4s of P
 //     and V: 16 shared loads for 256 FMAs at hd 256;
 //   - K and V come in by cp.async (16 bytes a copy where every pointer is
-//     16-byte aligned and every stride a multiple of 4, else 4 bytes),
+//     16-byte aligned and hd and every stride a multiple of 4, else 4 bytes),
 //     zero-filled past S, into one buffer each, and each is refilled while
 //     the other is in use: V_t lands during Q·K_tᵀ and K_{t+1} during P·V_t
 //     (two block barriers a tile).  A two-stage ring of both would force
@@ -168,12 +179,13 @@ __device__ __forceinline__ void cp_async(uint32_t dst, const float* src, bool in
   }
 }
 
-// 64 rows of HD floats from rows row0… of a strided tensor into a padded
-// shared tile, by cp.async; rows at or past S are zero-filled.
+// 64 rows of hd floats from rows row0… of a strided tensor into a padded
+// shared tile of HD columns, by cp.async; rows at or past S and columns at
+// or past hd are zero-filled.
 template <int HD, int kVec>
 __device__ __forceinline__ void load_rows(float* tile, const float* src,
                                           long long stride, int row0, int S,
-                                          int tid) {
+                                          int hd, int tid) {
   constexpr int kPieces = HD / kVec;  // copies a row
   static_assert(64 * kPieces % kThreads == 0, "whole copies a thread");
 #pragma unroll 4
@@ -181,9 +193,9 @@ __device__ __forceinline__ void load_rows(float* tile, const float* src,
     const int i = tid + it * kThreads;
     const int r = i / kPieces, c = (i % kPieces) * kVec;
     const int pos = row0 + r;
-    const bool in = pos < S;
+    const bool in = pos < S && c < hd;
     cp_async<kVec>(smem_u32(tile + r * Cfg<HD>::LD + c),
-                   src + (in ? pos : 0) * stride + c, in);
+                   src + (in ? pos * stride + c : 0), in);
   }
 }
 
@@ -191,7 +203,7 @@ template <int HD, int kVec>
 __global__ void __launch_bounds__(kThreads, Cfg<HD>::kMinBlocks)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o, int S,
-                 int group, int window, float scale_log2, Strides st) {
+                 int hd, int group, int window, float scale_log2, Strides st) {
   using C = Cfg<HD>;
   constexpr int LD = C::LD, LDP = C::LDP, R = C::R, CV = C::CV, CG = C::CG;
   extern __shared__ __align__(16) float smem[];
@@ -222,8 +234,8 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // P·V: rows pr0 + i (i < R), columns 4·cg + 4·CG·c + e (c < CV, e < 4)
   const int cg = lane % CG, pr0 = 8 * warp + (lane / CG) * R;
 
-  load_rows<HD, kVec>(Qs, qb, st.q[2], q0, S, tid);
-  load_rows<HD, kVec>(Ks, kb, st.k[2], kt_lo * kBK, S, tid);
+  load_rows<HD, kVec>(Qs, qb, st.q[2], q0, S, hd, tid);
+  load_rows<HD, kVec>(Ks, kb, st.k[2], kt_lo * kBK, S, hd, tid);
   cp_async_commit();
 
   float m[4], l[4];  // running max (log2 domain); this thread's part of l
@@ -242,7 +254,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int k0 = kt * kBK;
     cp_async_wait_all();
     __syncthreads();  // K_t is in; every warp is done with V_{t−1} and P
-    load_rows<HD, kVec>(Vs, vb, st.v[2], k0, S, tid);  // lands during Q·K_tᵀ
+    load_rows<HD, kVec>(Vs, vb, st.v[2], k0, S, hd, tid);  // lands during Q·K_tᵀ
     cp_async_commit();
 
     if (live) {
@@ -315,7 +327,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     cp_async_wait_all();
     __syncthreads();  // V_t is in; every warp is done with K_t
     if (kt < kt_hi)   // lands during P·V_t
-      load_rows<HD, kVec>(Ks, kb, st.k[2], k0 + kBK, S, tid);
+      load_rows<HD, kVec>(Ks, kb, st.k[2], k0 + kBK, S, hd, tid);
     cp_async_commit();
 
     if (live) {
@@ -371,19 +383,21 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int row = q0 + pr0 + i;
     if (row >= S) continue;
     const float d = fmaxf(l_s[pr0 + i], 1e-30f);
-    float* orow = ob + row * st.o[2] + 4 * cg;
+    float* orow = ob + row * st.o[2];
 #pragma unroll
     for (int cc = 0; cc < CV; ++cc) {
+      const int col = 4 * cg + 4 * CG * cc;  // the padding's columns are not stored
+      if (col >= hd) continue;
       const float4 r = make_float4(acc[i][cc][0] / d, acc[i][cc][1] / d,
                                    acc[i][cc][2] / d, acc[i][cc][3] / d);
-      float* dst = orow + 4 * CG * cc;
-      if constexpr (kVec == 4) {
+      float* dst = orow + col;
+      if constexpr (kVec == 4) {  // hd is a multiple of 4 here
         *reinterpret_cast<float4*>(dst) = r;
       } else {
         dst[0] = r.x;
-        dst[1] = r.y;
-        dst[2] = r.z;
-        dst[3] = r.w;
+        if (col + 1 < hd) dst[1] = r.y;
+        if (col + 2 < hd) dst[2] = r.z;
+        if (col + 3 < hd) dst[3] = r.w;
       }
     }
   }
@@ -405,12 +419,23 @@ struct Cfg {
   static constexpr int kSmemBytes = (kBQ + 4 * BK) * LD * 2;  // Q, 2×(K, V)
 };
 
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool in) {
-  const int bytes = in ? 16 : 0;  // 0: the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(bytes)
-               : "memory");
+// kBytes a copy (16 by .cg, 8 or 4 by .ca); `in` false zero-fills them
+template <int kBytes>
+__device__ __forceinline__ void cp_async(uint32_t dst, const void* src, bool in) {
+  if constexpr (kBytes == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+                 "l"(src), "r"(in ? 16 : 0)
+                 : "memory");
+  } else if constexpr (kBytes == 8) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
+                 "l"(src), "r"(in ? 8 : 0)
+                 : "memory");
+  } else {
+    static_assert(kBytes == 4, "cp.async copies 4, 8 or 16 bytes");
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+                 "l"(src), "r"(in ? 4 : 0)
+                 : "memory");
+  }
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
@@ -442,29 +467,33 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // ROWS rows of hd bf16 from rows row0… of a strided tensor into a padded
-// shared tile, by cp.async; rows at or past S are zero-filled.
-template <int HD, int ROWS>
+// shared tile of HD columns, by cp.async of kBytes a copy; rows at or past
+// S and columns at or past hd are zero-filled.
+template <int HD, int ROWS, int kBytes>
 __device__ __forceinline__ void load_tile(bf16* tile, const bf16* src,
                                           long long stride, int row0, int S,
-                                          int tid) {
-  constexpr int kChunks = HD / 8;  // 16-byte copies a row
+                                          int hd, int tid) {
+  constexpr int kElems = kBytes / 2;     // bf16 a copy
+  constexpr int kChunks = HD / kElems;   // copies a row
   static_assert(ROWS * kChunks % kThreads == 0, "whole copies a thread");
-#pragma unroll
+  // the 16-byte copies unrolled whole (at most 16 a thread); the narrower
+  // ones by 4, or the 8-byte instances at HD 128 and 256 spill
+#pragma unroll(kBytes == 16 ? 16 : 4)
   for (int it = 0; it < ROWS * kChunks / kThreads; ++it) {
     const int i = tid + it * kThreads;
-    const int r = i / kChunks, c = i % kChunks;
+    const int r = i / kChunks, c = (i % kChunks) * kElems;
     const int pos = row0 + r;
-    const bool in = pos < S;
-    cp_async16(smem_u32(tile + r * Cfg<HD>::LD + c * 8),
-               src + (in ? pos : 0) * stride + c * 8, in);
+    const bool in = pos < S && c < hd;
+    cp_async<kBytes>(smem_u32(tile + r * Cfg<HD>::LD + c),
+                     src + (in ? pos * stride + c : 0), in);
   }
 }
 
-template <int HD>
+template <int HD, int kBytes>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, bf16* __restrict__ o, int S,
-                  int group, int window, float scale_log2, Strides st) {
+                  int hd, int group, int window, float scale_log2, Strides st) {
   constexpr int BK = Cfg<HD>::BK, LD = Cfg<HD>::LD;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [kBQ][LD]
@@ -484,9 +513,9 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int kt_lo = window > 0 ? max(0, q0 - window + 1) / BK : 0;
   const int kt_hi = q_last / BK;
 
-  load_tile<HD, kBQ>(Qs, qb, st.q[2], q0, S, tid);
-  load_tile<HD, BK>(Ks, kb, st.k[2], kt_lo * BK, S, tid);
-  load_tile<HD, BK>(Vs, vb, st.v[2], kt_lo * BK, S, tid);
+  load_tile<HD, kBQ, kBytes>(Qs, qb, st.q[2], q0, S, hd, tid);
+  load_tile<HD, BK, kBytes>(Ks, kb, st.k[2], kt_lo * BK, S, hd, tid);
+  load_tile<HD, BK, kBytes>(Vs, vb, st.v[2], kt_lo * BK, S, hd, tid);
   cp_async_commit();
 
   // this thread's rows of the output: r0 = q0 + 16·warp + gq, r1 = r0 + 8
@@ -510,8 +539,8 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();  // tile kt is visible; every warp is done with kt − 1
     if (kt < kt_hi) {
       const int next = (stage ^ 1) * BK * LD;
-      load_tile<HD, BK>(Ks + next, kb, st.k[2], (kt + 1) * BK, S, tid);
-      load_tile<HD, BK>(Vs + next, vb, st.v[2], (kt + 1) * BK, S, tid);
+      load_tile<HD, BK, kBytes>(Ks + next, kb, st.k[2], (kt + 1) * BK, S, hd, tid);
+      load_tile<HD, BK, kBytes>(Vs + next, vb, st.v[2], (kt + 1) * BK, S, hd, tid);
     }
     cp_async_commit();
     const bf16* Kc = Ks + stage * BK * LD;
@@ -612,7 +641,8 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
 #pragma unroll
   for (int i = 0; i < HD / 8; ++i) {
-    const int col = i * 8 + 2 * tq;
+    const int col = i * 8 + 2 * tq;  // even, and hd is even: col < hd covers col + 1
+    if (col >= hd) continue;         // the padding's columns are not stored
     if (r0 < S)
       *reinterpret_cast<uint32_t*>(ob + r0 * st.o[2] + col) =
           pack_bf16(acc[i][0] / d0, acc[i][1] / d0);
@@ -624,10 +654,13 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 }  // namespace tc
 
+// The softmax scale is 1/√hd of the true head dim, not of the padded HD.
+float scale_log2(int hd) { return 1.4426950408889634f / sqrtf(static_cast<float>(hd)); }
+
 template <int HD, int kVec>
 int launch_f32_body(const void* q, const void* k, const void* v, void* o,
-                    int B, int H, int KV, int S, int window, const Strides& st,
-                    cudaStream_t stream) {
+                    int B, int H, int KV, int S, int hd, int window,
+                    const Strides& st, cudaStream_t stream) {
   constexpr int bytes = fp::Cfg<HD>::kSmemBytes;
   auto kernel = fp::flash_f32_kernel<HD, kVec>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -636,52 +669,82 @@ int launch_f32_body(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
   kernel<<<grid, fp::kThreads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), S, H / KV, window,
-      1.4426950408889634f / sqrtf(static_cast<float>(HD)), st);
+      static_cast<const float*>(v), static_cast<float*>(o), S, hd, H / KV,
+      window, scale_log2(hd), st);
   return static_cast<int>(cudaGetLastError());
 }
 
-// 16-byte copies and stores where every base pointer is 16-byte aligned and
-// every stride a multiple of 4 floats; 4-byte ones otherwise (a choice by
-// the views' layout, not a fallback).
-template <int HD>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
-               int H, int KV, int S, int window, const Strides& st,
-               cudaStream_t stream) {
-  bool vec = (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-              reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) %
-                 16 == 0;
-  for (int i = 0; i < 3; ++i)
-    vec = vec && st.q[i] % 4 == 0 && st.k[i] % 4 == 0 && st.v[i] % 4 == 0 &&
-          st.o[i] % 4 == 0;
-  return vec ? launch_f32_body<HD, 4>(q, k, v, o, B, H, KV, S, window, st, stream)
-             : launch_f32_body<HD, 1>(q, k, v, o, B, H, KV, S, window, st, stream);
+// The widest copy, in bytes (16, 8, 4 or 2, at most `widest`), that every
+// base pointer, every (b, head, position) stride and hd allow.
+int copy_bytes(const void* q, const void* k, const void* v, const void* o,
+               const Strides& st, int hd, int elem, int widest) {
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                         reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
+  int w = widest;
+  auto fits = [&](int bytes) {
+    const int e = bytes / elem;
+    bool ok = ptrs % bytes == 0 && hd % e == 0;
+    for (int i = 0; i < 3; ++i)
+      ok = ok && st.q[i] % e == 0 && st.k[i] % e == 0 && st.v[i] % e == 0 &&
+           st.o[i] % e == 0;
+    return ok;
+  };
+  while (w > elem && !fits(w)) w /= 2;
+  return w;
 }
 
+// 16-byte copies and stores where the layout allows them (every base
+// pointer 16-byte aligned, hd and every stride a multiple of 4 floats);
+// 4-byte ones otherwise (a choice by the views' layout, not a fallback).
 template <int HD>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
-                int H, int KV, int S, int window, const Strides& st,
-                cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
+               int H, int KV, int S, int hd, int window, const Strides& st,
+               cudaStream_t stream) {
+  return copy_bytes(q, k, v, o, st, hd, 4, 16) == 16
+             ? launch_f32_body<HD, 4>(q, k, v, o, B, H, KV, S, hd, window, st, stream)
+             : launch_f32_body<HD, 1>(q, k, v, o, B, H, KV, S, hd, window, st, stream);
+}
+
+template <int HD, int kBytes>
+int launch_bf16_body(const void* q, const void* k, const void* v, void* o,
+                     int B, int H, int KV, int S, int hd, int window,
+                     const Strides& st, cudaStream_t stream) {
   constexpr int bytes = tc::Cfg<HD>::kSmemBytes;
-  auto kernel = tc::flash_bf16_kernel<HD>;
+  auto kernel = tc::flash_bf16_kernel<HD, kBytes>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
   kernel<<<grid, tc::kThreads, bytes, stream>>>(
       static_cast<const tc::bf16*>(q), static_cast<const tc::bf16*>(k),
-      static_cast<const tc::bf16*>(v), static_cast<tc::bf16*>(o), S, H / KV,
-      window, 1.4426950408889634f / sqrtf(static_cast<float>(HD)), st);
+      static_cast<const tc::bf16*>(v), static_cast<tc::bf16*>(o), S, hd,
+      H / KV, window, scale_log2(hd), st);
   return static_cast<int>(cudaGetLastError());
+}
+
+// cp.async copies of 16, 8 or 4 bytes, the widest the views' layout allows
+// (a choice by layout, not a fallback); the wrapper refuses a layout that
+// allows none (an odd hd or stride, or a pointer not 4-byte aligned).
+template <int HD>
+int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
+                int H, int KV, int S, int hd, int window, const Strides& st,
+                cudaStream_t stream) {
+  switch (copy_bytes(q, k, v, o, st, hd, 2, 16)) {
+    case 16: return launch_bf16_body<HD, 16>(q, k, v, o, B, H, KV, S, hd, window, st, stream);
+    case 8: return launch_bf16_body<HD, 8>(q, k, v, o, B, H, KV, S, hd, window, st, stream);
+    case 4: return launch_bf16_body<HD, 4>(q, k, v, o, B, H, KV, S, hd, window, st, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 template <bool kBf16, int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
-           int KV, int S, int window, const Strides& st, cudaStream_t stream) {
+           int KV, int S, int hd, int window, const Strides& st,
+           cudaStream_t stream) {
   if constexpr (kBf16)
-    return launch_bf16<HD>(q, k, v, o, B, H, KV, S, window, st, stream);
+    return launch_bf16<HD>(q, k, v, o, B, H, KV, S, hd, window, st, stream);
   else
-    return launch_f32<HD>(q, k, v, o, B, H, KV, S, window, st, stream);
+    return launch_f32<HD>(q, k, v, o, B, H, KV, S, hd, window, st, stream);
 }
 
 template <bool kBf16>
@@ -697,13 +760,13 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B,
     st.o[i] = strides[9 + i];
   }
   const auto s = static_cast<cudaStream_t>(stream);
-  switch (hd) {
-    case 32: return launch<kBf16, 32>(q, k, v, o, B, H, KV, S, window, st, s);
-    case 64: return launch<kBf16, 64>(q, k, v, o, B, H, KV, S, window, st, s);
-    case 128: return launch<kBf16, 128>(q, k, v, o, B, H, KV, S, window, st, s);
-    case 256: return launch<kBf16, 256>(q, k, v, o, B, H, KV, S, window, st, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  // the body instantiated for the smallest padded head dim HD ≥ hd
+  if (hd < 1 || hd > 256) return static_cast<int>(cudaErrorInvalidValue);
+  if (hd <= 16) return launch<kBf16, 16>(q, k, v, o, B, H, KV, S, hd, window, st, s);
+  if (hd <= 32) return launch<kBf16, 32>(q, k, v, o, B, H, KV, S, hd, window, st, s);
+  if (hd <= 64) return launch<kBf16, 64>(q, k, v, o, B, H, KV, S, hd, window, st, s);
+  if (hd <= 128) return launch<kBf16, 128>(q, k, v, o, B, H, KV, S, hd, window, st, s);
+  return launch<kBf16, 256>(q, k, v, o, B, H, KV, S, hd, window, st, s);
 }
 
 }  // namespace
@@ -717,8 +780,8 @@ int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
   return dispatch<false>(q, k, v, o, B, H, KV, S, hd, window, strides, stream);
 }
 
-// bf16 needs every base pointer 16-byte aligned and every stride a multiple
-// of 8 elements (cp.async copies 16 bytes); the wrapper checks both.
+// bf16 needs hd and every stride even and every base pointer 4-byte aligned
+// (cp.async copies 4 bytes at the least); the wrapper checks this.
 int flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
                          int B, int H, int KV, int S, int hd, int window,
                          const long long* strides, void* stream) {

@@ -7,13 +7,19 @@ catches a failure and tries the other):
 
 - bfloat16 → ``flash_attention_bf16``, Q·Kᵀ and P·V on the tensor cores
   (``mma.sync`` bf16 with f32 accumulation), K/V tiles loaded by
-  ``cp.async`` into a two-stage ring; the probabilities are rounded to bf16
-  for the P·V product.
+  ``cp.async`` (16, 8 or 4 bytes a copy, the widest the views' layout
+  allows) into a two-stage ring; the probabilities are rounded to bf16 for
+  the P·V product.
 - float32 → ``flash_attention_f32``, on the CUDA cores with everything in
   f32, as the Pallas kernel computes: register-tiled Q·Kᵀ and P·V (an SGEMM
   micro-kernel a thread), K/V tiles loaded by ``cp.async`` (16 bytes a
   copy where the views allow it, else 4), each refilled while the other is
   multiplied.
+
+Any head dim from 1 to ``MAX_HEAD_DIM`` runs: each body is built for the
+padded head dims ``PADDED_HEAD_DIMS`` and takes the smallest that holds hd,
+with the padding's columns zero in shared memory and not stored; the
+softmax scale is 1/√hd of the true hd.
 
 Replaces :func:`repro.kernels.flash_attention.flash_attention`.  Its plain
 version is :func:`repro_torch.kernels.ref.flash_attention_ref`; :mod:`.ops`
@@ -31,7 +37,8 @@ from . import build
 # Kernel launches since the last reset (a run sets it to 0 and reads it).
 launches = 0
 
-HEAD_DIMS = (32, 64, 128, 256)
+MAX_HEAD_DIM = 256
+PADDED_HEAD_DIMS = (16, 32, 64, 128, 256)  # the bodies' instances
 _ENTRY = {torch.float32: "flash_attention_f32",
           torch.bfloat16: "flash_attention_bf16"}
 
@@ -43,8 +50,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     head h // (H/KV).  Any strides are taken as long as the head dimension
     is contiguous, so the model's (B, S, H, hd) projections go in as
     ``.transpose(1, 2)`` views; the output has q's memory layout
-    (``torch.empty_like``).  In bf16 every stride but the last must be a
-    multiple of 8 and every tensor 16-byte aligned."""
+    (``torch.empty_like``).  1 ≤ hd ≤ 256.  In bf16, hd and every stride
+    must be even and every tensor 4-byte aligned (cp.async copies at least
+    4 bytes)."""
     global launches
     tensors = (q, k, v)
     if any(t.device.type != "cuda" for t in tensors) or \
@@ -61,23 +69,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     B, H, S, hd = q.shape
     KV = k.shape[1]
     if k.shape[0] != B or k.shape[2] != S or k.shape[3] != hd or \
-            KV < 1 or H % KV or hd not in HEAD_DIMS or \
+            KV < 1 or H % KV or not 1 <= hd <= MAX_HEAD_DIM or \
             not (0 < S < 2 ** 31) or H > 65535 or B > 65535:
         raise ValueError(f"flash_attention kernel shapes: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}; needs H a multiple of KV and "
-                         f"hd in {HEAD_DIMS}")
+                         f"1 ≤ hd ≤ {MAX_HEAD_DIM}")
     if any(t.stride(-1) != 1 for t in tensors):
         raise ValueError("flash_attention kernel needs the head dimension "
                          "contiguous (stride 1)")
     if window < 0:
         raise ValueError(f"flash_attention window must be ≥ 0, got {window}")
     o = torch.empty_like(q)
-    if q.dtype == torch.bfloat16 and any(
-            t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3])
-            for t in (q, k, v, o)):
-        raise ValueError("flash_attention bf16 kernel copies 16 bytes at a "
-                         "time: it needs 16-byte aligned tensors whose "
-                         "(b, head, position) strides are multiples of 8")
+    if q.dtype == torch.bfloat16 and (hd % 2 or any(
+            t.data_ptr() % 4 or any(s % 2 for s in t.stride()[:3])
+            for t in (q, k, v, o))):
+        raise ValueError("flash_attention bf16 kernel copies 4 bytes at the "
+                         "least: it needs an even hd and 4-byte aligned "
+                         "tensors whose (b, head, position) strides are even")
     strides = (ctypes.c_longlong * 12)(*[s for t in (q, k, v, o)
                                          for s in t.stride()[:3]])
     fn = getattr(build.load("flash_attention"), _ENTRY[q.dtype])

@@ -76,24 +76,37 @@ def alias_draw_ref(prob: torch.Tensor, alias: torch.Tensor, u1: torch.Tensor,
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                        window: int = 0) -> torch.Tensor:
+                        window: int = 0,
+                        block_elems: int = 1 << 26) -> torch.Tensor:
     """Causal GQA attention with materialised f32 scores: q (B, H, S, hd),
     k and v (B, KV, S, hd) → (B, H, S, hd) in q's dtype.  Key k is
-    admissible for query q when k ≤ q and, with a window, k > q − window."""
+    admissible for query q when k ≤ q and, with a window, k > q − window.
+
+    Computed in blocks of query rows, each against the keys its rows can
+    admit, so that a block's (B, KV, G, rows, keys) scores hold at most
+    ``block_elems`` values (256 MB in f32); a masked key adds an exact 0 to
+    a row's softmax, so the blocks give the same function as one block."""
     B, H, S, hd = q.shape
     KV = k.shape[1]
     G = H // KV
     qg = q.reshape(B, KV, G, S, hd).float()
-    s = torch.einsum("bkgqh,bksh->bkgqs", qg, k.float()) / math.sqrt(hd)
-    qpos = torch.arange(S, device=q.device)[:, None]
-    kpos = torch.arange(S, device=q.device)[None, :]
-    mask = kpos <= qpos
-    if window > 0:
-        mask &= kpos > qpos - window
-    s = torch.where(mask, s, -1e30)
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgqs,bksh->bkgqh", p, v.float())
-    return o.reshape(B, H, S, hd).to(q.dtype)
+    kf, vf = k.float(), v.float()
+    rows = max(1, min(S, block_elems // max(1, B * H * S)))
+    out = torch.empty((B, KV, G, S, hd), dtype=torch.float32, device=q.device)
+    for q0 in range(0, S, rows):
+        q1 = min(S, q0 + rows)
+        k0 = max(0, q0 - window + 1) if window > 0 else 0
+        s = torch.einsum("bkgqh,bksh->bkgqs", qg[:, :, :, q0:q1],
+                         kf[:, :, k0:q1]) / math.sqrt(hd)
+        qpos = torch.arange(q0, q1, device=q.device)[:, None]
+        kpos = torch.arange(k0, q1, device=q.device)[None, :]
+        mask = kpos <= qpos
+        if window > 0:
+            mask &= kpos > qpos - window
+        p = torch.softmax(torch.where(mask, s, -1e30), dim=-1)
+        out[:, :, :, q0:q1] = torch.einsum("bkgqs,bksh->bkgqh", p,
+                                           vf[:, :, k0:q1])
+    return out.reshape(B, H, S, hd).to(q.dtype)
 
 
 def _fma_f32(a: torch.Tensor, h: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

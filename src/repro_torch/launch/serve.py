@@ -12,15 +12,19 @@ forward pass a sample.  Port of :mod:`repro.launch.serve`.
     PYTHONPATH=src python -m repro_torch.launch.serve --pool --topology 4 \
         --pressure-policy shrink-regrow \
         --queries reachability:shared:4,wrs:local:2
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m-reduced \\
         --batch 4 --prompt-len 32 --gen 16
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-3-4b
     PYTHONPATH=src python -m repro_torch.launch.serve \\
-        --arch falcon-mamba-7b-reduced --device cpu --adaptive-eval --eps 0.5
+        --arch mixtral-8x22b-reduced --device cpu --adaptive-eval --eps 0.5
 
-``--arch`` names a config of the ``hybrid`` (recurrentgemma) or ``ssm``
-(falcon-mamba) family, or its ``-reduced`` cut; ``generate`` and
-``adaptive_eval`` take any ported model.  Everything runs on the CUDA card
+``--arch`` names any config of the zoo or its ``-reduced`` cut
+(smollm-360m-reduced by default, as in the reference).  ``generate`` and
+``adaptive_eval`` feed tokens only, as the reference's CLI does, so they
+serve the dense, moe, hybrid and ssm families; an encdec model generates
+(its decoder's cross attention reads the empty frame cache) and a vlm model
+decodes text, but their ``train_loss`` needs frames or patches
+(``data.family_batch``).  Everything runs on the CUDA card
 unless ``--device`` (or ``device=``) names another device; a pool resumed
 with ``--resume`` must run on the device type it was checkpointed on.
 """
@@ -157,7 +161,7 @@ def serve_pool(args) -> int:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="recurrentgemma-2b-reduced")
+    ap.add_argument("--arch", default="smollm-360m-reduced")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)

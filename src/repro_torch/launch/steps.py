@@ -2,7 +2,7 @@
 
 Port of :mod:`repro.launch.steps` for serving; the train step
 (``make_train_step``, with AdamW and gradient accumulation) is still to
-port (ROADMAP queue 1 item 10).
+port (ROADMAP queue 1 item 10.3).
 """
 
 from __future__ import annotations

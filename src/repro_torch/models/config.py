@@ -4,14 +4,13 @@ Port of :mod:`repro.models.config`, kept as the port's own copy:
 ``ModelConfig`` covers every architecture family of the model zoo
 (dense / moe / ssm / hybrid / encdec / vlm); ``ShapeConfig`` is one of the
 four input shapes.  Concrete configs live in ``repro_torch/configs/<arch>.py``
-and register themselves here.  The port's ``Model`` runs the ``hybrid``
-and ``ssm`` families so far (ROADMAP queue 1 item 10).
+and register themselves here.  The port's ``Model`` runs every family.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,6 +72,11 @@ class ModelConfig:
     @property
     def dtrank(self) -> int:
         return self.dt_rank or -(-self.d_model // 16)
+
+    @property
+    def is_subquadratic(self) -> bool:
+        """Can this arch serve 500k-token contexts? (SSM / hybrid / SWA.)"""
+        return self.family in ("ssm", "hybrid") or self.window > 0
 
     def param_count(self) -> int:
         """Closed-form parameter count, as the reference computes it, field
@@ -137,6 +141,11 @@ def get_config(name: str) -> ModelConfig:
     return _REGISTRY[name]
 
 
+def all_configs() -> Dict[str, ModelConfig]:
+    _load_all()
+    return dict(_REGISTRY)
+
+
 def _load_all() -> None:
     import importlib
     import pkgutil
@@ -144,6 +153,14 @@ def _load_all() -> None:
     import repro_torch.configs as pkg
     for m in pkgutil.iter_modules(pkg.__path__):
         importlib.import_module(f"repro_torch.configs.{m.name}")
+
+
+def cell_is_applicable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Whether (arch × shape) is a runnable cell: long_500k needs a
+    subquadratic arch, as in the reference."""
+    if shape.name == "long_500k" and not cfg.is_subquadratic:
+        return False, "long_500k skipped: pure full-attention arch (O(S²) KV)"
+    return True, ""
 
 
 def resolve_config(name: str) -> ModelConfig:

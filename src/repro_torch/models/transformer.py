@@ -1,7 +1,17 @@
-"""Model assembly.  Port of :mod:`repro.models.transformer` for two
-families: ``hybrid`` (recurrentgemma: RG-LRU ⊕ local attention in units of
-(rec, rec, attn), then the trailing recurrent layers) and ``ssm``
-(falcon-mamba: a stack of Mamba blocks).
+"""Model assembly.  Port of :mod:`repro.models.transformer`, every family:
+
+* ``dense``  — GQA decoder (smollm, h2o-danube (sliding window), internlm2,
+               mistral-large)
+* ``moe``    — GQA decoder with an MoE FFN (mixtral (sliding window),
+               qwen3-moe), its load-balancing aux loss in ``train_loss``
+* ``vlm``    — the dense decoder with patch embeddings prepended (internvl2;
+               the ViT frontend is a stub, ``batch["patches"]``)
+* ``encdec`` — a bidirectional encoder over frame embeddings and a decoder
+               with cross attention (seamless-m4t; the audio frontend is a
+               stub, ``batch["frames"]``)
+* ``hybrid`` — RG-LRU ⊕ local attention in units of (rec, rec, attn), then
+               the trailing recurrent layers (recurrentgemma)
+* ``ssm``    — a stack of Mamba blocks (falcon-mamba)
 
     model = Model(cfg, device=dev).init(generator)
     model.train_loss(batch)                → scalar loss
@@ -9,13 +19,16 @@ families: ``hybrid`` (recurrentgemma: RG-LRU ⊕ local attention in units of
     model.decode_step(cache, batch)        → (cache, logits)
 
 ``Model`` is an ``nn.Module`` whose parameters carry the reference tree's
-names (``units.3.r0.w_in``, ``tail_r0_mlp.w2``, ``layers.7.in_proj``), each
-in its ``ParamDef`` dtype; ``convert.model_params_from_numpy`` maps the
-reference's tree onto them.  The reference's ``lax.scan`` over units or
-layers is a Python loop here.  The full-sequence path reaches the
-hand-written kernels: ``rglru_scan`` in every RG-LRU layer,
-``flash_attention`` in every attention layer and ``ssm_scan`` in every
-Mamba layer.  Other families raise ``NotImplementedError``.
+names (``layers.3.attn.wq``, ``units.3.r0.w_in``, ``dec_layers.1.cross.wo``,
+``layers.0.moe.w1``), each in its ``ParamDef`` dtype;
+``convert.model_params_from_numpy`` maps the reference's tree onto them.
+The reference's ``lax.scan`` over layers is a Python loop here.  The
+full-sequence path reaches the hand-written kernels: ``flash_attention`` in
+every causal self-attention layer (the decoders of every family but ssm),
+``rglru_scan`` in every RG-LRU layer and ``ssm_scan`` in every Mamba layer.
+The encoder's and the cross attention are non-causal; the reference has no
+Pallas kernel for them, and they stay plain PyTorch (``_attn_bidir``).
+``batch`` layouts per family come from ``data.family_batch``.
 """
 
 from __future__ import annotations
@@ -32,15 +45,11 @@ from .attention import attn_decode
 from .config import ModelConfig
 from .layers import (ParamDef, Params, init_leaf, register_params, rms_norm,
                      rotary, softmax_cross_entropy, swiglu)
+from .moe import moe_defs, moe_ffn
 from .rglru import RGLRUState, rglru_block, rglru_decode_step, rglru_defs
 from .ssm import MambaState, mamba_block, mamba_decode_step, mamba_defs
 
-_NOT_PORTED = {
-    "dense": "the dense family is still to port: ROADMAP queue 1 item 10",
-    "moe": "the moe family is still to port: ROADMAP queue 1 item 10",
-    "encdec": "the encdec family is still to port: ROADMAP queue 1 item 10",
-    "vlm": "the vlm family is still to port: ROADMAP queue 1 item 10",
-}
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
 
 def _attn_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
@@ -74,9 +83,8 @@ class Model(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        if cfg.family not in ("hybrid", "ssm"):
-            raise NotImplementedError(_NOT_PORTED.get(
-                cfg.family, f"unknown model family {cfg.family!r}"))
+        if cfg.family not in FAMILIES:
+            raise ValueError(f"unknown model family {cfg.family!r}")
         self.cfg = cfg
         device = resolve_device(device)
         d, Vp = cfg.d_model, cfg.padded_vocab
@@ -84,22 +92,38 @@ class Model(nn.Module):
             "embed": ParamDef((Vp, d), init="normal"),
             "final_norm": ParamDef((d,), init="ones"),
             **({} if cfg.tie_embeddings else
-               {"unembed": ParamDef((d, Vp), init="scaled")})}, device)
+               {"unembed": ParamDef((d, Vp), init="scaled")}),
+            **({"enc_norm": ParamDef((d,), init="ones")}
+               if cfg.family == "encdec" else {})}, device)
+
+        def stack(blocks, n):
+            return nn.ModuleList(
+                nn.ModuleDict({k: Params(defs, device) for k, defs in blocks.items()})
+                for _ in range(n))
+
         if cfg.family == "ssm":
             self.layers = nn.ModuleList(Params(mamba_defs(cfg), device)
                                         for _ in range(cfg.n_layers))
-            return
-        unit = {"r0": rglru_defs(cfg), "r0_mlp": _mlp_defs(cfg),
-                "r1": rglru_defs(cfg), "r1_mlp": _mlp_defs(cfg),
-                "a": _attn_defs(cfg), "a_mlp": _mlp_defs(cfg)}
-        n_units = cfg.n_layers // 3
-        self.units = nn.ModuleList(
-            nn.ModuleDict({k: Params(defs, device) for k, defs in unit.items()})
-            for _ in range(n_units))
-        self.n_tail = cfg.n_layers - 3 * n_units
-        for i in range(self.n_tail):
-            setattr(self, f"tail_r{i}", Params(rglru_defs(cfg), device))
-            setattr(self, f"tail_r{i}_mlp", Params(_mlp_defs(cfg), device))
+        elif cfg.family == "hybrid":
+            unit = {"r0": rglru_defs(cfg), "r0_mlp": _mlp_defs(cfg),
+                    "r1": rglru_defs(cfg), "r1_mlp": _mlp_defs(cfg),
+                    "a": _attn_defs(cfg), "a_mlp": _mlp_defs(cfg)}
+            n_units = cfg.n_layers // 3
+            self.units = stack(unit, n_units)
+            self.n_tail = cfg.n_layers - 3 * n_units
+            for i in range(self.n_tail):
+                setattr(self, f"tail_r{i}", Params(rglru_defs(cfg), device))
+                setattr(self, f"tail_r{i}_mlp", Params(_mlp_defs(cfg), device))
+        elif cfg.family == "encdec":
+            self.enc_layers = stack({"attn": _attn_defs(cfg),
+                                     "mlp": _mlp_defs(cfg)}, cfg.enc_layers)
+            self.dec_layers = stack({"attn": _attn_defs(cfg),
+                                     "cross": _attn_defs(cfg),
+                                     "mlp": _mlp_defs(cfg)}, cfg.n_layers)
+        else:  # dense / moe / vlm decoders
+            ffn = ({"moe": moe_defs(cfg)} if cfg.family == "moe"
+                   else {"mlp": _mlp_defs(cfg)})
+            self.layers = stack({"attn": _attn_defs(cfg), **ffn}, cfg.n_layers)
 
     def param_defs(self) -> Dict[str, ParamDef]:
         """Every parameter's definition, by its name in ``named_parameters``."""
@@ -127,7 +151,7 @@ class Model(nn.Module):
                 for i in range(self.n_tail)]
 
     # -------------------------------------------------------- sublayers
-    def _attn_seq(self, p, x, positions, window: int):
+    def _attn_seq(self, p, x, positions, window: int, causal: bool = True):
         cfg = self.cfg
         B, S, d = x.shape
         H, KV, hd = cfg.n_heads, cfg.n_kv, cfg.hd
@@ -136,40 +160,105 @@ class Model(nn.Module):
         k = (h @ p["wk"].reshape(d, KV * hd)).view(B, S, KV, hd)
         v = (h @ p["wv"].reshape(d, KV * hd)).view(B, S, KV, hd)
         q, k = rotary(q, k, positions)
-        # (B, H, S, hd) views of the (B, S, H, hd) projections; the kernel
-        # writes its output in q's layout, so the transpose back is free
-        o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                v.transpose(1, 2), window=window)
-        o = o.transpose(1, 2).reshape(B, S, H * hd)
-        return x + o @ p["wo"].reshape(H * hd, d)
+        if causal:
+            # (B, H, S, hd) views of the (B, S, H, hd) projections; the
+            # kernel writes its output in q's layout, so the transpose back
+            # is free
+            o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                    v.transpose(1, 2), window=window)
+            o = o.transpose(1, 2)
+        else:
+            o = _attn_bidir(q, k, v)
+        return x + o.reshape(B, S, H * hd) @ p["wo"].reshape(H * hd, d)
+
+    def _cross_seq(self, p, x, mem):
+        """Cross attention of the decoder stream x (B, S, d) on the
+        encoder's output mem (B, Sm, d): non-causal, no rotary."""
+        cfg = self.cfg
+        B, S, d = x.shape
+        Sm = mem.shape[1]
+        H, KV, hd = cfg.n_heads, cfg.n_kv, cfg.hd
+        h = rms_norm(x, p["ln"])
+        q = (h @ p["wq"].reshape(d, H * hd)).view(B, S, H, hd)
+        k = (mem @ p["wk"].reshape(d, KV * hd)).view(B, Sm, KV, hd)
+        v = (mem @ p["wv"].reshape(d, KV * hd)).view(B, Sm, KV, hd)
+        o = _attn_bidir(q, k, v)
+        return x + o.reshape(B, S, H * hd) @ p["wo"].reshape(H * hd, d)
 
     def _mlp(self, p, x):
         """The SwiGLU block on (B, S, d) or, in decode, (B, d)."""
         return x + swiglu(rms_norm(x, p["ln"]), p["w1"], p["w3"], p["w2"])
 
+    def _moe(self, p, x):
+        """The MoE block on (B, S, d) → (x', aux loss)."""
+        y, aux = moe_ffn(p, rms_norm(x, p["ln"]), self.cfg)
+        return x + y, aux
+
     # ------------------------------------------------------- backbone (seq)
-    def backbone(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-        """Full-sequence forward. x: (B, S, d) embedded → (B, S, d)."""
+    def backbone(self, x: torch.Tensor, positions: torch.Tensor):
+        """Full-sequence forward. x: (B, S, d) embedded → ((B, S, d), the
+        f32 sum of the layers' aux losses, 0 but for moe)."""
         cfg = self.cfg
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if cfg.family == "ssm":
             for p in self.layers:
                 x = mamba_block(p, x, cfg)
-            return x
-        for unit in self.units:
-            for r in ("r0", "r1"):
-                x = rglru_block(unit[r], x, cfg)
-                x = self._mlp(unit[f"{r}_mlp"], x)
-            x = self._attn_seq(unit["a"], x, positions, cfg.local_window)
-            x = self._mlp(unit["a_mlp"], x)
-        for rec, mlp in self._tails():
-            x = self._mlp(mlp, rglru_block(rec, x, cfg))
+            return x, aux
+        if cfg.family == "hybrid":
+            for unit in self.units:
+                for r in ("r0", "r1"):
+                    x = rglru_block(unit[r], x, cfg)
+                    x = self._mlp(unit[f"{r}_mlp"], x)
+                x = self._attn_seq(unit["a"], x, positions, cfg.local_window)
+                x = self._mlp(unit["a_mlp"], x)
+            for rec, mlp in self._tails():
+                x = self._mlp(mlp, rglru_block(rec, x, cfg))
+            return x, aux
+        # dense / moe / vlm decoders
+        for lp in self.layers:
+            x = self._attn_seq(lp["attn"], x, positions, cfg.window)
+            if cfg.family == "moe":
+                x, a = self._moe(lp["moe"], x)
+                aux = aux + a
+            else:
+                x = self._mlp(lp["mlp"], x)
+        return x, aux
+
+    def _encoder(self, frames: torch.Tensor) -> torch.Tensor:
+        """The bidirectional encoder over frame embeddings (B, Sm, d)."""
+        B, Sm, _ = frames.shape
+        positions = torch.arange(Sm, device=frames.device).expand(B, Sm)
+        x = frames
+        for lp in self.enc_layers:
+            x = self._attn_seq(lp["attn"], x, positions, 0, causal=False)
+            x = self._mlp(lp["mlp"], x)
+        return rms_norm(x, self.enc_norm)
+
+    def _decoder_ed(self, x, mem, positions) -> torch.Tensor:
+        for lp in self.dec_layers:
+            x = self._attn_seq(lp["attn"], x, positions, self.cfg.window)
+            x = self._cross_seq(lp["cross"], x, mem)
+            x = self._mlp(lp["mlp"], x)
         return x
+
+    def _forward(self, batch):
+        """The full-sequence path → (x (B, S, d) before the final norm,
+        aux loss).  encdec: the frames, rounded to bf16 as in the
+        reference, through the encoder, then the decoder over the tokens."""
+        x, positions = self._embed_batch(batch)
+        if self.cfg.family == "encdec":
+            mem = self._encoder(batch["frames"].to(torch.bfloat16))
+            return self._decoder_ed(x, mem, positions), torch.zeros(
+                (), dtype=torch.float32, device=x.device)
+        return self.backbone(x, positions)
 
     # ------------------------------------------------------------- embed/out
     def _embed_batch(self, batch):
-        """→ (x (B, S, d), positions (B, S))."""
-        tokens = batch["tokens"]
-        x = self.embed[tokens]
+        """→ (x (B, S, d), positions (B, S)); vlm prepends the patch
+        embeddings (B, n_patches, d) to the tokens'."""
+        x = self.embed[batch["tokens"]]
+        if self.cfg.family == "vlm":
+            x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
         B, S, _ = x.shape
         positions = torch.arange(S, device=x.device).expand(B, S)
         return x, positions
@@ -180,19 +269,22 @@ class Model(nn.Module):
         return x @ self.unembed
 
     def train_loss(self, batch) -> torch.Tensor:
-        """Token-mean cross entropy of ``batch`` = {"tokens", "labels"}
-        (B, S); the hybrid and ssm families have no auxiliary loss."""
-        x, positions = self._embed_batch(batch)
-        x = rms_norm(self.backbone(x, positions), self.final_norm)
-        return softmax_cross_entropy(self._logits(x), batch["labels"],
-                                     self.cfg.vocab)
+        """Token-mean cross entropy of ``batch`` (``data.family_batch``'s
+        layout, with labels) plus 0.01 · the moe aux loss; vlm scores only
+        the text positions."""
+        x, aux = self._forward(batch)
+        x = rms_norm(x, self.final_norm)
+        labels = batch["labels"]
+        if self.cfg.family == "vlm":
+            x = x[:, -labels.shape[1]:]
+        loss = softmax_cross_entropy(self._logits(x), labels, self.cfg.vocab)
+        return loss + 0.01 * aux
 
     def prefill(self, batch) -> torch.Tensor:
         """Process a full prompt → last-position logits (B, V_padded).  As in
         the reference, no cache is built: ``launch.serve.generate`` decodes
         the prompt token by token."""
-        x, positions = self._embed_batch(batch)
-        x = self.backbone(x, positions)
+        x, _ = self._forward(batch)
         return self._logits(rms_norm(x[:, -1], self.final_norm))
 
     # --------------------------------------------------------------- caches
@@ -200,37 +292,49 @@ class Model(nn.Module):
         """The decode state, laid out as the reference's.  ssm: per layer the
         scan state ``h`` (B, d_inner, N) f32 and the conv tail.  hybrid: per
         unit two recurrent states and a ring-buffered local-attention KV
-        cache of Sc = min(capacity, local_window) slots with their positions
-        (``kpos``, −1 = empty), and the trailing layers' states.  Conv tails
-        and KV hold the model's dtype (bf16; the reference's cache is always
-        bf16)."""
+        cache of Sc = min(capacity, local_window) slots, and the trailing
+        layers' states.  The decoders of the other families: per layer a
+        KV cache of Sc = min(capacity, window) ring slots with a window,
+        ``capacity`` slots without one; encdec adds the cross-attention
+        ``cross_k``/``cross_v`` of capacity // frame_ratio frames (zeros, as
+        the reference's: prefill builds no cache).  ``kpos`` holds each
+        slot's position (−1 = empty).  Conv tails and KV hold the model's
+        dtype (bf16; the reference's cache is always bf16)."""
         cfg = self.cfg
         dev, dt = self.embed.device, self.dtype
-        if cfg.family == "ssm":
-            L, di = cfg.n_layers, cfg.dinner
-            return {
-                "h": torch.zeros((L, batch_size, di, cfg.ssm_state),
-                                 dtype=torch.float32, device=dev),
-                "conv": torch.zeros((L, batch_size, cfg.ssm_conv - 1, di),
-                                    dtype=dt, device=dev),
-            }
-        n_units = len(self.units)
-        w = cfg.lru_width or cfg.d_model
-        sc = min(capacity, cfg.local_window)
 
         def z(*shape, dtype=dt):
             return torch.zeros(shape, dtype=dtype, device=dev)
 
-        return {
-            "h": z(n_units, 2, batch_size, w, dtype=torch.float32),
-            "conv": z(n_units, 2, batch_size, 3, w),
-            "k": z(n_units, batch_size, sc, cfg.n_kv, cfg.hd),
-            "v": z(n_units, batch_size, sc, cfg.n_kv, cfg.hd),
-            "kpos": torch.full((batch_size, sc), -1, dtype=torch.int32,
-                               device=dev),
-            "tail_h": z(max(self.n_tail, 1), batch_size, w, dtype=torch.float32),
-            "tail_conv": z(max(self.n_tail, 1), batch_size, 3, w),
-        }
+        if cfg.family == "ssm":
+            L, di = cfg.n_layers, cfg.dinner
+            return {"h": z(L, batch_size, di, cfg.ssm_state, dtype=torch.float32),
+                    "conv": z(L, batch_size, cfg.ssm_conv - 1, di)}
+        KV, hd = cfg.n_kv, cfg.hd
+        if cfg.family == "hybrid":
+            n_units = len(self.units)
+            w = cfg.lru_width or cfg.d_model
+            sc = min(capacity, cfg.local_window)
+            return {
+                "h": z(n_units, 2, batch_size, w, dtype=torch.float32),
+                "conv": z(n_units, 2, batch_size, 3, w),
+                "k": z(n_units, batch_size, sc, KV, hd),
+                "v": z(n_units, batch_size, sc, KV, hd),
+                "kpos": torch.full((batch_size, sc), -1, dtype=torch.int32,
+                                   device=dev),
+                "tail_h": z(max(self.n_tail, 1), batch_size, w, dtype=torch.float32),
+                "tail_conv": z(max(self.n_tail, 1), batch_size, 3, w),
+            }
+        sc = min(capacity, cfg.window) if cfg.window else capacity
+        L = cfg.n_layers
+        cache = {"k": z(L, batch_size, sc, KV, hd), "v": z(L, batch_size, sc, KV, hd),
+                 "kpos": torch.full((batch_size, sc), -1, dtype=torch.int32,
+                                    device=dev)}
+        if cfg.family == "encdec":
+            sm = capacity // cfg.frame_ratio
+            cache["cross_k"] = z(L, batch_size, sm, KV, hd)
+            cache["cross_v"] = z(L, batch_size, sm, KV, hd)
+        return cache
 
     # ---------------------------------------------------------- decode step
     def _attn_dec(self, p, x, k_cache, v_cache, kpos, pos, slot, window):
@@ -251,6 +355,24 @@ class Model(nn.Module):
         o = attn_decode(q[:, 0], k_cache, v_cache, kpos, pos, window=window)
         return x + o.reshape(B, H * hd) @ p["wo"].reshape(H * hd, d)
 
+    def _moe_dec(self, p, x):
+        """The MoE block on a single-token batch (B, d), one dispatch group."""
+        y, _ = moe_ffn(p, rms_norm(x, p["ln"])[:, None, :], self.cfg,
+                       group_size=x.shape[0])
+        return x + y[:, 0]
+
+    def _cross_dec(self, p, x, xk, xv):
+        """Cross attention of one token (B, d) on the cached frames'
+        keys and values (B, Sm, KV, hd), all admissible."""
+        cfg = self.cfg
+        B, d = x.shape
+        H, hd = cfg.n_heads, cfg.hd
+        q = (rms_norm(x, p["ln"]) @ p["wq"].reshape(d, H * hd)).view(B, H, hd)
+        Sm = xk.shape[1]
+        kpos = torch.arange(Sm, device=x.device).expand(B, Sm)
+        o = attn_decode(q, xk, xv, kpos, torch.full((B,), Sm, device=x.device))
+        return x + o.reshape(B, H * hd) @ p["wo"].reshape(H * hd, d)
+
     def decode_step(self, cache: dict, batch) -> tuple:
         """One token for every sequence, batch = {"tokens": (B,), "pos": (B,)}
         → (cache, logits (B, V_padded)).  The cache is updated in place (the
@@ -267,23 +389,54 @@ class Model(nn.Module):
                 cache["conv"][i] = st.conv_tail
             return cache, self._logits(rms_norm(x, self.final_norm))
         Sc = cache["k"].shape[2]
-        slot = (pos % Sc).long()
         rows = torch.arange(x.shape[0], device=x.device)
+        if cfg.family == "hybrid":
+            slot = (pos % Sc).long()
+            cache["kpos"][rows, slot] = pos.to(torch.int32)
+            for u, unit in enumerate(self.units):
+                for i, r in enumerate(("r0", "r1")):
+                    st = RGLRUState(h=cache["h"][u, i], conv_tail=cache["conv"][u, i])
+                    x, st = rglru_decode_step(unit[r], x, st, cfg)
+                    x = self._mlp(unit[f"{r}_mlp"], x)
+                    cache["h"][u, i] = st.h
+                    cache["conv"][u, i] = st.conv_tail
+                x = self._attn_dec(unit["a"], x, cache["k"][u], cache["v"][u],
+                                   cache["kpos"], pos, slot, cfg.local_window)
+                x = self._mlp(unit["a_mlp"], x)
+            for i, (rec, mlp) in enumerate(self._tails()):
+                st = RGLRUState(h=cache["tail_h"][i], conv_tail=cache["tail_conv"][i])
+                x, st = rglru_decode_step(rec, x, st, cfg)
+                x = self._mlp(mlp, x)
+                cache["tail_h"][i] = st.h
+                cache["tail_conv"][i] = st.conv_tail
+            return cache, self._logits(rms_norm(x, self.final_norm))
+        # dense / moe / vlm / encdec decoders: ring slots with a window, else
+        # the position, held at the last slot past the capacity
+        slot = (pos % Sc if cfg.window > 0 else torch.clamp(pos, max=Sc - 1)).long()
         cache["kpos"][rows, slot] = pos.to(torch.int32)
-        for u, unit in enumerate(self.units):
-            for i, r in enumerate(("r0", "r1")):
-                st = RGLRUState(h=cache["h"][u, i], conv_tail=cache["conv"][u, i])
-                x, st = rglru_decode_step(unit[r], x, st, cfg)
-                x = self._mlp(unit[f"{r}_mlp"], x)
-                cache["h"][u, i] = st.h
-                cache["conv"][u, i] = st.conv_tail
-            x = self._attn_dec(unit["a"], x, cache["k"][u], cache["v"][u],
-                               cache["kpos"], pos, slot, cfg.local_window)
-            x = self._mlp(unit["a_mlp"], x)
-        for i, (rec, mlp) in enumerate(self._tails()):
-            st = RGLRUState(h=cache["tail_h"][i], conv_tail=cache["tail_conv"][i])
-            x, st = rglru_decode_step(rec, x, st, cfg)
-            x = self._mlp(mlp, x)
-            cache["tail_h"][i] = st.h
-            cache["tail_conv"][i] = st.conv_tail
+        is_ed = cfg.family == "encdec"
+        for i, lp in enumerate(self.dec_layers if is_ed else self.layers):
+            x = self._attn_dec(lp["attn"], x, cache["k"][i], cache["v"][i],
+                               cache["kpos"], pos, slot, cfg.window)
+            if is_ed:
+                x = self._cross_dec(lp["cross"], x, cache["cross_k"][i],
+                                    cache["cross_v"][i])
+            if cfg.family == "moe":
+                x = self._moe_dec(lp["moe"], x)
+            else:
+                x = self._mlp(lp["mlp"], x)
         return cache, self._logits(rms_norm(x, self.final_norm))
+
+
+def _attn_bidir(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Non-causal GQA attention (the encoder's and the cross attention):
+    q (B, Sq, H, hd), k and v (B, Sk, KV, hd) → (B, Sq, H, hd).  Scores and
+    softmax in f32, the probabilities cast to q's dtype for the product with
+    v, as the reference's unchunked ``_attn_bidir``."""
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    qg = q.reshape(B, Sq, KV, H // KV, hd)
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg.float(), k.float()) / math.sqrt(hd)
+    att = torch.softmax(s, dim=-1).to(q.dtype)
+    o = torch.einsum("bkgqs,bskh->bqkgh", att, v.to(q.dtype))
+    return o.reshape(B, Sq, H, hd)

@@ -291,7 +291,7 @@ def test_ssm_scan_kernel_on_card(cuda_device, b, s, d, n):
 @pytest.mark.parametrize("window", [0, 33, 2048])
 @pytest.mark.parametrize("group", [1, 2, 10])
 @pytest.mark.parametrize("s", [1, 63, 64, 65, 100, 4096])
-@pytest.mark.parametrize("hd", flash_mod.HEAD_DIMS)
+@pytest.mark.parametrize("hd", flash_mod.PADDED_HEAD_DIMS)
 def test_flash_attention_bf16_tensor_cores_on_card(cuda_device, hd, s, group,
                                                    window):
     """The bf16 tensor-core body at every head dim, ragged and whole tiles,
@@ -310,17 +310,109 @@ def test_flash_attention_bf16_tensor_cores_on_card(cuda_device, hd, s, group,
 
 
 def test_flash_attention_bf16_refuses_unaligned_views(cuda_device):
+    """One bf16 element into its storage: no 4-byte copy fits."""
     x = torch.zeros(2 * 64 * 64 + 1, dtype=torch.bfloat16, device=cuda_device)
     q = x[1:].view(1, 2, 64, 64)
-    with pytest.raises(ValueError, match="16-byte"):
+    with pytest.raises(ValueError, match="4 bytes"):
         flash_mod.flash_attention(q, q[:, :1], q[:, :1])
+
+
+def _flash_views(device, b, s, h, kv, hd, dtype, seed, offset=0):
+    """q, k, v in the model's (B, S, heads, hd) memory as (B, heads, S, hd)
+    views, so the position stride is heads·hd; ``offset`` elements into
+    their storage."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    views = []
+    for heads in (h, kv, kv):
+        x = torch.randn((b, s, heads, hd), generator=gen, device=device).to(dtype)
+        buf = torch.empty(x.numel() + offset, dtype=dtype, device=device)
+        buf[offset:] = x.reshape(-1)
+        views.append(buf[offset:].view(x.shape).transpose(1, 2))
+    return views
+
+
+FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 40])
+@pytest.mark.parametrize("group", [1, 3, 4, 8])
+@pytest.mark.parametrize("s", [1, 100, 130])
+@pytest.mark.parametrize("hd", [16, 20, 48, 80, 96, 120, 128])
+def test_flash_attention_any_head_dim_on_card(cuda_device, hd, s, group,
+                                              window, dtype):
+    """Head dims that run in a padded body (20 as 32, 48 and 80 as 64 and
+    128, 96 and 120 as 128) and the padded ones themselves, ragged S, GQA
+    groups 1, 3, 4 and 8, with and without a window; the scale is 1/√hd."""
+    kv = 2
+    q, k, v = _flash_views(cuda_device, 2, s, kv * group, kv, hd, dtype,
+                           seed=hd * s + group)
+    got = flash_mod.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got, ref.flash_attention_ref(q, k, v, window=window),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,kv,hd,window", [
+    (2, 64, 3, 1, 20, 0),        # smollm-360m-reduced: position stride 60
+    (2, 200, 3, 1, 20, 32),
+    (1, 300, 32, 8, 120, 128),   # h2o-danube-3-4b: position stride 3840
+    (1, 4096, 32, 8, 120, 4096),
+])
+def test_flash_attention_model_strides_on_card(cuda_device, b, s, h, kv, hd,
+                                               window, dtype):
+    """The families' own layouts: position strides 60 (8-byte copies in
+    bf16) and 3840 (16-byte), and offset views (4-byte copies in bf16,
+    4-byte in f32); the output keeps q's layout."""
+    for offset in (0, 2):
+        q, k, v = _flash_views(cuda_device, b, s, h, kv, hd, dtype,
+                               seed=s + offset, offset=offset)
+        assert q.stride(2) == h * hd
+        got = flash_mod.flash_attention(q, k, v, window=window)
+        torch.cuda.synchronize()
+        assert got.stride() == q.stride()
+        tol = FLASH_TOL[dtype]
+        torch.testing.assert_close(
+            got, ref.flash_attention_ref(q, k, v, window=window),
+            rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("hd", [1, 17, 33, 255])
+def test_flash_attention_f32_odd_head_dims_on_card(cuda_device, hd):
+    """f32 takes odd head dims too, by 4-byte copies and element stores."""
+    q, k, v = _flash_views(cuda_device, 2, 70, 4, 2, hd, torch.float32, seed=hd)
+    got = flash_mod.flash_attention(q, k, v, window=16)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref.flash_attention_ref(q, k, v, window=16),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_refuses_head_dim_257_on_card(cuda_device, dtype):
+    """The wrapper refuses hd 257, and so does the entry point itself
+    (its launch error)."""
+    import ctypes
+
+    from repro_torch.kernels import build
+    q = torch.zeros((1, 2, 8, 257), dtype=dtype, device=cuda_device)
+    with pytest.raises(ValueError, match="hd"):
+        flash_mod.flash_attention(q, q, q)
+    o = torch.empty_like(q)
+    strides = (ctypes.c_longlong * 12)(*[x for t in (q, q, q, o)
+                                         for x in t.stride()[:3]])
+    fn = getattr(build.load("flash_attention"), flash_mod._ENTRY[dtype])
+    err = fn(q.data_ptr(), q.data_ptr(), q.data_ptr(), o.data_ptr(), 1, 2, 2,
+             8, 257, 0, strides, torch.cuda.current_stream().cuda_stream)
+    assert err != 0
 
 
 @pytest.mark.parametrize("offset", [0, 1])
 @pytest.mark.parametrize("window", [0, 33, 2048])
 @pytest.mark.parametrize("group", [1, 2, 10])
 @pytest.mark.parametrize("s", [1, 63, 64, 65, 100, 4096])
-@pytest.mark.parametrize("hd", flash_mod.HEAD_DIMS)
+@pytest.mark.parametrize("hd", flash_mod.PADDED_HEAD_DIMS)
 def test_flash_attention_f32_on_card(cuda_device, hd, s, group, window, offset):
     """The f32 body at every head dim, ragged and whole tiles, MHA / GQA /
     recurrentgemma's 10-on-1, with and without a window, on the model's
@@ -372,3 +464,49 @@ def test_shard_map_two_gloo_ranks_on_one_card_equal_vmap(cuda_device):
         assert rep.ok, rep.summary()
         assert all("shard_map" in c.ran for c in rep.cells)
         assert len(rep.cells) == 6
+
+
+# -------------------------------------------- the dense and moe families
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 0.05)])
+@pytest.mark.parametrize("arch", ["smollm-360m-reduced", "mixtral-8x22b-reduced"])
+def test_reduced_family_prefill_agrees_with_decode_on_card(cuda_device, arch,
+                                                           dtype, tol):
+    """A reduced dense model (smollm-360m: hd 20, position stride 60) and a
+    reduced moe model (mixtral-8x22b: window 32, 4 experts) on the card:
+    the prefill through the attention kernel against 40 decode steps (past
+    the window), relative to the largest logit; the moe capacity is one no
+    expert can overflow, so both paths compute the same function.  In f32
+    the card's prefill also matches the CPU's (the kernel's plain
+    version)."""
+    import dataclasses
+
+    from repro_torch.models import Model, resolve_config
+    cfg = resolve_config(arch)
+    if cfg.family == "moe":
+        cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    model = Model(cfg, device=cuda_device).init(gen)   # bf16, an f32 router
+    if dtype == torch.float32:
+        model = model.float()
+    toks = torch.randint(0, cfg.vocab, (2, 40), generator=gen,
+                         device=cuda_device, dtype=torch.int32)
+    before = flash_mod.launches
+    with torch.inference_mode():
+        full = model.prefill({"tokens": toks}).float()
+        assert flash_mod.launches == before + cfg.n_layers
+        cache = model.init_cache(2, 40)
+        for t in range(40):
+            cache, logits = model.decode_step(cache, {
+                "tokens": toks[:, t],
+                "pos": torch.full((2,), t, dtype=torch.int32, device=cuda_device)})
+        rel = float((full - logits.float()).abs().max() / full.abs().max())
+        assert rel <= tol
+        if dtype == torch.float32:
+            cpu = Model(cfg, device="cpu")
+            cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()},
+                                assign=True)
+            on_cpu = cpu.prefill({"tokens": toks.cpu()})
+            assert float((full.cpu() - on_cpu).abs().max()
+                         / on_cpu.abs().max()) <= 1e-5

@@ -31,6 +31,10 @@ assert main(["--arch", "recurrentgemma-2b-reduced", "--device", "cpu",
              "--adaptive-eval", "--eps", "2.0", "--batch", "2", "--seq", "8"]) == 0
 assert main(["--arch", "falcon-mamba-7b-reduced", "--device", "cpu",
              "--batch", "2", "--prompt-len", "8", "--gen", "4"]) == 0
+assert main(["--device", "cpu", "--batch", "2", "--prompt-len", "8",
+             "--gen", "4"]) == 0
+assert main(["--arch", "mixtral-8x22b-reduced", "--device", "cpu",
+             "--batch", "2", "--prompt-len", "8", "--gen", "4"]) == 0
 assert main(["--arch", "falcon-mamba-7b-reduced", "--device", "cpu",
              "--adaptive-eval", "--eps", "2.0", "--batch", "2", "--seq", "8"]) == 0
 assert main(["--pool", "--device", "cpu", "--topology", "4",

@@ -265,13 +265,16 @@ def test_adaptive_eval_stops_on_the_empirical_bernstein_rule():
 
 
 def test_unported_paths_raise_naming_their_roadmap_item():
-    cfg = resolve_config(ARCH)
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        Model(dataclasses.replace(cfg, family="moe"), device=CPU)
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        Model(dataclasses.replace(cfg, family="dense"), device=CPU)
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        Model(dataclasses.replace(cfg, family="encdec"), device=CPU)
+    """Every family of the zoo builds on the CPU (item 10.2 is ported); an
+    unknown family raises, and so does the pool's shard_map session, which
+    waits for item 9's process-group sessions."""
+    for arch in ("smollm-360m-reduced", "mixtral-8x22b-reduced",
+                 "seamless-m4t-large-v2-reduced", "internvl2-76b-reduced"):
+        cfg = resolve_config(arch)
+        model = Model(cfg, device=CPU)
+        assert model.cfg.family in ("dense", "moe", "encdec", "vlm")
+    with pytest.raises(ValueError, match="unknown model family"):
+        Model(dataclasses.replace(resolve_config(ARCH), family="rnn"), device=CPU)
     # the pool's sessions run on the sequential and vmap substrates; the
     # shard_map one waits for the pool's process-group sessions
     from repro_torch.serve import AdaptiveSession, SessionSpec
