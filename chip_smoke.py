@@ -7,7 +7,7 @@ Phases, each printing JSON lines (``{"phase": ...}``); any failure raises
 and the script exits non-zero:
 
 1. device      — the card (nvidia-smi name and power limit), torch and CUDA.
-2. build       — nvcc builds the six kernels from
+2. build       — nvcc builds the six kernel sources from
                  ``src/repro_torch/kernels/csrc``, all at once, and prints
                  ptxas's registers, spills and shared memory of the five
                  redesigned kernels (``bfs_frontier``, ``flash_attention``,
@@ -44,7 +44,15 @@ and the script exits non-zero:
                  at a ragged (3, 100, 1000) and (1, 7, 1001); ``ssm_scan``
                  exactly at falcon-mamba-7b's prefill (2, 4096, 8192, 16),
                  at ``adaptive_eval``'s (4, 64, 8192, 16) (both timed) and
-                 at a ragged (3, 100, 125, 3).
+                 at a ragged (3, 100, 125, 3).  The backward kernels:
+                 ``flash_attention``'s (with the forward's logsumexp) at
+                 h2o-danube-3-4b's train shape (1, 32, 4096, 120) kv 8
+                 window 4096 and recurrentgemma-2b's (1, 10, 4096, 256)
+                 kv 1 window 2048 in bf16 (timed beside the bound, the
+                 plain backward and ``torch.autograd.grad`` through SDPA)
+                 and a ragged f32 (2, 4, 100, 64); ``ssm_scan``'s exactly
+                 at (1, 2048, 8192, 16) and ``rglru_scan``'s at
+                 (1, 4096, 2560) (both timed) and at a ragged shape.
 5. accuracy    — KADABRA on erdos_renyi(1000, 5000) for all five strategies
                  within ε of exact Brandes; INDEXED_FRAME bit-identical for
                  W ∈ {1, 2, 4}; τ a whole number of frame units; SHARED == LOCAL.
@@ -119,15 +127,30 @@ and the script exits non-zero:
                  tokens) and seamless-m4t-large-v2 (full size, B = 2,
                  S = 4096, 1024 frames).  ``flash_attention`` must run at
                  hd 120, 64 and 128 there.
-13. kernels    — every kernel with its launches on the eight paths (phases
-                 5–6, 7, 8, 9, 9a — this process's and its worker
-                 processes' —, 10, 11 and 12), each counted from 0 just
-                 before its path; each path's line also splits its kernel
-                 calls by shape (the kernels line repeats
-                 ``flash_attention``'s on the families path).
+13. train      — training on the card (``phase_train``): ``train_loss``'s
+                 gradients in f32 on the card (every kernel forward and
+                 backward) against the CPU's (the plain versions) for the
+                 reduced h2o-danube-3-4b, recurrentgemma-2b,
+                 falcon-mamba-7b and mixtral-8x22b, each leaf within 1e-4
+                 of its largest magnitude; h2o-danube-3-4b at full size,
+                 3 steps of ``make_train_step`` (AdamW, remat "full") on
+                 2 micro-batches of (1, 4096), tokens/s, loss, grad norm,
+                 peak memory, and a profile of a fourth step;
+                 recurrentgemma-2b at full size and falcon-mamba-7b at full
+                 width (4 of 64 layers), one step each; the training CLI
+                 (``launch/train.py``'s ``main``) on smollm-360m: 20 steps,
+                 a run preempted at 5 and resumed with the same losses and
+                 final checkpoint, and an ``--adaptive`` run.
+14. kernels    — every kernel (the three backward kernels too) with its
+                 launches on the nine paths (phases 5–6, 7, 8, 9, 9a —
+                 this process's and its worker processes' —, 10, 11, 12
+                 and 13), each counted from 0 just before its path; each
+                 path's line also splits its kernel calls by shape (the
+                 kernels line repeats ``flash_attention``'s on the
+                 families path).
 
-While phases 5–12 run, in this process and in the worker processes of 9a,
-the kernels behind ``kernels.ops`` are wrapped so
+While phases 5–13 run, in this process and in the worker processes of 9a,
+the kernels behind ``kernels.ops`` (forward and backward) are wrapped so
 that their calls are held against the plain versions on the same tensors:
 every call on the conformance path, and elsewhere each call whose kernel,
 shapes and types phase 4 or an earlier call has not compared yet.
@@ -208,6 +231,31 @@ MAMBA_PREFILL = (2, 4096)   # batch, prompt length
 # layer's conv_b and the final norm (64·8192 + 4096 = 528,384 fewer)
 MAMBA_PARAMS = 7_272_665_088
 
+# phase 13, train: the backward kernels' shapes in phase 4, then the steps
+FLASH_BWD_SHAPES = (  # (name, (B, H, KV, S, hd), window, dtype, timed)
+    ("h2o-danube-3-4b train", (1, 32, 8, 4096, 120), 4096, "bfloat16", True),
+    ("recurrentgemma-2b train", (1, 10, 1, 4096, 256), 2048, "bfloat16", True),
+    ("ragged f32", (2, 4, 2, 100, 64), 0, "float32", False),
+    # 16 key tiles, the last ragged, a window across tile edges
+    ("tiles and window f32", (1, 8, 2, 1000, 120), 300, "float32", False),
+    ("tiles and window bf16", (1, 8, 2, 1000, 120), 300, "bfloat16", False),
+)
+SSM_BWD_SHAPE = (1, 2048, 8192, 16)     # falcon-mamba-7b's train step
+RGLRU_BWD_SHAPE = (1, 4096, 2560)       # recurrentgemma-2b's train step
+TRAIN_GRAD_ARCHS = ("h2o-danube-3-4b-reduced", "recurrentgemma-2b-reduced",
+                    "falcon-mamba-7b-reduced", "mixtral-8x22b-reduced")
+TRAIN_GRAD_BATCH = (2, 160)  # three key tiles of flash_attention_bwd
+TRAIN_GRAD_TOL = 1e-4       # of each leaf's largest magnitude (the CPU tests')
+DANUBE_TRAIN = (2, 1, 4096)  # n_micro, micro-batch, S: 8,192 tokens a step
+DANUBE_TRAIN_STEPS = 3
+RG_TRAIN = (1, 4096)
+MAMBA_TRAIN = (1, 2048)
+MAMBA_TRAIN_LAYERS = 4       # 64 → 4: its AdamW state at full depth is ~87 GB
+MAMBA_TRAIN_PARAMS = 953_929_728
+CLI_ARGS = ("--arch", "smollm-360m", "--batch", "8", "--seq", "512",
+            "--micro", "2", "--log-every", "1")
+CLI_STEPS, CLI_CKPT_EVERY, CLI_PREEMPT = 20, 10, 5
+
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -232,7 +280,10 @@ KERNEL_NAMES = {  # device kernels of the port's wrappers, by name part
     "alias_draw": ("alias_draw_kernel",),
     "flash_attention": ("flash_bf16_kernel", "flash_f32_kernel"),
     "rglru_scan": ("rglru_scan_kernel",),
-    "ssm_scan": ("ssm_scan",),
+    "ssm_scan": ("ssm_scan_kernel",),
+    "flash_attention_bwd": ("flash_bwd_dot_kernel", "flash_bwd_dkdv_kernel",
+                            "flash_bwd_dq_kernel"),
+    "scan_bwd": ("scan_bwd_kernel",),  # rglru_scan_bwd's and ssm_scan_bwd's
 }
 
 
@@ -316,7 +367,7 @@ def sass_mma_counts(lib: Path, nvcc: str) -> dict | None:
 
 def phase_build(torch) -> None:
     """Build every kernel at once; print ptxas's registers, spills and
-    shared memory of the five redesigned kernels (from the log kept beside
+    shared memory of every source's kernels (from the log kept beside
     each library, so also when it was built before) and the bf16 attention
     body's tensor-core instructions in the SASS.  A missing report, a spill
     or a bf16 body without tensor-core instructions fails."""
@@ -326,8 +377,8 @@ def phase_build(torch) -> None:
     build.build_all()
     emit({"phase": "build", "nvcc_s": time.time() - t0,
           "flags": " ".join(build.NVCC_FLAGS)})
-    for name in ("bfs_frontier", "flash_attention", "rglru_scan", "alias_draw",
-                 "frame_accum"):
+    for name in ("bfs_frontier", "flash_attention", "rglru_scan", "ssm_scan",
+                 "alias_draw", "frame_accum"):
         report = ptxas_report(build.ptxas_log(name))
         emit({"phase": "build", "source": f"csrc/{name}.cu", "ptxas": report})
         if not report or any(r["spill_stores"] != 0 or r["spill_loads"] != 0
@@ -380,7 +431,8 @@ class PlainCheck:
     port's kernels, so they move no count."""
 
     NAMES = ("frame_accum", "bfs_frontier", "alias_draw", "flash_attention",
-             "rglru_scan", "ssm_scan")
+             "rglru_scan", "ssm_scan", "flash_attention_bwd", "rglru_scan_bwd",
+             "ssm_scan_bwd")
     TOLERANCE = {
         "frame_accum": "int32 exact; float32 rtol 1e-6 atol 1e-6; "
                        "bfloat16 rtol 2e-2 atol 1e-2",
@@ -393,8 +445,18 @@ class PlainCheck:
                            "bfloat16 rtol 2e-2 atol 2e-2",
         "rglru_scan": "exact (torch.equal; one FMA a step in both)",
         "ssm_scan": "exact (torch.equal; one FMA a step in both)",
+        # f32 sums in other orders; bf16 rounds P and dS as the products'
+        # operands and dq, dk, dv once
+        "flash_attention_bwd": "each (b, head, position) row of dq, dk, dv: "
+                               "max |err| ≤ tol · the row's max |plain| + hd · "
+                               "2^-24 · the row's max of the backward over "
+                               "absolute values; float32 tol 1e-4, bfloat16 "
+                               "tol 2e-2",
+        "rglru_scan_bwd": "exact (torch.equal; one FMA a step in both)",
+        "ssm_scan_bwd": "exact (torch.equal; one FMA a step in both)",
     }
     FLASH_TOL = {"torch.float32": 1e-5, "torch.bfloat16": 2e-2}
+    FLASH_BWD_TOL = {"torch.float32": 1e-4, "torch.bfloat16": 2e-2}
 
     def __init__(self, torch):
         self.torch = torch
@@ -402,6 +464,7 @@ class PlainCheck:
         self.max_err = dict.fromkeys(self.NAMES, 0.0)
         self.calls = dict.fromkeys(self.NAMES, 0)
         self.compare_s = 0.0  # host seconds spent in the comparisons
+        self.flash_bwd_rows = []
 
     def _done(self, name, key, got, exp):
         self.seen.add(key)
@@ -460,22 +523,76 @@ class PlainCheck:
                    got, exp)
 
     @staticmethod
-    def flash_key(q, k, v, window):
+    def flash_key(q, k, v, window, return_lse=False):
         return ("flash_attention", str(q.dtype), tuple(q.shape),
-                tuple(k.shape), window)
+                tuple(k.shape), window, bool(return_lse))
 
-    def compare_flash(self, q, k, v, window, got):
+    def compare_flash(self, q, k, v, window, *rest):
+        """``rest``: (got,), or (return_lse, got) as the autograd forward
+        calls the kernel; with the logsumexp, it is held within 1e-5 of
+        max(max |plain|, 1)."""
         from repro_torch.kernels import ref
         torch = self.torch
-        exp = ref.flash_attention_ref(q, k, v, window=window)
+        with_lse, got = (rest[0], rest[1]) if len(rest) == 2 else (False, rest[0])
+        exp = ref.flash_attention_ref(q, k, v, window=window,
+                                      return_lse=bool(with_lse))
         torch.cuda.synchronize()
+        if with_lse:
+            (got, lse), (exp, lse_exp) = got, exp
+            err = float((lse - lse_exp).abs().max())
+            if not err <= 1e-5 * max(float(lse_exp.abs().max()), 1.0):
+                raise AssertionError(f"flash_attention lse q {tuple(q.shape)} "
+                                     f"{q.dtype} window {window}: |err| {err}")
         tol = self.FLASH_TOL[str(q.dtype)]
         torch.testing.assert_close(got, exp, rtol=tol, atol=tol,
                                    msg=lambda m: f"flash_attention q "
                                                  f"{tuple(q.shape)} k "
                                                  f"{tuple(k.shape)} {q.dtype} "
                                                  f"window {window}: {m}")
-        self._done("flash_attention", self.flash_key(q, k, v, window), got, exp)
+        self._done("flash_attention",
+                   self.flash_key(q, k, v, window, with_lse), got, exp)
+
+    @staticmethod
+    def flash_bwd_key(q, k, v, o, lse, do, window):
+        return ("flash_attention_bwd", str(q.dtype), tuple(q.shape),
+                tuple(k.shape), window)
+
+    def compare_flash_bwd(self, q, k, v, o, lse, do, window, got):
+        """Each gradient row by row (``ref.flash_attention_bwd_check``);
+        the gradients' errors, largest plain values and worst rows are
+        kept in ``flash_bwd_rows``, one entry a comparison."""
+        from repro_torch.kernels import ref
+        torch = self.torch
+        torch.cuda.synchronize()
+        tol = self.FLASH_BWD_TOL[str(q.dtype)]
+        res = ref.flash_attention_bwd_check(q, k, v, o, lse, do, got,
+                                            window=window, tol=tol)
+        for name, r in res.items():
+            if not r["worst"] <= 1.0:
+                raise AssertionError(
+                    f"flash_attention_bwd {name} q {tuple(q.shape)} k "
+                    f"{tuple(k.shape)} {q.dtype} window {window}: a row's "
+                    f"error is {r['worst']} times its allowance ({r})")
+            self.max_err["flash_attention_bwd"] = max(
+                self.max_err["flash_attention_bwd"], r["max_abs_err"])
+        self.flash_bwd_rows.append({"q": list(q.shape), "kv": list(k.shape),
+                                    "dtype": str(q.dtype), "window": window,
+                                    **res})
+        self.seen.add(self.flash_bwd_key(q, k, v, o, lse, do, window))
+        self.calls["flash_attention_bwd"] += 1
+
+    def compare_scan_bwd(self, name, a, h, g, got):
+        from repro_torch.kernels import ref
+        torch = self.torch
+        exp = ref.scan_bwd_ref(a, h, g)
+        torch.cuda.synchronize()
+        for part, x, e in zip(("da", "db"), got, exp):
+            if not torch.equal(x, e):
+                raise AssertionError(f"{name} {part} differs from its plain "
+                                     f"version at {tuple(a.shape)}: "
+                                     f"{int((x != e).sum())} values")
+        self.seen.add((name, tuple(a.shape)))
+        self.calls[name] += 1
 
     def compare_rglru(self, a, b, got):
         from repro_torch.kernels import ref
@@ -511,7 +628,10 @@ class PlainCheck:
                    "alias_draw": ops._alias_kernel,
                    "flash_attention": ops._flash_kernel,
                    "rglru_scan": ops._rglru_kernel,
-                   "ssm_scan": ops._ssm_kernel}
+                   "ssm_scan": ops._ssm_kernel,
+                   "flash_attention_bwd": ops._flash_bwd_kernel,
+                   "rglru_scan_bwd": ops._rglru_bwd_kernel,
+                   "ssm_scan_bwd": ops._ssm_bwd_kernel}
         made = dict.fromkeys(self.NAMES, 0)
         by_shape = {name: {} for name in self.NAMES}
 
@@ -554,6 +674,16 @@ class PlainCheck:
             "_ssm_kernel": wrap(
                 "ssm_scan", lambda a, b: ("ssm_scan", tuple(a.shape)),
                 self.compare_ssm),
+            "_flash_bwd_kernel": wrap("flash_attention_bwd", self.flash_bwd_key,
+                                      self.compare_flash_bwd),
+            "_rglru_bwd_kernel": wrap(
+                "rglru_scan_bwd", lambda a, h, g: ("rglru_scan_bwd", tuple(a.shape)),
+                lambda a, h, g, got: self.compare_scan_bwd("rglru_scan_bwd", a,
+                                                           h, g, got)),
+            "_ssm_bwd_kernel": wrap(
+                "ssm_scan_bwd", lambda a, h, g: ("ssm_scan_bwd", tuple(a.shape)),
+                lambda a, h, g, got: self.compare_scan_bwd("ssm_scan_bwd", a, h,
+                                                           g, got)),
         }
         saved = {attr: getattr(ops, attr) for attr in patched}
         for attr, fn in patched.items():
@@ -678,7 +808,110 @@ def phase_kernels(torch, timer, check, g, table):
     rows["flash_attention"] = kernel_flash_attention(torch, timer, check, gen)
     rows["rglru_scan"] = kernel_rglru_scan(torch, timer, check, gen)
     rows["ssm_scan"] = kernel_ssm_scan(torch, timer, check, gen)
+    rows["flash_attention_bwd"] = kernel_flash_attention_bwd(torch, timer, check, gen)
+    rows["rglru_scan_bwd"] = kernel_scan_bwd(torch, timer, check, gen, "rglru_scan")
+    rows["ssm_scan_bwd"] = kernel_scan_bwd(torch, timer, check, gen, "ssm_scan")
     return rows
+
+
+def kernel_flash_attention_bwd(torch, timer, check, gen):
+    """``flash_attention``'s backward kernel against its plain backward at
+    ``FLASH_BWD_SHAPES``: h2o-danube-3-4b's and recurrentgemma-2b's train
+    shapes in bf16 (timed beside the bound, the plain backward and
+    ``torch.autograd.grad`` through ``scaled_dot_product_attention`` with
+    the same boolean mask and ``enable_gqa``), a small ragged f32 one, and
+    one of 16 key tiles with a window across tile edges in both types;
+    each row reports every gradient's largest error and plain value.
+    The bound: 5 products × 2 × hd × admissible pairs × B × H at the
+    dtype's rate, against the bytes of q, k, v, o, dO, lse, dq, dk, dv."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+
+    out = []
+    for name, (B, H, KV, S, hd), window, dtype, timed in FLASH_BWD_SHAPES:
+        dt = getattr(torch, dtype)
+        q, k, v, do = [torch.randn((B, S, n, hd), generator=gen, device="cuda")
+                       .to(dt).transpose(1, 2) for n in (H, KV, KV, H)]
+        o, lse = flash_attention(q, k, v, window=window, return_lse=True)
+        check.compare_flash(q, k, v, window, True, (o, lse))
+        bwd = lambda: flash_attention_bwd(q, k, v, o, lse, do, window=window)  # noqa: E731
+        check.compare_flash_bwd(q, k, v, o, lse, do, window, bwd())
+        row = {"shape_name": name, "dtype": dtype, "q": list(q.shape),
+               "kv": list(k.shape), "window": window,
+               "grads": {g: check.flash_bwd_rows[-1][g] for g in ("dq", "dk", "dv")}}
+        if timed:
+            pairs = B * H * attention_pairs(S, window)
+            es = q.element_size()
+            nbytes = es * (5 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
+            ops = 5 * 2 * hd * pairs
+            t_bound, by = bound_ms(nbytes, ops, BF16_OPS_PER_S if dt == torch.bfloat16
+                                   else F32_OPS_PER_S)
+            pos = torch.arange(S, device="cuda")
+            mask = pos[None, :] <= pos[:, None]
+            if window > 0:
+                mask &= pos[None, :] > pos[:, None] - window
+            leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+            sdpa = F.scaled_dot_product_attention(*leaves, attn_mask=mask,
+                                                  enable_gqa=True)
+            row.update({
+                "admissible_pairs": pairs, "flops": ops, "bytes": nbytes,
+                "forward_bound_ms": bound_ms(es * (2 * q.numel() + 2 * k.numel()),
+                                             4 * hd * pairs, BF16_OPS_PER_S)[0],
+                "ms": timer(bwd, reps=10),
+                "plain_ms": timer(lambda: ref.flash_attention_bwd_ref(
+                    q, k, v, o, lse, do, window=window), reps=3, warmup=1),
+                "bound_ms": t_bound, "bound_by": by,
+                "library_ms": timer(lambda: torch.autograd.grad(
+                    sdpa, leaves, do, retain_graph=True), reps=10),
+                "library": "torch.autograd.grad through F.scaled_dot_product_"
+                           "attention(enable_gqa=True, boolean mask)"})
+            del leaves, sdpa, mask
+        emit({"phase": "kernels", "kernel": "flash_attention_bwd",
+              "max_abs_err": check.max_err["flash_attention_bwd"],
+              "tolerance": check.TOLERANCE["flash_attention_bwd"], **row})
+        out.append(row)
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+    main = dict(out[0])
+    main["shapes"] = out[1:]
+    return main
+
+
+def kernel_scan_bwd(torch, timer, check, gen, name):
+    """A scan's backward kernel exactly against its plain backward at the
+    train step's shape (``RGLRU_BWD_SHAPE``, ``SSM_BWD_SHAPE``) and at a
+    ragged one, timed at the former beside its bound: bytes, 5 × 4 an
+    element (read a, h, g; write da, db)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rglru_scan as rglru_mod
+    from repro_torch.kernels import ssm_scan as ssm_mod
+
+    mod = rglru_mod if name == "rglru_scan" else ssm_mod
+    fwd, bwd = getattr(mod, name), getattr(mod, f"{name}_bwd")
+    full = RGLRU_BWD_SHAPE if name == "rglru_scan" else SSM_BWD_SHAPE
+    ragged = (3, 70, 1001) if name == "rglru_scan" else (2, 33, 125, 3)
+    for shape in (ragged, full):
+        a = torch.rand(shape, generator=gen, device="cuda") * 0.75 + 0.2
+        b = torch.randn(shape, generator=gen, device="cuda")
+        g = torch.randn(shape, generator=gen, device="cuda")
+        h = fwd(a, b)
+        check.compare_scan_bwd(f"{name}_bwd", a, h, g, bwd(a, h, g))
+    t_bound, by = bound_ms(5 * 4 * a.numel(), 3 * a.numel())
+    row = {"shape": list(full), "checked": [list(ragged), list(full)],
+           "ms": timer(lambda: bwd(a, h, g)),
+           "plain_ms": timer(lambda: ref.scan_bwd_ref(a, h, g), reps=1, warmup=0),
+           "bound_ms": t_bound, "bound_by": by, "library_ms": None}
+    emit({"phase": "kernels", "kernel": f"{name}_bwd",
+          "max_abs_err": check.max_err[f"{name}_bwd"],
+          "tolerance": check.TOLERANCE[f"{name}_bwd"],
+          "library": "none (no single PyTorch call runs a linear recurrence "
+                     "or its gradient)", **row})
+    del a, b, g, h
+    torch.cuda.empty_cache()
+    return row
 
 
 BFS_TIMED_LEVELS = tuple(range(8))    # the kernel timed at each
@@ -1574,6 +1807,22 @@ SUBSTRATE_TIMEOUT_S = 300.0
 GRAPH_ARRAYS = ("indptr", "indices_padded", "src", "dst", "components")
 
 
+class BwdCounter:
+    """A wrapper module's backward launch counter (``bwd_launches``) under
+    the name ``launches``, as ``drive`` and ``probed`` read and reset it."""
+
+    def __init__(self, mod):
+        self.mod = mod
+
+    @property
+    def launches(self):
+        return self.mod.bwd_launches
+
+    @launches.setter
+    def launches(self, n):
+        self.mod.bwd_launches = n
+
+
 def kernel_modules() -> dict:
     from repro_torch.kernels import alias_draw as alias_mod
     from repro_torch.kernels import bfs_frontier as bfs_mod
@@ -1583,7 +1832,10 @@ def kernel_modules() -> dict:
     from repro_torch.kernels import ssm_scan as ssm_mod
     return {"frame_accum": accum_mod, "bfs_frontier": bfs_mod,
             "alias_draw": alias_mod, "flash_attention": flash_mod,
-            "rglru_scan": rglru_mod, "ssm_scan": ssm_mod}
+            "rglru_scan": rglru_mod, "ssm_scan": ssm_mod,
+            "flash_attention_bwd": BwdCounter(flash_mod),
+            "rglru_scan_bwd": BwdCounter(rglru_mod),
+            "ssm_scan_bwd": BwdCounter(ssm_mod)}
 
 
 @contextlib.contextmanager
@@ -2110,6 +2362,259 @@ def phase_families(torch):
         torch.cuda.empty_cache()
 
 
+GEMM_PARTS = ("gemm", "nvjet", "xmma", "cutlass")
+
+
+def step_breakdown(torch, fn) -> dict:
+    """One call of ``fn`` (a train step) under ``torch.profiler``: device ms
+    of the attention forward and backward kernels, the GEMMs (cuBLAS's
+    kernels by name), the other kernels, and the wall; plus the step's
+    AdamW update, timed by CUDA events around ``launch.steps``'
+    ``adamw_update``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import steps
+
+    upd, opt_ms = steps.adamw_update, []
+
+    def timed(*args, **kwargs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = upd(*args, **kwargs)
+        b.record()
+        opt_ms.append((a, b))
+        return out
+
+    steps.adamw_update = timed
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.time()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+    finally:
+        steps.adamw_update = upd
+    groups = {"flash_attention_fwd": KERNEL_NAMES["flash_attention"],
+              "flash_attention_bwd": KERNEL_NAMES["flash_attention_bwd"],
+              "rglru_scan_fwd": KERNEL_NAMES["rglru_scan"],
+              "ssm_scan_fwd": KERNEL_NAMES["ssm_scan"],
+              "scan_bwd": KERNEL_NAMES["scan_bwd"],
+              "gemm": GEMM_PARTS}
+    ms = dict.fromkeys(groups, 0.0)
+    ms["other"] = 0.0
+    by_name = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t = e.time_range.elapsed_us() / 1e3
+        by_name[e.name] = by_name.get(e.name, 0.0) + t
+        key = next((g for g, parts in groups.items()
+                    if any(p in e.name for p in parts)), "other")
+        ms[key] += t
+    device = sum(ms.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"profiled_wall_s": wall, "device_ms": device,
+            "device_busy_share": device / 1e3 / wall,
+            "device_ms_by_group": {k: v for k, v in ms.items() if v},
+            "adamw_update_ms": sum(a.elapsed_time(b) for a, b in opt_ms),
+            "top_device": [{"name": n[:80], "ms": t} for n, t in top]}
+
+
+def train_grads_vs_cpu(torch, arch):
+    """``train_loss``'s gradients on the card (the kernels both ways) against
+    the CPU's (the plain versions) in f32, from the same weights (seed 0)
+    and batch: each leaf within ``TRAIN_GRAD_TOL`` of its largest
+    magnitude (1e-6 at the least)."""
+    from repro_torch.data import family_batch
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import Model, resolve_config
+
+    cfg = resolve_config(arch)
+    gen = torch.Generator().manual_seed(0)
+    cpu = Model(cfg, device="cpu").init(gen).float().requires_grad_(True)
+    card = Model(cfg, device="cuda").float()
+    card.load_state_dict({k: v.cuda() for k, v in cpu.state_dict().items()},
+                         assign=True)
+    card.requires_grad_(True)
+    batch = family_batch(cfg, *TRAIN_GRAD_BATCH, gen, train=True)
+    t0 = time.time()
+    loss_c, g_card = loss_and_grads(card, dict(card.named_parameters()),
+                                    {k: v.cuda() for k, v in batch.items()})
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    loss, g_cpu = loss_and_grads(cpu, dict(cpu.named_parameters()), batch)
+    errs = {k: float((g_card[k].cpu() - g).abs().max())
+            / max(float(g.abs().max()), 1e-6) for k, g in g_cpu.items()}
+    worst = max(errs, key=errs.get)
+    loss_rel = abs(float(loss_c) - float(loss)) / abs(float(loss))
+    emit({"phase": "train", "step": "gradients vs cpu", "arch": arch,
+          "family": cfg.family, "dtype": "float32",
+          "batch": list(TRAIN_GRAD_BATCH), "leaves": len(errs),
+          "loss": float(loss_c), "loss_rel_err": loss_rel,
+          "worst_leaf": worst, "worst_rel_err": errs[worst],
+          "tolerance": TRAIN_GRAD_TOL, "card_wall_s": wall})
+    if errs[worst] > TRAIN_GRAD_TOL or loss_rel > 1e-5:
+        raise AssertionError(f"train {arch}: gradients on the card differ from "
+                             f"the CPU's: {worst} {errs[worst]}, loss {loss_rel}")
+
+
+def train_steps(torch, model, name, layout, steps):
+    """``steps`` steps of ``make_train_step`` with AdamW on
+    ``TokenStream`` batches: ``layout`` (n_micro, mb, S) through
+    ``micro_batches``, or (B, S) through ``batch_at``.  Each step timed to
+    a synchronise, its loss and grad norm finite, its peak memory."""
+    import math
+
+    from repro_torch.data import TokenStream
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    cfg = model.cfg
+    step = make_train_step(model, AdamWConfig())
+    opt = adamw_init(dict(model.named_parameters()))
+    rows = layout[0] * layout[1] if len(layout) == 3 else layout[0]
+    stream = TokenStream(vocab=cfg.vocab, seq_len=layout[-1], batch=rows, seed=0)
+
+    def batch_at(i):
+        return stream.micro_batches(i, layout[0], device="cuda") \
+            if len(layout) == 3 else stream.batch_at(i, device="cuda")
+
+    out = []
+    for i in range(steps):
+        batch = batch_at(i)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        opt, m = step(opt, batch)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        line = {"phase": "train", "step": name, "arch": cfg.name,
+                "layers": cfg.n_layers, "remat": cfg.remat,
+                "layout": list(layout), "tokens": rows * layout[-1],
+                "train_step": int(m["step"]), "loss": loss, "grad_norm": gnorm,
+                "wall_s": wall, "tokens_per_s": rows * layout[-1] / wall,
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        emit(line)
+        out.append(line)
+        if not (math.isfinite(loss) and math.isfinite(gnorm)):
+            raise AssertionError(f"train {cfg.name}: loss {loss}, grad norm {gnorm}")
+    return step, opt, batch_at
+
+
+def train_cli(torch):
+    """``launch/train.py``'s ``main`` on the card: ``CLI_STEPS`` steps of
+    smollm-360m (B 8, S 512, 2 micro-batches) with a checkpoint every
+    ``CLI_CKPT_EVERY``; the same preempted at ``CLI_PREEMPT`` and resumed,
+    whose losses from there on and final checkpoint (parameters, moments,
+    step: the chunks' CRCs) must equal the uninterrupted run's; one
+    ``--adaptive`` run with up to 4 micro-batches a step."""
+    import io
+    import re
+    import shutil
+    import tempfile
+
+    from repro_torch.launch.train import main as train_main
+
+    def run(*extra):
+        buf = io.StringIO()
+        t0 = time.time()
+        with contextlib.redirect_stdout(buf):
+            rc = train_main([*CLI_ARGS, "--steps", str(CLI_STEPS), *extra])
+        torch.cuda.synchronize()
+        out = buf.getvalue()
+        if rc != 0:
+            raise AssertionError(f"train CLI {extra}: exit {rc}\n{out}")
+        losses = {int(m.group(1)): m.group(2) for m in re.finditer(
+            r"\[train\] step +(\d+) loss=(\S+)", out)}
+        return out, losses, time.time() - t0
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    try:
+        full, l_full, w_full = run("--ckpt-dir", str(tmp / "a"),
+                                   "--ckpt-every", str(CLI_CKPT_EVERY))
+        pre, _, w_pre = run("--ckpt-dir", str(tmp / "b"),
+                            "--ckpt-every", str(CLI_CKPT_EVERY),
+                            "--preempt-at", str(CLI_PREEMPT))
+        res, l_res, w_res = run("--ckpt-dir", str(tmp / "b"), "--resume",
+                                "--ckpt-every", str(CLI_CKPT_EVERY))
+        adaptive, l_ad, w_ad = run("--adaptive", "--micro", "4")
+
+        def crcs(run_dir):  # the final checkpoint's chunk checksums
+            man = json.loads((tmp / run_dir / f"step_{CLI_STEPS:010d}" /
+                              "manifest.json").read_text())
+            return {k: [c["crc32"] for c in v["chunks"]]
+                    for k, v in man["leaves"].items()}
+        same_ckpt = crcs("a") == crcs("b")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    same = {s: l_full.get(s) == l for s, l in l_res.items()}
+    micro = re.findall(r"micro=(\d+) rel_sem=(\S+)", adaptive)
+    emit({"phase": "train", "step": "cli", "args": list(CLI_ARGS),
+          "steps": CLI_STEPS, "ckpt_every": CLI_CKPT_EVERY,
+          "preempt_at": CLI_PREEMPT, "wall_s": {"full": w_full, "preempted": w_pre,
+                                                 "resumed": w_res, "adaptive": w_ad},
+          "losses_full": l_full, "losses_resumed": l_res,
+          "resumed_equal": all(same.values()) and len(same) == CLI_STEPS - CLI_PREEMPT,
+          "final_checkpoints_equal": same_ckpt,
+          "adaptive_micro_used": [int(m) for m, _ in micro],
+          "adaptive_rel_sem": [float(r) for _, r in micro],
+          "last_lines": [full.splitlines()[-1], res.splitlines()[-1],
+                         adaptive.splitlines()[-1]]})
+    if "PREEMPTION" not in pre or f"resumed at step {CLI_PREEMPT}" not in res \
+            or sorted(l_res) != list(range(CLI_PREEMPT, CLI_STEPS)) \
+            or not all(same.values()) or not same_ckpt:
+        raise AssertionError(f"train CLI: resume after preemption is not the "
+                             f"uninterrupted run: {l_full} vs {l_res}")
+    if len(micro) != CLI_STEPS or "done" not in adaptive:
+        raise AssertionError("train CLI --adaptive: missing step lines")
+
+
+def phase_train(torch):
+    """Phase 13: training on the card.  The gradients of ``train_loss`` on
+    the card against the CPU's (``TRAIN_GRAD_ARCHS``, f32); then, in bf16
+    from seed 0, each model freed before the next: h2o-danube-3-4b at full
+    size, ``DANUBE_TRAIN_STEPS`` steps of ``make_train_step`` (AdamW,
+    remat "full") on ``micro_batches`` (2 × (1, 4096)) and a profile of one
+    more; recurrentgemma-2b at full size, one step at (1, 4096);
+    falcon-mamba-7b at full width, 4 of its 64 layers, one step at
+    (1, 2048); then the training CLI (``train_cli``)."""
+    path = "train"
+    for arch in TRAIN_GRAD_ARCHS:
+        train_grads_vs_cpu(torch, arch)
+        torch.cuda.empty_cache()
+
+    model = serve_model(torch, DANUBE_ARCH, path, DANUBE_PARAMS)
+    model.requires_grad_(True)
+    layout = DANUBE_TRAIN
+    step, opt, batch_at = train_steps(torch, model, "h2o-danube-3-4b step",
+                                      layout, DANUBE_TRAIN_STEPS)
+    import math
+    batch = batch_at(DANUBE_TRAIN_STEPS)
+    emit({"phase": "train", "step": "h2o-danube-3-4b profile",
+          "layout": list(layout), "tokens": math.prod(layout),
+          "profile": step_breakdown(torch, lambda: step(opt, batch))})
+    del model, step, opt, batch, batch_at
+    torch.cuda.empty_cache()
+
+    model = serve_model(torch, RG_ARCH, path, RG_PARAMS)
+    model.requires_grad_(True)
+    train_steps(torch, model, "recurrentgemma-2b step", RG_TRAIN, 1)
+    del model
+    torch.cuda.empty_cache()
+
+    model = serve_model(torch, MAMBA_ARCH, path, MAMBA_TRAIN_PARAMS,
+                        layers=MAMBA_TRAIN_LAYERS)
+    model.requires_grad_(True)
+    train_steps(torch, model, "falcon-mamba-7b step", MAMBA_TRAIN, 1)
+    del model
+    torch.cuda.empty_cache()
+
+    train_cli(torch)
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this script",
@@ -2244,6 +2749,14 @@ def main() -> int:
         raise AssertionError(f"flash_attention on the families path ran at "
                              f"hd {sorted(hds)}, not at 120, 64 and 128")
     rows["flash_attention"]["families_calls_by_shape"] = flash_shapes
+    torch.cuda.empty_cache()
+    checked_before = len(check.flash_bwd_rows)
+    by_path["train"] = drive("train", lambda: phase_train(torch),
+                             ("flash_attention", "flash_attention_bwd",
+                              "rglru_scan", "rglru_scan_bwd", "ssm_scan",
+                              "ssm_scan_bwd"))
+    emit({"phase": "train", "flash_attention_bwd_checks":
+          check.flash_bwd_rows[checked_before:]})
 
     meta = {
         "frame_accum": ("src/repro_torch/kernels/csrc/frame_accum.cu",
@@ -2258,13 +2771,27 @@ def main() -> int:
                        "src/repro/kernels/rglru_scan.py:24"),
         "ssm_scan": ("src/repro_torch/kernels/csrc/ssm_scan.cu",
                      "src/repro/kernels/ssm_scan.py:32"),
+        # the backwards: the forward's Pallas kernel, which has no backward
+        "flash_attention_bwd": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                                "src/repro/kernels/flash_attention.py:81"),
+        "rglru_scan_bwd": ("src/repro_torch/kernels/csrc/ssm_scan.cu",
+                           "src/repro/kernels/rglru_scan.py:24"),
+        "ssm_scan_bwd": ("src/repro_torch/kernels/csrc/ssm_scan.cu",
+                         "src/repro/kernels/ssm_scan.py:32"),
     }
+    xla_site = {"flash_attention_bwd": "src/repro/models/attention.py:44",
+                "rglru_scan_bwd": "src/repro/models/ssm.py:40",
+                "ssm_scan_bwd": "src/repro/models/ssm.py:40"}
     kernels = [{"name": name, "route": "cuda", "source": meta[name][0],
                 "replaces": meta[name][1],
                 "launches": sum(c[name] for c in by_path.values()),
                 "launches_by_path": {p: c[name] for p, c in by_path.items()},
                 **rows[name], "max_abs_err": check.max_err[name],
-                "compared_with_plain": check.calls[name]} for name in mods]
+                "compared_with_plain": check.calls[name],
+                **({"note": f"backward of the kernel in 'replaces'; no Pallas "
+                            f"counterpart: the reference differentiates in "
+                            f"XLA ({xla_site[name]})"}
+                   if name in xla_site else {})} for name in mods]
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} was not launched on the main path")

@@ -105,3 +105,18 @@ def model_params_from_numpy(cfg, tree, device=None) -> dict:
 
     walk("", tree)
     return state
+
+
+def adamw_state_from_numpy(cfg, state, device=None):
+    """The reference's ``AdamWState`` (``step`` and the ``mu``/``nu`` moment
+    trees, leaves as numpy arrays) as the port's: the step an int32 0-d
+    tensor, each moment tree named as ``model_params_from_numpy`` names
+    the parameters, every dtype kept."""
+    from .optim.adamw import AdamWState
+    device = resolve_device(device)
+    step, mu, nu = state.step, state.mu, state.nu
+    return AdamWState(
+        step=torch.tensor(int(np.asarray(step)), dtype=torch.int32,
+                          device=device),
+        mu=model_params_from_numpy(cfg, mu, device),
+        nu=model_params_from_numpy(cfg, nu, device))

@@ -1,3 +1,3 @@
-from .pipeline import TokenStream, family_batch
+from .pipeline import DataCursor, TokenStream, family_batch
 
-__all__ = ["TokenStream", "family_batch"]
+__all__ = ["DataCursor", "TokenStream", "family_batch"]

@@ -8,8 +8,11 @@ seeded by a fixed mix of (seed, step, global row), so a row does not depend
 on the shard count, and the same tokens come out on every device.  The bits
 differ from the reference's threefry draws; the distribution is the same.
 
-``family_batch`` makes a serving or training batch in the layout the
-reference's ``launch/specs.py`` ``batch_struct`` gives each family.
+``micro_batches`` lays a step's batch out as (n_micro, mb, S) for
+gradient accumulation, and ``DataCursor`` is the checkpointable position
+(resume = replay from the recorded step).  ``family_batch`` makes a
+serving or training batch in the layout the reference's
+``launch/specs.py`` ``batch_struct`` gives each family.
 """
 
 from __future__ import annotations
@@ -22,6 +25,21 @@ import torch
 
 from ..core.epoch import make_generator
 from ..device import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class DataCursor:
+    """Checkpointable position (serialized into checkpoint meta)."""
+    step: int = 0
+    seed: int = 0
+
+    def as_meta(self) -> Dict:
+        return {"data_step": self.step, "data_seed": self.seed}
+
+    @staticmethod
+    def from_meta(meta: Dict) -> "DataCursor":
+        return DataCursor(step=int(meta.get("data_step", 0)),
+                          seed=int(meta.get("data_seed", 0)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,6 +69,15 @@ class TokenStream:
             toks.append(torch.where(de < 1.0 / self.mean_doc_len, self.eos, t))
         toks = torch.stack(toks).to(torch.int32).to(resolve_device(device))
         return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    def micro_batches(self, step: int, n_micro: int, *, shard: int = 0,
+                      n_shards: int = 1, device=None) -> Dict[str, torch.Tensor]:
+        """(n_micro, B/n_shards/n_micro, S) leading layout for gradient
+        accumulation: the shard's rows in order, the remainder dropped."""
+        b = self.batch_at(step, shard, n_shards, device=device)
+        mb = (self.batch // n_shards) // n_micro
+        return {k: x[: n_micro * mb].reshape((n_micro, mb) + tuple(x.shape[1:]))
+                for k, x in b.items()}
 
 
 def family_batch(cfg, batch: int, seq: int, generator: torch.Generator, *,

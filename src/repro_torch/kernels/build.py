@@ -47,14 +47,17 @@ SIGNATURES = {
         "alias_draw_f32": [_P, _P, _P, _P, _P, _I, _L, _P],
     },
     "flash_attention": {
-        "flash_attention_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LP, _P],
-        "flash_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LP, _P],
+        "flash_attention_f32": [_P] * 5 + [_I] * 6 + [_LP, _P],
+        "flash_attention_bf16": [_P] * 5 + [_I] * 6 + [_LP, _P],
+        "flash_attention_bwd_f32": [_P] * 10 + [_I] * 6 + [_LP, _P],
+        "flash_attention_bwd_bf16": [_P] * 10 + [_I] * 6 + [_LP, _P],
     },
     "rglru_scan": {
         "rglru_scan_f32": [_P, _P, _P, _I, _I, _I, _P],
     },
     "ssm_scan": {
         "ssm_scan_f32": [_P, _P, _P, _I, _I, _I, _P],
+        "scan_bwd_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     },
 }
 

@@ -202,8 +202,9 @@ __device__ __forceinline__ void load_rows(float* tile, const float* src,
 template <int HD, int kVec>
 __global__ void __launch_bounds__(kThreads, Cfg<HD>::kMinBlocks)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, int S,
-                 int hd, int group, int window, float scale_log2, Strides st) {
+                 const float* __restrict__ v, float* __restrict__ o,
+                 float* __restrict__ lse, int S, int hd, int group, int window,
+                 float scale_log2, Strides st) {
   using C = Cfg<HD>;
   constexpr int LD = C::LD, LDP = C::LDP, R = C::R, CV = C::CV, CG = C::CG;
   extern __shared__ __align__(16) float smem[];
@@ -376,6 +377,10 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int off = 1; off < 16; off <<= 1) l[i] += __shfl_xor_sync(kFull, l[i], off);
     if (tc == 0) l_s[4 * tr + i] = l[i];
+    const int r = q0 + 4 * tr + i;
+    if (lse != nullptr && tc == 0 && r < S)  // natural log: (m + log2 l)·ln 2
+      lse[(static_cast<long long>(bi) * gridDim.y + h) * S + r] =
+          (m[i] + log2f(l[i])) * 0.6931471805599453f;
   }
   __syncwarp();
 #pragma unroll
@@ -492,8 +497,9 @@ __device__ __forceinline__ void load_tile(bf16* tile, const bf16* src,
 template <int HD, int kBytes>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, bf16* __restrict__ o, int S,
-                  int hd, int group, int window, float scale_log2, Strides st) {
+                  const bf16* __restrict__ v, bf16* __restrict__ o,
+                  float* __restrict__ lse, int S, int hd, int group,
+                  int window, float scale_log2, Strides st) {
   constexpr int BK = Cfg<HD>::BK, LD = Cfg<HD>::LD;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [kBQ][LD]
@@ -639,6 +645,11 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   l1 += __shfl_xor_sync(kFull, l1, 1);
   l1 += __shfl_xor_sync(kFull, l1, 2);
   const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+  if (lse != nullptr && tq == 0) {  // natural log: (m + log2 l)·ln 2, from the f32 l
+    float* lrow = lse + (static_cast<long long>(bi) * gridDim.y + h) * S;
+    if (r0 < S) lrow[r0] = (m0 + log2f(l0)) * 0.6931471805599453f;
+    if (r1 < S) lrow[r1] = (m1 + log2f(l1)) * 0.6931471805599453f;
+  }
 #pragma unroll
   for (int i = 0; i < HD / 8; ++i) {
     const int col = i * 8 + 2 * tq;  // even, and hd is even: col < hd covers col + 1
@@ -659,8 +670,8 @@ float scale_log2(int hd) { return 1.4426950408889634f / sqrtf(static_cast<float>
 
 template <int HD, int kVec>
 int launch_f32_body(const void* q, const void* k, const void* v, void* o,
-                    int B, int H, int KV, int S, int hd, int window,
-                    const Strides& st, cudaStream_t stream) {
+                    float* lse, int B, int H, int KV, int S, int hd,
+                    int window, const Strides& st, cudaStream_t stream) {
   constexpr int bytes = fp::Cfg<HD>::kSmemBytes;
   auto kernel = fp::flash_f32_kernel<HD, kVec>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -669,8 +680,8 @@ int launch_f32_body(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
   kernel<<<grid, fp::kThreads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), S, hd, H / KV,
-      window, scale_log2(hd), st);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, S, hd,
+      H / KV, window, scale_log2(hd), st);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -697,18 +708,18 @@ int copy_bytes(const void* q, const void* k, const void* v, const void* o,
 // pointer 16-byte aligned, hd and every stride a multiple of 4 floats);
 // 4-byte ones otherwise (a choice by the views' layout, not a fallback).
 template <int HD>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
-               int H, int KV, int S, int hd, int window, const Strides& st,
-               cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               float* lse, int B, int H, int KV, int S, int hd, int window,
+               const Strides& st, cudaStream_t stream) {
   return copy_bytes(q, k, v, o, st, hd, 4, 16) == 16
-             ? launch_f32_body<HD, 4>(q, k, v, o, B, H, KV, S, hd, window, st, stream)
-             : launch_f32_body<HD, 1>(q, k, v, o, B, H, KV, S, hd, window, st, stream);
+             ? launch_f32_body<HD, 4>(q, k, v, o, lse, B, H, KV, S, hd, window, st, stream)
+             : launch_f32_body<HD, 1>(q, k, v, o, lse, B, H, KV, S, hd, window, st, stream);
 }
 
 template <int HD, int kBytes>
 int launch_bf16_body(const void* q, const void* k, const void* v, void* o,
-                     int B, int H, int KV, int S, int hd, int window,
-                     const Strides& st, cudaStream_t stream) {
+                     float* lse, int B, int H, int KV, int S, int hd,
+                     int window, const Strides& st, cudaStream_t stream) {
   constexpr int bytes = tc::Cfg<HD>::kSmemBytes;
   auto kernel = tc::flash_bf16_kernel<HD, kBytes>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -717,8 +728,8 @@ int launch_bf16_body(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
   kernel<<<grid, tc::kThreads, bytes, stream>>>(
       static_cast<const tc::bf16*>(q), static_cast<const tc::bf16*>(k),
-      static_cast<const tc::bf16*>(v), static_cast<tc::bf16*>(o), S, hd,
-      H / KV, window, scale_log2(hd), st);
+      static_cast<const tc::bf16*>(v), static_cast<tc::bf16*>(o), lse, S,
+      hd, H / KV, window, scale_log2(hd), st);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -726,30 +737,30 @@ int launch_bf16_body(const void* q, const void* k, const void* v, void* o,
 // (a choice by layout, not a fallback); the wrapper refuses a layout that
 // allows none (an odd hd or stride, or a pointer not 4-byte aligned).
 template <int HD>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
-                int H, int KV, int S, int hd, int window, const Strides& st,
-                cudaStream_t stream) {
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                float* lse, int B, int H, int KV, int S, int hd, int window,
+                const Strides& st, cudaStream_t stream) {
   switch (copy_bytes(q, k, v, o, st, hd, 2, 16)) {
-    case 16: return launch_bf16_body<HD, 16>(q, k, v, o, B, H, KV, S, hd, window, st, stream);
-    case 8: return launch_bf16_body<HD, 8>(q, k, v, o, B, H, KV, S, hd, window, st, stream);
-    case 4: return launch_bf16_body<HD, 4>(q, k, v, o, B, H, KV, S, hd, window, st, stream);
+    case 16: return launch_bf16_body<HD, 16>(q, k, v, o, lse, B, H, KV, S, hd, window, st, stream);
+    case 8: return launch_bf16_body<HD, 8>(q, k, v, o, lse, B, H, KV, S, hd, window, st, stream);
+    case 4: return launch_bf16_body<HD, 4>(q, k, v, o, lse, B, H, KV, S, hd, window, st, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 template <bool kBf16, int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
-           int KV, int S, int hd, int window, const Strides& st,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int H, int KV, int S, int hd, int window, const Strides& st,
            cudaStream_t stream) {
   if constexpr (kBf16)
-    return launch_bf16<HD>(q, k, v, o, B, H, KV, S, hd, window, st, stream);
+    return launch_bf16<HD>(q, k, v, o, lse, B, H, KV, S, hd, window, st, stream);
   else
-    return launch_f32<HD>(q, k, v, o, B, H, KV, S, hd, window, st, stream);
+    return launch_f32<HD>(q, k, v, o, lse, B, H, KV, S, hd, window, st, stream);
 }
 
 template <bool kBf16>
-int dispatch(const void* q, const void* k, const void* v, void* o, int B,
-             int H, int KV, int S, int hd, int window,
+int dispatch(const void* q, const void* k, const void* v, void* o, void* lse_,
+             int B, int H, int KV, int S, int hd, int window,
              const long long* strides, void* stream) {
   if (B <= 0 || H <= 0 || S <= 0) return static_cast<int>(cudaSuccess);
   Strides st;
@@ -760,32 +771,480 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B,
     st.o[i] = strides[9 + i];
   }
   const auto s = static_cast<cudaStream_t>(stream);
+  auto* lse = static_cast<float*>(lse_);
   // the body instantiated for the smallest padded head dim HD ≥ hd
   if (hd < 1 || hd > 256) return static_cast<int>(cudaErrorInvalidValue);
-  if (hd <= 16) return launch<kBf16, 16>(q, k, v, o, B, H, KV, S, hd, window, st, s);
-  if (hd <= 32) return launch<kBf16, 32>(q, k, v, o, B, H, KV, S, hd, window, st, s);
-  if (hd <= 64) return launch<kBf16, 64>(q, k, v, o, B, H, KV, S, hd, window, st, s);
-  if (hd <= 128) return launch<kBf16, 128>(q, k, v, o, B, H, KV, S, hd, window, st, s);
-  return launch<kBf16, 256>(q, k, v, o, B, H, KV, S, hd, window, st, s);
+  if (hd <= 16) return launch<kBf16, 16>(q, k, v, o, lse, B, H, KV, S, hd, window, st, s);
+  if (hd <= 32) return launch<kBf16, 32>(q, k, v, o, lse, B, H, KV, S, hd, window, st, s);
+  if (hd <= 64) return launch<kBf16, 64>(q, k, v, o, lse, B, H, KV, S, hd, window, st, s);
+  if (hd <= 128) return launch<kBf16, 128>(q, k, v, o, lse, B, H, KV, S, hd, window, st, s);
+  return launch<kBf16, 256>(q, k, v, o, lse, B, H, KV, S, hd, window, st, s);
 }
+
+// ---------------------------------------------------------------- backward
+//
+// flash_attention_bwd: the gradients of the forward above given dO, from
+// q, k, v, the forward's output o and its row logsumexp lse (natural log,
+// (B, H, S) f32).  The reference has no Pallas backward: XLA differentiates
+// its attention (repro/models/attention.py attn_full / attn_chunked).  In
+// f32, FlashAttention-2's recurrences:
+//   D = rowsum(dO ∘ O),  P = exp(S·scale − lse) (0 where masked),
+//   dP = dO·Vᵀ,  dS = P ∘ (dP − D),
+//   dV = Pᵀ·dO,  dK = dSᵀ·Q·scale,  dQ = dS·K·scale,
+// with the forward's masks exactly (key k admissible for query q when
+// k ≤ q and, with a window, k > q − window) and 1/√hd of the true hd.
+//
+// Three launches, no atomics (deterministic, as bfs_frontier avoids them):
+//   1. D, one warp a (b, head, row): the dot of dO and O over hd, in f32;
+//   2. dK and dV, one block a (b, kv head, key tile of T keys): it walks the
+//      group's G query heads and, for each, the query tiles that can see the
+//      key tile (rows [k0, k_last + window) with a window, [k0, S) without),
+//      and sums into f32 registers, so each GQA group's sum is one block's;
+//   3. dQ, one block a (b, head, query tile): it walks the key tiles the
+//      forward walks for that tile.
+// Both tile passes rebuild P and dS for each (query tile, key tile) pair
+// (S and dP twice, 7 products of hd against the 5 the gradients need).
+//
+// A simple first kernel, on the CUDA cores in f32 for both dtypes: each
+// tile (T rows × hd; T = 64, 32 at hd 256) is converted to f32 into padded
+// shared rows (HD + 4 floats), the T×T score tiles are an SGEMM micro-kernel
+// (4×4 or 2×2 a thread from float4s along hd), and the T×hd products R rows
+// × 4·CV columns a thread, as the forward's f32 body.  In the bf16 body the
+// tiles are the bf16 inputs exactly, and P and dS are rounded to bf16 only
+// as the operands of the three products that take them (the roundings a
+// tensor-core body will make, as the forward rounds P); D, lse, P and dS are
+// f32 elsewhere, and dq, dk, dv are rounded once at the store.  Tensor cores
+// (mma.sync / wgmma) are the redesign (ROADMAP).
+//
+// Bound on the H100: operations, 5 products × 2 × hd × admissible pairs × B
+// × H, at the bf16 tensor-core rate (989 TFLOP/s) in bf16 and the f32 core
+// rate (67 TFLOP/s) in f32: 3.22e11 and 0.326 ms at h2o-danube-3-4b's train
+// shape (1, 32, 4096, 120), kv 8, window 4096.  This body runs 7 products on
+// the CUDA cores, so it stays far above that bound in bf16 (PERF.md has its
+// time).
+
+namespace bw {
+
+constexpr int kThreads = 256;
+
+template <int HD>
+struct Cfg {
+  static constexpr int T = HD == 256 ? 32 : 64;   // rows of a query or key tile
+  static constexpr int LD = HD + 4;               // padded f32 row of a tile
+  static constexpr int LDT = T + 4;               // padded row of P / dS
+  static constexpr int SR = T / 16;               // score tile: SR × SR a thread
+  static constexpr int CG = HD / 4 < 32 ? HD / 4 : 32;  // float4 column groups
+  static constexpr int CV = HD / (4 * CG);        // float4s a thread a row
+  static constexpr int R = T * CG / kThreads;     // rows a thread
+  // Q, dO, K, V tiles; two T×T tiles (P and dS); lse and D of T rows
+  static constexpr int kSmemBytes = (4 * T * LD + 2 * T * LDT + 2 * T) * 4;
+  static_assert(R * (kThreads / CG) == T, "rows of the product tiles");
+};
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+template <typename E> __device__ __forceinline__ E from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+// P and dS as the products' operands: bf16 in the bf16 body
+template <typename E>
+__device__ __forceinline__ float operand(float x) { return to_f32(from_f32<E>(x)); }
+
+// T rows of hd elements from rows row0… of a strided tensor into a padded f32
+// tile of HD columns; rows at or past S and columns at or past hd are 0.
+template <int HD, typename E>
+__device__ __forceinline__ void load_tile(float* tile, const E* src,
+                                          long long stride, int row0, int S,
+                                          int hd) {
+  constexpr int T = Cfg<HD>::T, LD = Cfg<HD>::LD;
+  for (int i = threadIdx.x; i < T * HD; i += kThreads) {
+    const int r = i / HD, c = i % HD;
+    const int pos = row0 + r;
+    tile[r * LD + c] = pos < S && c < hd ? to_f32(src[pos * stride + c]) : 0.0f;
+  }
+}
+
+// s[i][j] = A[SR·tr + i] · B[tc + 16·j] over HD: the T×T tile of A·Bᵀ
+template <int HD>
+__device__ __forceinline__ void tile_abt(float (&s)[Cfg<HD>::SR][Cfg<HD>::SR],
+                                         const float* A, const float* B,
+                                         int tr, int tc) {
+  constexpr int SR = Cfg<HD>::SR, LD = Cfg<HD>::LD;
+#pragma unroll
+  for (int i = 0; i < SR; ++i)
+#pragma unroll
+    for (int j = 0; j < SR; ++j) s[i][j] = 0.0f;
+  const float* ar = A + SR * tr * LD;
+  const float* br = B + tc * LD;
+#pragma unroll 4
+  for (int d = 0; d < HD; d += 4) {
+    float4 a[SR], b[SR];
+#pragma unroll
+    for (int i = 0; i < SR; ++i) a[i] = *reinterpret_cast<const float4*>(ar + i * LD + d);
+#pragma unroll
+    for (int j = 0; j < SR; ++j) b[j] = *reinterpret_cast<const float4*>(br + 16 * j * LD + d);
+#pragma unroll
+    for (int i = 0; i < SR; ++i)
+#pragma unroll
+      for (int j = 0; j < SR; ++j) {
+        s[i][j] = fmaf(a[i].x, b[j].x, s[i][j]);
+        s[i][j] = fmaf(a[i].y, b[j].y, s[i][j]);
+        s[i][j] = fmaf(a[i].z, b[j].z, s[i][j]);
+        s[i][j] = fmaf(a[i].w, b[j].w, s[i][j]);
+      }
+  }
+}
+
+// P and dS of one (query tile q0, key tile k0) pair, rounded as operands,
+// into Ps and dSs: [key][query] with kTrans (the dK/dV pass), else
+// [query][key].  Qs, dOs, Ks, Vs hold the tiles; lse2_s (log2 domain) and
+// D_s the query rows'.
+template <int HD, typename E, bool kTrans>
+__device__ __forceinline__ void scores(float* Ps, float* dSs, const float* Qs,
+                                       const float* dOs, const float* Ks,
+                                       const float* Vs, const float* lse2_s,
+                                       const float* D_s, int q0, int k0, int S,
+                                       int window, float scale_log2) {
+  using C = Cfg<HD>;
+  constexpr int SR = C::SR, LDT = C::LDT;
+  const int tr = threadIdx.x / 16, tc = threadIdx.x % 16;
+  float s[SR][SR], dp[SR][SR];
+  tile_abt<HD>(s, Qs, Ks, tr, tc);
+  tile_abt<HD>(dp, dOs, Vs, tr, tc);
+#pragma unroll
+  for (int i = 0; i < SR; ++i) {
+    const int qr = SR * tr + i, qp = q0 + qr;
+#pragma unroll
+    for (int j = 0; j < SR; ++j) {
+      const int kc = tc + 16 * j, kp = k0 + kc;
+      const bool ok = kp <= qp && qp < S && (window <= 0 || kp > qp - window);
+      const float p = ok ? exp2f(s[i][j] * scale_log2 - lse2_s[qr]) : 0.0f;
+      const float ds = p * (dp[i][j] - D_s[qr]);
+      const int at = kTrans ? kc * LDT + qr : qr * LDT + kc;
+      Ps[at] = operand<E>(p);
+      dSs[at] = operand<E>(ds);
+    }
+  }
+}
+
+// acc[i][c] += Σ_j A[rg·R + i][j] · B[j][4·cg + 4·CG·c …] over j < T: the
+// T×HD tile of A·B, A a T×T tile (LDT), B a T×HD tile (LD)
+template <int HD>
+__device__ __forceinline__ void tile_ab(float (&acc)[Cfg<HD>::R][Cfg<HD>::CV][4],
+                                        const float* A, const float* B, int rg,
+                                        int cg) {
+  using C = Cfg<HD>;
+  constexpr int T = C::T, R = C::R, CV = C::CV, CG = C::CG, LD = C::LD, LDT = C::LDT;
+  const float* ar = A + rg * R * LDT;
+  const float* bc = B + 4 * cg;
+#pragma unroll 2
+  for (int j = 0; j < T; j += 4) {
+    float4 a4[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) a4[i] = *reinterpret_cast<const float4*>(ar + i * LDT + j);
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      float4 b4[CV];
+#pragma unroll
+      for (int c = 0; c < CV; ++c)
+        b4[c] = *reinterpret_cast<const float4*>(bc + (j + jj) * LD + 4 * CG * c);
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const float a = jj == 0 ? a4[i].x : jj == 1 ? a4[i].y : jj == 2 ? a4[i].z : a4[i].w;
+#pragma unroll
+        for (int c = 0; c < CV; ++c) {
+          acc[i][c][0] = fmaf(a, b4[c].x, acc[i][c][0]);
+          acc[i][c][1] = fmaf(a, b4[c].y, acc[i][c][1]);
+          acc[i][c][2] = fmaf(a, b4[c].z, acc[i][c][2]);
+          acc[i][c][3] = fmaf(a, b4[c].w, acc[i][c][3]);
+        }
+      }
+    }
+  }
+}
+
+// rows row0 + rg·R + i (< S) of acc · mul into a strided tensor, hd columns
+template <int HD, typename E>
+__device__ __forceinline__ void store_rows(E* dst, long long stride,
+                                           const float (&acc)[Cfg<HD>::R][Cfg<HD>::CV][4],
+                                           float mul, int row0, int S, int hd,
+                                           int rg, int cg) {
+  using C = Cfg<HD>;
+#pragma unroll
+  for (int i = 0; i < C::R; ++i) {
+    const int row = row0 + rg * C::R + i;
+    if (row >= S) continue;
+#pragma unroll
+    for (int c = 0; c < C::CV; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 4 * cg + 4 * C::CG * c + e;
+        if (col < hd) dst[row * stride + col] = from_f32<E>(acc[i][c][e] * mul);
+      }
+  }
+}
+
+struct BwdStrides {                // (b, head, position) strides in elements
+  long long q[3], k[3], v[3], o[3], dO[3], dq[3], dk[3], dv[3];
+};
+
+// D[b, h, s] = Σ_c dO·O, one warp a row (rows = B·H·S, in (b, h, s) order)
+template <typename E>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dot_kernel(const E* __restrict__ o, const E* __restrict__ dO,
+                     float* __restrict__ D, int H, int S, int hd, long long rows,
+                     BwdStrides st) {
+  const long long row = static_cast<long long>(blockIdx.x) * (kThreads / 32) +
+                        threadIdx.x / 32;
+  if (row >= rows) return;
+  const int lane = threadIdx.x % 32;
+  const int s = static_cast<int>(row % S);
+  const long long bh = row / S;
+  const int h = static_cast<int>(bh % H), b = static_cast<int>(bh / H);
+  const E* orow = o + b * st.o[0] + h * st.o[1] + s * st.o[2];
+  const E* drow = dO + b * st.dO[0] + h * st.dO[1] + s * st.dO[2];
+  float acc = 0.0f;
+  for (int c = lane; c < hd; c += 32) acc = fmaf(to_f32(drow[c]), to_f32(orow[c]), acc);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(kFull, acc, off);
+  if (lane == 0) D[row] = acc;
+}
+
+// dK, dV of one (b, kv head, key tile), summed over the group's query heads
+template <int HD, typename E>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkdv_kernel(const E* __restrict__ q, const E* __restrict__ k,
+                      const E* __restrict__ v, const E* __restrict__ dO,
+                      const float* __restrict__ lse, const float* __restrict__ D,
+                      E* __restrict__ dk, E* __restrict__ dv, int H, int S,
+                      int hd, int group, int window, float scale_log2,
+                      float scale, BwdStrides st) {
+  using C = Cfg<HD>;
+  constexpr int T = C::T, LD = C::LD, LDT = C::LDT, R = C::R, CV = C::CV, CG = C::CG;
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;                 // [T][LD]
+  float* dOs = Qs + T * LD;         // [T][LD]
+  float* Ks = dOs + T * LD;         // [T][LD]
+  float* Vs = Ks + T * LD;          // [T][LD]
+  float* PT = Vs + T * LD;          // [T keys][LDT]
+  float* dST = PT + T * LDT;        // [T keys][LDT]
+  float* lse2_s = dST + T * LDT;    // [T]
+  float* D_s = lse2_s + T;          // [T]
+
+  const int k0 = blockIdx.x * T;    // the first key tiles see the most rows
+  const int hk = blockIdx.y, bi = blockIdx.z;
+  const int k_last = min(k0 + T, S) - 1;
+  const int qt_lo = k0 / T;
+  const int qt_hi = (window > 0 ? min(S - 1, k_last + window - 1) : S - 1) / T;
+  const int rg = threadIdx.x / CG, cg = threadIdx.x % CG;
+
+  load_tile<HD>(Ks, k + bi * st.k[0] + hk * st.k[1], st.k[2], k0, S, hd);
+  load_tile<HD>(Vs, v + bi * st.v[0] + hk * st.v[1], st.v[2], k0, S, hd);
+
+  float acc_k[R][CV][4], acc_v[R][CV][4];
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int c = 0; c < CV; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc_k[i][c][e] = acc_v[i][c][e] = 0.0f;
+
+  for (int g = 0; g < group; ++g) {
+    const int h = hk * group + g;
+    const E* qb = q + bi * st.q[0] + h * st.q[1];
+    const E* db = dO + bi * st.dO[0] + h * st.dO[1];
+    const long long lrow = (static_cast<long long>(bi) * H + h) * S;
+    for (int qt = qt_lo; qt <= qt_hi; ++qt) {
+      const int q0 = qt * T;
+      __syncthreads();  // every thread is done with the last pair's tiles
+      load_tile<HD>(Qs, qb, st.q[2], q0, S, hd);
+      load_tile<HD>(dOs, db, st.dO[2], q0, S, hd);
+      for (int r = threadIdx.x; r < T; r += kThreads) {
+        const bool in = q0 + r < S;
+        lse2_s[r] = in ? lse[lrow + q0 + r] * 1.4426950408889634f : 0.0f;
+        D_s[r] = in ? D[lrow + q0 + r] : 0.0f;
+      }
+      __syncthreads();
+      scores<HD, E, true>(PT, dST, Qs, dOs, Ks, Vs, lse2_s, D_s, q0, k0, S,
+                          window, scale_log2);
+      __syncthreads();
+      tile_ab<HD>(acc_v, PT, dOs, rg, cg);   // dV += Pᵀ·dO
+      tile_ab<HD>(acc_k, dST, Qs, rg, cg);   // dK += dSᵀ·Q
+    }
+  }
+  store_rows<HD>(dk + bi * st.dk[0] + hk * st.dk[1], st.dk[2], acc_k, scale, k0,
+                 S, hd, rg, cg);
+  store_rows<HD>(dv + bi * st.dv[0] + hk * st.dv[1], st.dv[2], acc_v, 1.0f, k0,
+                 S, hd, rg, cg);
+}
+
+// dQ of one (b, head, query tile)
+template <int HD, typename E>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_kernel(const E* __restrict__ q, const E* __restrict__ k,
+                    const E* __restrict__ v, const E* __restrict__ dO,
+                    const float* __restrict__ lse, const float* __restrict__ D,
+                    E* __restrict__ dq, int H, int S, int hd, int group,
+                    int window, float scale_log2, float scale, BwdStrides st) {
+  using C = Cfg<HD>;
+  constexpr int T = C::T, LD = C::LD, LDT = C::LDT, R = C::R, CV = C::CV, CG = C::CG;
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;                 // [T][LD]
+  float* dOs = Qs + T * LD;         // [T][LD]
+  float* Ks = dOs + T * LD;         // [T][LD]
+  float* Vs = Ks + T * LD;          // [T][LD]
+  float* Ps = Vs + T * LD;          // [T queries][LDT] (unused by dQ)
+  float* dSs = Ps + T * LDT;        // [T queries][LDT]
+  float* lse2_s = dSs + T * LDT;    // [T]
+  float* D_s = lse2_s + T;          // [T]
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * T;  // longest rows first
+  const int h = blockIdx.y, bi = blockIdx.z, hk = h / group;
+  const int q_last = min(q0 + T, S) - 1;
+  const int kt_lo = window > 0 ? max(0, q0 - window + 1) / T : 0;
+  const int kt_hi = q_last / T;
+  const int rg = threadIdx.x / CG, cg = threadIdx.x % CG;
+  const long long lrow = (static_cast<long long>(bi) * H + h) * S;
+
+  load_tile<HD>(Qs, q + bi * st.q[0] + h * st.q[1], st.q[2], q0, S, hd);
+  load_tile<HD>(dOs, dO + bi * st.dO[0] + h * st.dO[1], st.dO[2], q0, S, hd);
+  for (int r = threadIdx.x; r < T; r += kThreads) {
+    const bool in = q0 + r < S;
+    lse2_s[r] = in ? lse[lrow + q0 + r] * 1.4426950408889634f : 0.0f;
+    D_s[r] = in ? D[lrow + q0 + r] : 0.0f;
+  }
+  const E* kb = k + bi * st.k[0] + hk * st.k[1];
+  const E* vb = v + bi * st.v[0] + hk * st.v[1];
+
+  float acc[R][CV][4];
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int c = 0; c < CV; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][c][e] = 0.0f;
+
+  for (int kt = kt_lo; kt <= kt_hi; ++kt) {
+    const int k0 = kt * T;
+    __syncthreads();  // every thread is done with the last key tile
+    load_tile<HD>(Ks, kb, st.k[2], k0, S, hd);
+    load_tile<HD>(Vs, vb, st.v[2], k0, S, hd);
+    __syncthreads();
+    scores<HD, E, false>(Ps, dSs, Qs, dOs, Ks, Vs, lse2_s, D_s, q0, k0, S,
+                         window, scale_log2);
+    __syncthreads();
+    tile_ab<HD>(acc, dSs, Ks, rg, cg);       // dQ += dS·K
+  }
+  store_rows<HD>(dq + bi * st.dq[0] + h * st.dq[1], st.dq[2], acc, scale, q0, S,
+                 hd, rg, cg);
+}
+
+template <int HD, typename E>
+int launch_bwd(const void* q, const void* k, const void* v, const void* o,
+               const void* lse, const void* dO, void* dq, void* dk, void* dv,
+               void* D, int B, int H, int KV, int S, int hd, int window,
+               const BwdStrides& st, cudaStream_t stream) {
+  constexpr int bytes = Cfg<HD>::kSmemBytes, T = Cfg<HD>::T;
+  const float sl2 = scale_log2(hd);
+  const float scale = 1.0f / sqrtf(static_cast<float>(hd));
+  const long long rows = static_cast<long long>(B) * H * S;
+  flash_bwd_dot_kernel<E><<<static_cast<unsigned>((rows + kThreads / 32 - 1) / (kThreads / 32)),
+                            kThreads, 0, stream>>>(
+      static_cast<const E*>(o), static_cast<const E*>(dO), static_cast<float*>(D),
+      H, S, hd, rows, st);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto dkdv = flash_bwd_dkdv_kernel<HD, E>;
+  err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = (S + T - 1) / T;
+  dkdv<<<dim3(tiles, KV, B), kThreads, bytes, stream>>>(
+      static_cast<const E*>(q), static_cast<const E*>(k), static_cast<const E*>(v),
+      static_cast<const E*>(dO), static_cast<const float*>(lse),
+      static_cast<const float*>(D), static_cast<E*>(dk), static_cast<E*>(dv), H, S,
+      hd, H / KV, window, sl2, scale, st);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto dqk = flash_bwd_dq_kernel<HD, E>;
+  err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dqk<<<dim3(tiles, H, B), kThreads, bytes, stream>>>(
+      static_cast<const E*>(q), static_cast<const E*>(k), static_cast<const E*>(v),
+      static_cast<const E*>(dO), static_cast<const float*>(lse),
+      static_cast<const float*>(D), static_cast<E*>(dq), H, S, hd, H / KV, window,
+      sl2, scale, st);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename E>
+int dispatch_bwd(const void* q, const void* k, const void* v, const void* o,
+                 const void* lse, const void* dO, void* dq, void* dk, void* dv,
+                 void* D, int B, int H, int KV, int S, int hd, int window,
+                 const long long* strides, void* stream) {
+  if (B <= 0 || H <= 0 || S <= 0) return static_cast<int>(cudaSuccess);
+  BwdStrides st;
+  for (int i = 0; i < 3; ++i) {
+    st.q[i] = strides[i];
+    st.k[i] = strides[3 + i];
+    st.v[i] = strides[6 + i];
+    st.o[i] = strides[9 + i];
+    st.dO[i] = strides[12 + i];
+    st.dq[i] = strides[15 + i];
+    st.dk[i] = strides[18 + i];
+    st.dv[i] = strides[21 + i];
+  }
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (hd < 1 || hd > 256) return static_cast<int>(cudaErrorInvalidValue);
+  if (hd <= 16) return launch_bwd<16, E>(q, k, v, o, lse, dO, dq, dk, dv, D, B, H, KV, S, hd, window, st, s);
+  if (hd <= 32) return launch_bwd<32, E>(q, k, v, o, lse, dO, dq, dk, dv, D, B, H, KV, S, hd, window, st, s);
+  if (hd <= 64) return launch_bwd<64, E>(q, k, v, o, lse, dO, dq, dk, dv, D, B, H, KV, S, hd, window, st, s);
+  if (hd <= 128) return launch_bwd<128, E>(q, k, v, o, lse, dO, dq, dk, dv, D, B, H, KV, S, hd, window, st, s);
+  return launch_bwd<256, E>(q, k, v, o, lse, dO, dq, dk, dv, D, B, H, KV, S, hd, window, st, s);
+}
+
+}  // namespace bw
 
 }  // namespace
 
 extern "C" {
 
 // strides: 12 values, (b, head, position) of q, k, v and o, in elements.
+// lse: null, or (B, H, S) contiguous f32 that gets each row's logsumexp.
 int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
-                        int B, int H, int KV, int S, int hd, int window,
-                        const long long* strides, void* stream) {
-  return dispatch<false>(q, k, v, o, B, H, KV, S, hd, window, strides, stream);
+                        void* lse, int B, int H, int KV, int S, int hd,
+                        int window, const long long* strides, void* stream) {
+  return dispatch<false>(q, k, v, o, lse, B, H, KV, S, hd, window, strides, stream);
 }
 
 // bf16 needs hd and every stride even and every base pointer 4-byte aligned
 // (cp.async copies 4 bytes at the least); the wrapper checks this.
 int flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
-                         int B, int H, int KV, int S, int hd, int window,
-                         const long long* strides, void* stream) {
-  return dispatch<true>(q, k, v, o, B, H, KV, S, hd, window, strides, stream);
+                         void* lse, int B, int H, int KV, int S, int hd,
+                         int window, const long long* strides, void* stream) {
+  return dispatch<true>(q, k, v, o, lse, B, H, KV, S, hd, window, strides, stream);
+}
+
+// The backward: q, k, v, o, lse (B, H, S) f32 and dO in; dq, dk, dv out;
+// D (B, H, S) f32 scratch.  strides: 24 values, (b, head, position) of q,
+// k, v, o, dO, dq, dk and dv, in elements; every head dimension contiguous.
+int flash_attention_bwd_f32(const void* q, const void* k, const void* v,
+                            const void* o, const void* lse, const void* dO,
+                            void* dq, void* dk, void* dv, void* D, int B, int H,
+                            int KV, int S, int hd, int window,
+                            const long long* strides, void* stream) {
+  return bw::dispatch_bwd<float>(q, k, v, o, lse, dO, dq, dk, dv, D, B, H, KV,
+                                 S, hd, window, strides, stream);
+}
+
+int flash_attention_bwd_bf16(const void* q, const void* k, const void* v,
+                             const void* o, const void* lse, const void* dO,
+                             void* dq, void* dk, void* dv, void* D, int B,
+                             int H, int KV, int S, int hd, int window,
+                             const long long* strides, void* stream) {
+  return bw::dispatch_bwd<__nv_bfloat16>(q, k, v, o, lse, dO, dq, dk, dv, D, B,
+                                         H, KV, S, hd, window, strides, stream);
 }
 
 }  // extern "C"

@@ -27,8 +27,31 @@
 // the prefill path is writing a and b to device memory before the scan; a
 // scan fused with the discretisation that builds them is a later PR's work.
 //
-// Plain C entry point; returns the launch's cudaError_t, and the Python
-// wrapper (repro_torch/kernels/ssm_scan.py) raises if it is not 0.
+// scan_bwd: the gradients of either scan's recurrence (this one and
+// rglru_scan's, over their lanes flattened: (B, S, D*N) or (B, S, W)) given
+// g = dL/dh, walking S from the end (the reference differentiates its
+// associative scan in XLA with a custom VJP, repro/models/ssm.py _ls_bwd;
+// it has no Pallas backward):
+//   gamma_t = a_{t+1} * gamma_{t+1} + g_t  (one FMA; gamma_{S-1} = g_{S-1})
+//   db_t = gamma_t,  da_t = gamma_t * h_{t-1}  (h_{-1} = 0, one rounding).
+// The same lane layout as the forward above: one thread a lane,
+// consecutive threads on consecutive addresses, the loads of a chunk of
+// kChunk steps (a_t, g_t, h_{t-1}) issued before its chain of FMAs.  The
+// entry point picks the block and the chunk from the lane count: where the
+// B * lanes threads fill every SM with blocks of 256 (falcon-mamba's
+// B * 131,072), 256 threads and chunks of 16; where they do not
+// (recurrentgemma's B * 2,560), blocks of 64, so that the lanes spread
+// over more SMs, and chunks of 32, so that each lane has more loads in
+// flight.  Bit-exact with the plain version (repro_torch/kernels/ref.py
+// scan_bwd_ref).  Bound on the H100: bytes, 5 * 4 per element (read a, h,
+// g; write da, db): 5.37 GB and 1.60 ms at (1, 2048, 8192, 16), 210 MB and
+// 0.063 ms at (1, 4096, 2560).  At the latter, B * W lanes with 3 * 32
+// loads in flight each hold fewer bytes in flight than the memory's
+// latency asks for (as rglru_scan's first forward did); that forward's
+// cp.async ring is the redesign.
+//
+// Plain C entry points; each returns the launch's cudaError_t, and the
+// Python wrapper (repro_torch/kernels/ssm_scan.py) raises if it is not 0.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -70,6 +93,50 @@ __global__ void ssm_scan_kernel(const float* __restrict__ a,
   }
 }
 
+template <int kChunk>
+__global__ void scan_bwd_kernel(const float* __restrict__ a,
+                                const float* __restrict__ h,
+                                const float* __restrict__ g,
+                                float* __restrict__ da,
+                                float* __restrict__ db, int S, int lanes) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= lanes) return;
+  const int64_t step = lanes;
+  const int64_t base = static_cast<int64_t>(blockIdx.y) * S * step + lane;
+  const float* ap = a + base;
+  const float* hp = h + base;
+  const float* gp = g + base;
+  float* dap = da + base;
+  float* dbp = db + base;
+  float gamma = 0.0f, a_next = 0.0f;
+  int t = S;  // steps t .. S-1 are done
+  for (; t - kChunk >= 0; t -= kChunk) {
+    float av[kChunk], gv[kChunk], hv[kChunk];
+#pragma unroll
+    for (int u = 0; u < kChunk; ++u) {
+      const int64_t off = (t - 1 - u) * step;
+      av[u] = __ldg(ap + off);
+      gv[u] = __ldg(gp + off);
+      hv[u] = t - 2 - u >= 0 ? __ldg(hp + off - step) : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < kChunk; ++u) {
+      const int64_t off = (t - 1 - u) * step;
+      gamma = __fmaf_rn(a_next, gamma, gv[u]);
+      dbp[off] = gamma;
+      dap[off] = __fmul_rn(gamma, hv[u]);
+      a_next = av[u];
+    }
+  }
+  for (--t; t >= 0; --t) {
+    const int64_t off = t * step;
+    gamma = __fmaf_rn(a_next, gamma, __ldg(gp + off));
+    dbp[off] = gamma;
+    dap[off] = __fmul_rn(gamma, t > 0 ? __ldg(hp + off - step) : 0.0f);
+    a_next = __ldg(ap + off);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -81,6 +148,30 @@ int ssm_scan_f32(const void* a, const void* b, void* h, int B, int S, int DN,
   ssm_scan_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(a), static_cast<const float*>(b),
       static_cast<float*>(h), S, DN);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int scan_bwd_f32(const void* a, const void* h, const void* g, void* da,
+                 void* db, int B, int S, int lanes, void* stream) {
+  if (B <= 0 || S <= 0 || lanes <= 0) return static_cast<int>(cudaSuccess);
+  int device = 0, sms = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* ap = static_cast<const float*>(a);
+  const auto* hp = static_cast<const float*>(h);
+  const auto* gp = static_cast<const float*>(g);
+  auto* dap = static_cast<float*>(da);
+  auto* dbp = static_cast<float*>(db);
+  if (static_cast<int64_t>(B) * lanes >= static_cast<int64_t>(sms) * kThreads) {
+    const dim3 grid((lanes + kThreads - 1) / kThreads, B);
+    scan_bwd_kernel<16><<<grid, kThreads, 0, st>>>(ap, hp, gp, dap, dbp, S,
+                                                   lanes);
+  } else {
+    constexpr int kFew = 64;
+    const dim3 grid((lanes + kFew - 1) / kFew, B);
+    scan_bwd_kernel<32><<<grid, kFew, 0, st>>>(ap, hp, gp, dap, dbp, S, lanes);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

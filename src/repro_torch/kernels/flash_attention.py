@@ -21,7 +21,15 @@ padded head dims ``PADDED_HEAD_DIMS`` and takes the smallest that holds hd,
 with the padding's columns zero in shared memory and not stored; the
 softmax scale is 1/√hd of the true hd.
 
-Replaces :func:`repro.kernels.flash_attention.flash_attention`.  Its plain
+The forward writes each row's logsumexp ``lse`` (B, H, S) f32 when asked
+(``return_lse``), which is what :func:`flash_attention_bwd`, the backward
+kernel (``flash_attention_bwd_{f32,bf16}``: D, then dK/dV a key tile and dQ
+a query tile, no atomics, on the CUDA cores in f32 with P and dS rounded to
+bf16 as operands in the bf16 body), rebuilds the probabilities from; it
+has a launch counter of its own, ``bwd_launches``.
+
+Replaces :func:`repro.kernels.flash_attention.flash_attention`; the
+reference has no Pallas backward (XLA differentiates its attention).  Its plain
 version is :func:`repro_torch.kernels.ref.flash_attention_ref`; :mod:`.ops`
 picks one or the other by the tensor's device.
 """
@@ -34,26 +42,21 @@ import torch
 
 from . import build
 
-# Kernel launches since the last reset (a run sets it to 0 and reads it).
+# Kernel launches since the last reset (a run sets them to 0 and reads
+# them): the forward's and the backward's.
 launches = 0
+bwd_launches = 0
 
 MAX_HEAD_DIM = 256
 PADDED_HEAD_DIMS = (16, 32, 64, 128, 256)  # the bodies' instances
 _ENTRY = {torch.float32: "flash_attention_f32",
           torch.bfloat16: "flash_attention_bf16"}
+_BWD_ENTRY = {torch.float32: "flash_attention_bwd_f32",
+              torch.bfloat16: "flash_attention_bwd_bf16"}
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    window: int = 0) -> torch.Tensor:
-    """q (B, H, S, hd), k and v (B, KV, S, hd), one dtype (f32 or bf16), on
-    one CUDA device → (B, H, S, hd) in q's dtype.  Query head h reads kv
-    head h // (H/KV).  Any strides are taken as long as the head dimension
-    is contiguous, so the model's (B, S, H, hd) projections go in as
-    ``.transpose(1, 2)`` views; the output has q's memory layout
-    (``torch.empty_like``).  1 ≤ hd ≤ 256.  In bf16, hd and every stride
-    must be even and every tensor 4-byte aligned (cp.async copies at least
-    4 bytes)."""
-    global launches
+def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  window: int) -> None:
     tensors = (q, k, v)
     if any(t.device.type != "cuda" for t in tensors) or \
             len({t.device for t in tensors}) != 1:
@@ -79,7 +82,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          "contiguous (stride 1)")
     if window < 0:
         raise ValueError(f"flash_attention window must be ≥ 0, got {window}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    window: int = 0, return_lse: bool = False):
+    """q (B, H, S, hd), k and v (B, KV, S, hd), one dtype (f32 or bf16), on
+    one CUDA device → (B, H, S, hd) in q's dtype.  Query head h reads kv
+    head h // (H/KV).  Any strides are taken as long as the head dimension
+    is contiguous, so the model's (B, S, H, hd) projections go in as
+    ``.transpose(1, 2)`` views; the output has q's memory layout
+    (``torch.empty_like``).  1 ≤ hd ≤ 256.  In bf16, hd and every stride
+    must be even and every tensor 4-byte aligned (cp.async copies at least
+    4 bytes).  With ``return_lse`` → (o, lse), lse (B, H, S) f32 the rows'
+    natural logsumexp; without it the kernel writes none."""
+    global launches
+    _check_inputs(q, k, v, window)
+    B, H, S, hd = q.shape
+    KV = k.shape[1]
     o = torch.empty_like(q)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     if q.dtype == torch.bfloat16 and (hd % 2 or any(
             t.data_ptr() % 4 or any(s % 2 for s in t.stride()[:3])
             for t in (q, k, v, o))):
@@ -92,9 +114,56 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 None if lse is None else lse.data_ptr(),
                  B, H, KV, S, hd, int(window), strides, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: "
                            f"cudaError {err}")
     launches += 1
-    return o
+    return (o, lse) if return_lse else o
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        *, window: int = 0):
+    """The backward kernel → (dq, dk, dv), each in its input's dtype and
+    memory layout (``torch.empty_like``).  q, k, v as the forward takes
+    them (the same checks); o the forward's output (q's shape and dtype,
+    head dimension contiguous); lse its (B, H, S) f32 logsumexp; do the
+    output's gradient, taken with its own strides when its head dimension
+    is contiguous and made contiguous otherwise.  No alignment is needed:
+    the tiles are loaded element by element."""
+    global bwd_launches
+    _check_inputs(q, k, v, window)
+    B, H, S, hd = q.shape
+    KV = k.shape[1]
+    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype or \
+            do.dtype != q.dtype or o.device != q.device or \
+            do.device != q.device or o.stride(-1) != 1:
+        raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)} {o.dtype} "
+                         f"and do {tuple(do.shape)} {do.dtype} must match q "
+                         f"{tuple(q.shape)} {q.dtype} on its device, o's head "
+                         f"dimension contiguous")
+    if lse.shape != (B, H, S) or lse.dtype != torch.float32 or \
+            lse.device != q.device or not lse.is_contiguous():
+        raise ValueError(f"flash_attention_bwd: lse must be a contiguous "
+                         f"(B, H, S) float32 tensor, got {tuple(lse.shape)} "
+                         f"{lse.dtype}")
+    if do.stride(-1) != 1:
+        do = do.contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    D = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 24)(*[s for t in (q, k, v, o, do, dq, dk, dv)
+                                         for s in t.stride()[:3]])
+    fn = getattr(build.load("flash_attention"), _BWD_ENTRY[q.dtype])
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), D.data_ptr(), B, H, KV, S, hd, int(window),
+                 strides, stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd kernel launch failed: "
+                           f"cudaError {err}")
+    bwd_launches += 1
+    return dq, dk, dv

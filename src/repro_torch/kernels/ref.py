@@ -75,12 +75,36 @@ def alias_draw_ref(prob: torch.Tensor, alias: torch.Tensor, u1: torch.Tensor,
                        ).to(torch.int32)
 
 
+def _admissible(q0: int, q1: int, k0: int, k1: int, window: int,
+                device) -> torch.Tensor:
+    """(q1 − q0, k1 − k0) bool: key k is admissible for query q when k ≤ q
+    and, with a window, k > q − window."""
+    qpos = torch.arange(q0, q1, device=device)[:, None]
+    kpos = torch.arange(k0, k1, device=device)[None, :]
+    mask = kpos <= qpos
+    if window > 0:
+        mask &= kpos > qpos - window
+    return mask
+
+
+def _query_blocks(B: int, H: int, S: int, window: int, block_elems: int):
+    """(q0, q1, k0) of each block of query rows: rows [q0, q1) see at most
+    the keys [k0, q1)."""
+    rows = max(1, min(S, block_elems // max(1, B * H * S)))
+    for q0 in range(0, S, rows):
+        q1 = min(S, q0 + rows)
+        yield q0, q1, max(0, q0 - window + 1) if window > 0 else 0
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                        window: int = 0,
-                        block_elems: int = 1 << 26) -> torch.Tensor:
+                        window: int = 0, block_elems: int = 1 << 26,
+                        return_lse: bool = False):
     """Causal GQA attention with materialised f32 scores: q (B, H, S, hd),
     k and v (B, KV, S, hd) → (B, H, S, hd) in q's dtype.  Key k is
     admissible for query q when k ≤ q and, with a window, k > q − window.
+    With ``return_lse`` → (out, lse), lse (B, H, S) f32 the natural
+    logsumexp of each row's scaled scores over its admissible keys (what
+    the backward rebuilds the probabilities from).
 
     Computed in blocks of query rows, each against the keys its rows can
     admit, so that a block's (B, KV, G, rows, keys) scores hold at most
@@ -91,22 +115,102 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     G = H // KV
     qg = q.reshape(B, KV, G, S, hd).float()
     kf, vf = k.float(), v.float()
-    rows = max(1, min(S, block_elems // max(1, B * H * S)))
     out = torch.empty((B, KV, G, S, hd), dtype=torch.float32, device=q.device)
-    for q0 in range(0, S, rows):
-        q1 = min(S, q0 + rows)
-        k0 = max(0, q0 - window + 1) if window > 0 else 0
+    lse = torch.empty((B, KV, G, S), dtype=torch.float32, device=q.device)
+    for q0, q1, k0 in _query_blocks(B, H, S, window, block_elems):
         s = torch.einsum("bkgqh,bksh->bkgqs", qg[:, :, :, q0:q1],
                          kf[:, :, k0:q1]) / math.sqrt(hd)
-        qpos = torch.arange(q0, q1, device=q.device)[:, None]
-        kpos = torch.arange(k0, q1, device=q.device)[None, :]
-        mask = kpos <= qpos
-        if window > 0:
-            mask &= kpos > qpos - window
-        p = torch.softmax(torch.where(mask, s, -1e30), dim=-1)
+        s = torch.where(_admissible(q0, q1, k0, q1, window, q.device), s, -1e30)
+        p = torch.softmax(s, dim=-1)
+        if return_lse:
+            lse[:, :, :, q0:q1] = torch.logsumexp(s, dim=-1)
         out[:, :, :, q0:q1] = torch.einsum("bkgqs,bksh->bkgqh", p,
                                            vf[:, :, k0:q1])
-    return out.reshape(B, H, S, hd).to(q.dtype)
+    out = out.reshape(B, H, S, hd).to(q.dtype)
+    return (out, lse.reshape(B, H, S)) if return_lse else out
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            o: torch.Tensor, lse: torch.Tensor,
+                            do: torch.Tensor, *, window: int = 0,
+                            block_elems: int = 1 << 26,
+                            magnitude: bool = False):
+    """The gradients of :func:`flash_attention_ref` → (dq, dk, dv) in the
+    dtypes of q, k and v.  o is the forward's output, lse its row
+    logsumexp (B, H, S) f32 and do the output's gradient.  In f32, with
+    D = rowsum(dO ∘ O), P = exp(S·scale − lse) (0 where masked),
+    dP = dO·Vᵀ and dS = P ∘ (dP − D):
+
+        dV = Pᵀ·dO,   dK = dSᵀ·Q·scale,   dQ = dS·K·scale,
+
+    dK and dV summed over each GQA group's query heads.  In the forward's
+    blocks of query rows.  With ``magnitude``, the same sums over the
+    terms' absolute values (|dO|, |V|, |O|, |Q|, |K| and dS = P ∘ (dP +
+    D)): the size of what each sum adds, which bounds its rounding."""
+    B, H, S, hd = q.shape
+    KV = k.shape[1]
+    G = H // KV
+    scale = 1.0 / math.sqrt(hd)
+    f = torch.abs if magnitude else (lambda t: t)
+    qg = q.reshape(B, KV, G, S, hd).float()
+    dog = f(do.reshape(B, KV, G, S, hd).float())
+    lg = lse.reshape(B, KV, G, S).float()
+    D = f(dog * o.reshape(B, KV, G, S, hd).float()).sum(-1)
+    kf, vf = k.float(), f(v.float())
+    dq = torch.empty((B, KV, G, S, hd), dtype=torch.float32, device=q.device)
+    dk = torch.zeros((B, KV, S, hd), dtype=torch.float32, device=q.device)
+    dv = torch.zeros((B, KV, S, hd), dtype=torch.float32, device=q.device)
+    for q0, q1, k0 in _query_blocks(B, H, S, window, block_elems):
+        s = torch.einsum("bkgqh,bksh->bkgqs", qg[:, :, :, q0:q1],
+                         kf[:, :, k0:q1]) * scale
+        mask = _admissible(q0, q1, k0, q1, window, q.device)
+        p = torch.where(mask, torch.exp(s - lg[:, :, :, q0:q1, None]), 0.0)
+        dp = torch.einsum("bkgqh,bksh->bkgqs", dog[:, :, :, q0:q1],
+                          vf[:, :, k0:q1])
+        ds = p * (dp + D[:, :, :, q0:q1, None] if magnitude
+                  else dp - D[:, :, :, q0:q1, None])
+        dv[:, :, k0:q1] += torch.einsum("bkgqs,bkgqh->bksh", p,
+                                        dog[:, :, :, q0:q1])
+        dk[:, :, k0:q1] += torch.einsum("bkgqs,bkgqh->bksh", ds,
+                                        f(qg[:, :, :, q0:q1])) * scale
+        dq[:, :, :, q0:q1] = torch.einsum("bkgqs,bksh->bkgqh", ds,
+                                          f(kf[:, :, k0:q1])) * scale
+    return (dq.reshape(B, H, S, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def flash_attention_bwd_check(q, k, v, o, lse, do, got, *, window: int,
+                              tol: float) -> dict:
+    """Hold a backward's ``got`` = (dq, dk, dv) to the plain backward row by
+    row: each (b, head, position) row of hd values within ``tol`` · the
+    row's max |plain| + hd · 2⁻²⁴ · the row's max of the same backward over
+    absolute values (``magnitude``).  The first term holds each row to its
+    own scale, so a row far smaller than the tensor's largest (a late
+    query's, a key's at the window's edge) is held as tightly as the
+    largest.  The second is the worst rounding of an f32 dot product of hd
+    terms, relative to their size: it covers rows whose sum cancels, where
+    that rounding is all that is left (dq of a query that sees one key is
+    exactly 0, its dP − D two equal hd-term sums).
+
+    → {"dq"|"dk"|"dv": {"max_abs_err", "max_abs_plain", "worst" (the
+    largest row's error over its allowance; ≤ 1 passes)}}."""
+    f32 = [t.float() for t in (q, k, v, o, do)]
+    plain = flash_attention_bwd_ref(*f32[:4], lse, f32[4], window=window)
+    mag = flash_attention_bwd_ref(*f32[:4], lse, f32[4], window=window,
+                                  magnitude=True)
+    unit = q.shape[-1] * 2.0 ** -24
+    out = {}
+    for name, g, p, m in zip(("dq", "dk", "dv"), got, plain, mag):
+        if not g.numel():
+            out[name] = {"max_abs_err": 0.0, "max_abs_plain": 0.0, "worst": 0.0}
+            continue
+        err = (g.float() - p).abs()
+        allow = tol * p.abs().amax(-1) + unit * m.amax(-1)
+        out[name] = {"max_abs_err": float(err.max()),
+                     "max_abs_plain": float(p.abs().max()),
+                     "worst": float((err.amax(-1) / allow)
+                                    .nan_to_num(0.0, posinf=math.inf).max())}
+    return out
 
 
 def _fma_f32(a: torch.Tensor, h: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -151,3 +255,28 @@ def ssm_scan_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     ``ssm_scan`` body as XLA compiles it.  (The reference's ``ssm_scan_ref``
     is its associative ``linear_scan``, rounding in another order.)"""
     return _fma_scan(a, b)
+
+
+def scan_bwd_ref(a: torch.Tensor, h: torch.Tensor, g: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The gradients of the recurrence h_t = a_t ⊙ h_{t−1} + b_t along
+    dim 1 (h_{−1} = 0) given g = ∂L/∂h, in f32, step by step from the end
+    (the reference's custom VJP, ``repro/models/ssm.py`` ``_ls_bwd``, as a
+    sequential recurrence):
+
+        γ_t = a_{t+1}·γ_{t+1} + g_t (one FMA; γ_{S−1} = fma(0, 0, g_{S−1})),
+        db_t = γ_t,   da_t = γ_t · h_{t−1} (one rounding).
+
+    a, h, g: (B, S, …) → (da, db) f32 of the same shape; the backward
+    kernels of ``rglru_scan`` and ``ssm_scan`` give the same bits."""
+    a, h, g = a.float(), h.float(), g.float()
+    da = torch.empty_like(a)
+    db = torch.empty_like(a)
+    gamma = torch.zeros_like(a[:, 0])
+    a_next = torch.zeros_like(a[:, 0])
+    for t in range(a.shape[1] - 1, -1, -1):
+        gamma = _fma_f32(a_next, gamma, g[:, t])
+        db[:, t] = gamma
+        da[:, t] = gamma * (h[:, t - 1] if t > 0 else 0.0)
+        a_next = a[:, t]
+    return da, db

@@ -3,7 +3,11 @@ RG-LRU recurrence h_t = a_t ⊙ h_{t−1} + b_t over (B, S, W) f32, h_{−1} = 0
 
 Replaces :func:`repro.kernels.rglru_scan.rglru_scan`.  Its plain version is
 :func:`repro_torch.kernels.ref.rglru_scan_ref`; :mod:`.ops` picks one or
-the other by the tensor's device.
+the other by the tensor's device.  ``rglru_scan_bwd`` is the backward kernel
+(``scan_bwd_f32`` in ``csrc/ssm_scan.cu``, shared with ``ssm_scan_bwd``
+over the lanes flattened): the reference has no Pallas backward (XLA
+differentiates its associative scan); its plain version is
+:func:`repro_torch.kernels.ref.scan_bwd_ref`.
 """
 
 from __future__ import annotations
@@ -11,9 +15,12 @@ from __future__ import annotations
 import torch
 
 from . import build
+from .ssm_scan import scan_bwd
 
-# Kernel launches since the last reset (a run sets it to 0 and reads it).
+# Kernel launches since the last reset (a run sets them to 0 and reads
+# them): the forward's and the backward's.
 launches = 0
+bwd_launches = 0
 
 
 def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -42,3 +49,16 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(f"rglru_scan kernel launch failed: cudaError {err}")
     launches += 1
     return h
+
+
+def rglru_scan_bwd(a: torch.Tensor, h: torch.Tensor, g: torch.Tensor):
+    """The recurrence's gradients given g = ∂L/∂h: a, h and g contiguous
+    (B, S, W) float32 on one CUDA device → (da, db), through
+    :func:`repro_torch.kernels.ssm_scan.scan_bwd`."""
+    global bwd_launches
+    if a.dim() != 3:
+        raise ValueError(f"rglru_scan_bwd kernel shapes: a {tuple(a.shape)}; "
+                         "needs (B, S, W)")
+    da, db = scan_bwd(a, h, g, "rglru_scan_bwd")
+    bwd_launches += 1
+    return da, db

@@ -68,7 +68,9 @@ def register_params(module: nn.Module, defs: Dict[str, ParamDef],
 class Params(nn.Module):
     """The parameters of one block, named as in the reference's tree and
     allocated uninitialised; ``Model.init`` or ``load_state_dict`` fills
-    them.  Serving needs no gradients, so none are tracked."""
+    them.  Serving needs no gradients, so none are tracked: a trainer opts
+    in with ``model.requires_grad_(True)`` (``launch/steps.py``,
+    ``launch/train.py``)."""
 
     def __init__(self, defs: Dict[str, ParamDef], device: torch.device):
         super().__init__()

@@ -29,15 +29,27 @@ every causal self-attention layer (the decoders of every family but ssm),
 The encoder's and the cross attention are non-causal; the reference has no
 Pallas kernel for them, and they stay plain PyTorch (``_attn_bidir``).
 ``batch`` layouts per family come from ``data.family_batch``.
+
+Training: the parameters track no gradients until a trainer opts in with
+``model.requires_grad_(True)``, so serving builds no autograd graph.  Where
+a graph is built, ``cfg.remat`` checkpoints one layer (one hybrid unit) of
+the backbone, the encoder and the encdec decoder, the reference's four
+``_remat`` sites, with ``torch.utils.checkpoint`` (non-reentrant): "none"
+saves everything, "full" recomputes each layer's forward in the backward
+(its kernels launch twice), "dots" saves the outputs of the matrix
+products without batch dimensions (``aten.mm``/``addmm``, as JAX's
+``checkpoint_dots_with_no_batch_dims``) and recomputes the rest.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from ..device import resolve_device
 from ..kernels import ops
@@ -50,6 +62,18 @@ from .rglru import RGLRUState, rglru_block, rglru_decode_step, rglru_defs
 from .ssm import MambaState, mamba_block, mamba_decode_step, mamba_defs
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
+
+# the products "dots" saves: matrix products with no batch dimensions
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS \
+        else ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_DOTS_CONTEXT = functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                  _save_dots)
 
 
 def _attn_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
@@ -195,50 +219,87 @@ class Model(nn.Module):
         return x + y, aux
 
     # ------------------------------------------------------- backbone (seq)
+    def _remat_kwargs(self, x: torch.Tensor):
+        """``torch.utils.checkpoint`` arguments for ``cfg.remat`` where an
+        autograd graph is being built (grad mode on, and x or a parameter
+        requires grad); None where nothing is checkpointed."""
+        mode = self.cfg.remat
+        if mode == "none" or not torch.is_grad_enabled() or not (
+                x.requires_grad or self.embed.requires_grad):
+            return None
+        if mode == "full":
+            return {"use_reentrant": False}
+        if mode == "dots":
+            return {"use_reentrant": False, "context_fn": _DOTS_CONTEXT}
+        raise ValueError(f"unknown remat {mode!r}: none | dots | full")
+
+    def _layers(self, layers, sublayers, x: torch.Tensor):
+        """x through each of ``layers``, a layer being the functions
+        ``sublayers(layer)`` applied in turn (a function may return (x,
+        aux)); each layer checkpointed as ``_remat_kwargs`` says.  Without
+        checkpointing the sublayers run here one by one, so that a layer's
+        input is freed once its first sublayer returns.  → (x, the f32 sum
+        of the aux losses)."""
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        remat = self._remat_kwargs(x)
+        for layer in layers:
+            fns = sublayers(layer)
+            if remat is not None:
+                x, a = ckpt.checkpoint(_through, fns, x, **remat)
+                aux = aux + a
+                continue
+            for fn in fns:
+                x = fn(x)
+                if isinstance(x, tuple):
+                    x, a = x
+                    aux = aux + a
+        return x, aux
+
     def backbone(self, x: torch.Tensor, positions: torch.Tensor):
         """Full-sequence forward. x: (B, S, d) embedded → ((B, S, d), the
         f32 sum of the layers' aux losses, 0 but for moe)."""
         cfg = self.cfg
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if cfg.family == "ssm":
-            for p in self.layers:
-                x = mamba_block(p, x, cfg)
-            return x, aux
+            return self._layers(
+                self.layers, lambda p: (lambda x: mamba_block(p, x, cfg),), x)
         if cfg.family == "hybrid":
-            for unit in self.units:
-                for r in ("r0", "r1"):
-                    x = rglru_block(unit[r], x, cfg)
-                    x = self._mlp(unit[f"{r}_mlp"], x)
-                x = self._attn_seq(unit["a"], x, positions, cfg.local_window)
-                x = self._mlp(unit["a_mlp"], x)
+            def unit(u):
+                return (lambda x: rglru_block(u["r0"], x, cfg),
+                        lambda x: self._mlp(u["r0_mlp"], x),
+                        lambda x: rglru_block(u["r1"], x, cfg),
+                        lambda x: self._mlp(u["r1_mlp"], x),
+                        lambda x: self._attn_seq(u["a"], x, positions,
+                                                 cfg.local_window),
+                        lambda x: self._mlp(u["a_mlp"], x))
+
+            x, aux = self._layers(self.units, unit, x)
             for rec, mlp in self._tails():
                 x = self._mlp(mlp, rglru_block(rec, x, cfg))
             return x, aux
+
         # dense / moe / vlm decoders
-        for lp in self.layers:
-            x = self._attn_seq(lp["attn"], x, positions, cfg.window)
-            if cfg.family == "moe":
-                x, a = self._moe(lp["moe"], x)
-                aux = aux + a
-            else:
-                x = self._mlp(lp["mlp"], x)
-        return x, aux
+        def layer(lp):
+            ffn = (lambda x: self._moe(lp["moe"], x)) if cfg.family == "moe" \
+                else (lambda x: self._mlp(lp["mlp"], x))
+            return (lambda x: self._attn_seq(lp["attn"], x, positions,
+                                             cfg.window), ffn)
+
+        return self._layers(self.layers, layer, x)
 
     def _encoder(self, frames: torch.Tensor) -> torch.Tensor:
         """The bidirectional encoder over frame embeddings (B, Sm, d)."""
         B, Sm, _ = frames.shape
         positions = torch.arange(Sm, device=frames.device).expand(B, Sm)
-        x = frames
-        for lp in self.enc_layers:
-            x = self._attn_seq(lp["attn"], x, positions, 0, causal=False)
-            x = self._mlp(lp["mlp"], x)
+        x, _ = self._layers(self.enc_layers, lambda lp: (
+            lambda x: self._attn_seq(lp["attn"], x, positions, 0, causal=False),
+            lambda x: self._mlp(lp["mlp"], x)), frames)
         return rms_norm(x, self.enc_norm)
 
     def _decoder_ed(self, x, mem, positions) -> torch.Tensor:
-        for lp in self.dec_layers:
-            x = self._attn_seq(lp["attn"], x, positions, self.cfg.window)
-            x = self._cross_seq(lp["cross"], x, mem)
-            x = self._mlp(lp["mlp"], x)
+        x, _ = self._layers(self.dec_layers, lambda lp: (
+            lambda x: self._attn_seq(lp["attn"], x, positions, self.cfg.window),
+            lambda x: self._cross_seq(lp["cross"], x, mem),
+            lambda x: self._mlp(lp["mlp"], x)), x)
         return x
 
     def _forward(self, batch):
@@ -426,6 +487,17 @@ class Model(nn.Module):
             else:
                 x = self._mlp(lp["mlp"], x)
         return cache, self._logits(rms_norm(x, self.final_norm))
+
+
+def _through(fns, x):
+    """One checkpointed layer: x through ``fns`` in turn → (x, aux sum)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for fn in fns:
+        x = fn(x)
+        if isinstance(x, tuple):
+            x, a = x
+            aux = aux + a
+    return x, aux
 
 
 def _attn_bidir(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

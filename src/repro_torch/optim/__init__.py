@@ -1,8 +1,15 @@
-"""Optimizer-side pieces of the port.  So far only the instance form of
-adaptive gradient accumulation (the ``gradvar`` workload); the training
-loop (``adaptive_accumulate``) comes with the model zoo."""
-from .adaptive import (gradnorm_frame_template, make_gradnorm_sample_fn,
+"""Optimizer-side pieces of the port: AdamW, the cosine schedule, adaptive
+gradient accumulation (the training loop's ``adaptive_accumulate``) and
+its instance form (the ``gradvar`` workload).  The reference's
+``compress.py`` (int8 ``compressed_psum`` over a worker group) waits for
+the pool's process groups (ROADMAP queue 1 item 9)."""
+from .adamw import AdamWConfig, AdamWState, adamw_init, adamw_update, global_norm
+from .adaptive import (AdaptiveAccumConfig, adaptive_accumulate,
+                       gradnorm_frame_template, make_gradnorm_sample_fn,
                        quantized_grad_norms)
+from .schedule import cosine_schedule
 
-__all__ = ["quantized_grad_norms", "gradnorm_frame_template",
-           "make_gradnorm_sample_fn"]
+__all__ = ["AdamWConfig", "AdamWState", "adamw_init", "adamw_update",
+           "global_norm", "cosine_schedule", "AdaptiveAccumConfig",
+           "adaptive_accumulate", "quantized_grad_norms",
+           "gradnorm_frame_template", "make_gradnorm_sample_fn"]

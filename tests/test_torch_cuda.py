@@ -403,8 +403,8 @@ def test_flash_attention_refuses_head_dim_257_on_card(cuda_device, dtype):
     strides = (ctypes.c_longlong * 12)(*[x for t in (q, q, q, o)
                                          for x in t.stride()[:3]])
     fn = getattr(build.load("flash_attention"), flash_mod._ENTRY[dtype])
-    err = fn(q.data_ptr(), q.data_ptr(), q.data_ptr(), o.data_ptr(), 1, 2, 2,
-             8, 257, 0, strides, torch.cuda.current_stream().cuda_stream)
+    err = fn(q.data_ptr(), q.data_ptr(), q.data_ptr(), o.data_ptr(), None, 1,
+             2, 2, 8, 257, 0, strides, torch.cuda.current_stream().cuda_stream)
     assert err != 0
 
 
@@ -510,3 +510,155 @@ def test_reduced_family_prefill_agrees_with_decode_on_card(cuda_device, arch,
             on_cpu = cpu.prefill({"tokens": toks.cpu()})
             assert float((full.cpu() - on_cpu).abs().max()
                          / on_cpu.abs().max()) <= 1e-5
+
+
+# ------------------------------------------------ the backward kernels
+
+
+def _rel_err(got, exp, floor=1e-6):
+    """max |got − exp| over the largest |exp| (or ``floor``, where that is
+    smaller)."""
+    if not got.numel():
+        return 0.0
+    scale = max(float(exp.float().abs().max()), floor)
+    return float((got.float() - exp.float()).abs().max()) / scale
+
+
+# each row of a gradient against its own scale (ref.flash_attention_bwd_check):
+# f32 sums in other orders; bf16 rounds P and dS as the products' operands
+# and dq, dk, dv once at the store
+FLASH_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 40])
+@pytest.mark.parametrize("group", [1, 4])
+@pytest.mark.parametrize("s", [1, 64, 100, 130, 300])
+@pytest.mark.parametrize("hd", [16, 20, 32, 64, 120, 128, 256])
+def test_flash_attention_bwd_kernel_on_card(cuda_device, hd, s, group, window,
+                                            dtype):
+    """The forward's logsumexp and the backward kernel against the plain
+    versions at every padded head dim (and 20, 120), ragged S (up to five
+    key tiles), GQA groups and windows, on the model's strided views, with
+    a strided dO; each gradient held row by row."""
+    q, k, v = _flash_views(cuda_device, 2, s, 2 * group, 2, hd, dtype, seed=hd + s)
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    o, lse = flash_mod.flash_attention(q, k, v, window=window, return_lse=True)
+    o_ref, lse_ref = ref.flash_attention_ref(q, k, v, window=window,
+                                             return_lse=True)
+    do = torch.randn((2, s, 2 * group, hd), generator=gen, device=cuda_device
+                     ).to(dtype).transpose(1, 2)
+    got = flash_mod.flash_attention_bwd(q, k, v, o, lse, do, window=window)
+    torch.cuda.synchronize()
+    assert _rel_err(lse, lse_ref, floor=1.0) <= 1e-5
+    assert _rel_err(o, o_ref) <= FLASH_TOL[dtype]
+    for g, t in zip(got, (q, k, v)):
+        assert g.dtype == dtype and g.shape == t.shape and g.stride() == t.stride()
+    res = ref.flash_attention_bwd_check(q, k, v, o, lse, do, got, window=window,
+                                        tol=FLASH_BWD_TOL[dtype])
+    assert all(r["worst"] <= 1.0 for r in res.values()), res
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_forward_without_lse_writes_none(cuda_device, dtype):
+    q, k, v = _flash_views(cuda_device, 1, 70, 4, 2, 64, dtype, seed=3)
+    o = flash_mod.flash_attention(q, k, v, window=16)
+    o2, lse = flash_mod.flash_attention(q, k, v, window=16, return_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and lse.shape == (1, 4, 70)
+
+
+# both bodies of the shared scan_bwd kernel: blocks of 64 threads and
+# chunks of 32 where B × lanes do not fill the SMs with blocks of 256 (the
+# small shapes), blocks of 256 and chunks of 16 where they do (the last)
+@pytest.mark.parametrize("shape", [(1, 1, 1), (2, 33, 1000), (1, 100, 64),
+                                   (3, 70, 5), (1, 40, 40000)])
+def test_rglru_scan_bwd_kernel_on_card(cuda_device, shape):
+    gen = torch.Generator(device=cuda_device).manual_seed(shape[1])
+    a = torch.rand(shape, generator=gen, device=cuda_device) * 0.75 + 0.2
+    b = torch.randn(shape, generator=gen, device=cuda_device)
+    g = torch.randn(shape, generator=gen, device=cuda_device)
+    h = rglru_mod.rglru_scan(a, b)
+    da, db = rglru_mod.rglru_scan_bwd(a, h, g)
+    eda, edb = ref.scan_bwd_ref(a, h, g)
+    torch.cuda.synchronize()
+    assert torch.equal(da, eda) and torch.equal(db, edb)
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 3, 2), (2, 33, 125, 3),
+                                   (1, 64, 64, 16), (2, 17, 8, 4),
+                                   (1, 37, 2176, 16)])
+def test_ssm_scan_bwd_kernel_on_card(cuda_device, shape):
+    gen = torch.Generator(device=cuda_device).manual_seed(shape[1])
+    a = torch.rand(shape, generator=gen, device=cuda_device) * 0.89 + 0.1
+    b = torch.randn(shape, generator=gen, device=cuda_device)
+    g = torch.randn(shape, generator=gen, device=cuda_device)
+    h = ssm_mod.ssm_scan(a, b)
+    da, db = ssm_mod.ssm_scan_bwd(a, h, g)
+    eda, edb = ref.scan_bwd_ref(a, h, g)
+    torch.cuda.synchronize()
+    assert torch.equal(da, eda) and torch.equal(db, edb)
+
+
+def test_cuda_backward_launches_the_kernels(cuda_device):
+    """``ops``' differentiable entry points on CUDA tensors that require
+    grad: one forward and one backward launch each, and the gradients of
+    the plain versions on the CPU."""
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    q, k, v = (torch.randn((1, n, 50, 32), generator=gen, device=cuda_device)
+               .requires_grad_() for n in (4, 2, 2))
+    before = (flash_mod.launches, flash_mod.bwd_launches)
+    ops.flash_attention(q, k, v, window=8).square().sum().backward()
+    assert (flash_mod.launches, flash_mod.bwd_launches) == (before[0] + 1,
+                                                            before[1] + 1)
+    cpu = [t.detach().cpu().requires_grad_() for t in (q, k, v)]
+    ops.flash_attention(*cpu, window=8).square().sum().backward()
+    for t, c in zip((q, k, v), cpu):
+        assert _rel_err(t.grad.cpu(), c.grad) <= 1e-4
+    for mod, fn, shape in ((rglru_mod, ops.rglru_scan, (2, 30, 40)),
+                           (ssm_mod, ops.ssm_scan, (2, 30, 8, 4))):
+        a = (torch.rand(shape, generator=gen, device=cuda_device) * 0.5 + 0.4
+             ).requires_grad_()
+        b = torch.randn(shape, generator=gen, device=cuda_device).requires_grad_()
+        before = (mod.launches, mod.bwd_launches)
+        fn(a, b).square().sum().backward()
+        assert (mod.launches, mod.bwd_launches) == (before[0] + 1, before[1] + 1)
+        ac, bc = (t.detach().cpu().requires_grad_() for t in (a, b))
+        fn(ac, bc).square().sum().backward()
+        assert torch.equal(a.grad.cpu(), ac.grad) and torch.equal(b.grad.cpu(), bc.grad)
+    with torch.no_grad():
+        before = flash_mod.bwd_launches
+        assert not ops.flash_attention(q, k, v).requires_grad
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m-reduced", "h2o-danube-3-4b-reduced",
+                                  "recurrentgemma-2b-reduced",
+                                  "falcon-mamba-7b-reduced",
+                                  "mixtral-8x22b-reduced"])
+def test_reduced_model_gradients_on_card_match_the_cpu(cuda_device, arch):
+    """``train_loss``'s gradients in f32 through the kernels (forward and
+    backward) against the CPU's through the plain versions, from the same
+    weights and batch: each leaf within 1e-4 of its largest magnitude."""
+    from repro_torch.models import Model, resolve_config
+    cfg = resolve_config(arch)
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    cpu = Model(cfg, device="cpu").init(gen).float().requires_grad_(True)
+    card = Model(cfg, device=cuda_device)
+    card.load_state_dict({k: v.to(cuda_device) for k, v in cpu.state_dict().items()},
+                         assign=True)
+    card = card.float().requires_grad_(True)
+    toks = torch.randint(0, cfg.vocab, (2, 65), generator=gen, dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    mods = (flash_mod, rglru_mod, ssm_mod)
+    before = [m.bwd_launches for m in mods]
+    loss_c = card.train_loss({k: v.to(cuda_device) for k, v in batch.items()})
+    loss_c.backward()
+    torch.cuda.synchronize()
+    assert sum(m.bwd_launches for m in mods) > sum(before)
+    loss = cpu.train_loss(batch)
+    loss.backward()
+    assert abs(float(loss_c) - float(loss)) <= 1e-5 * abs(float(loss))
+    grads = dict(card.named_parameters())
+    for name, p in cpu.named_parameters():
+        assert _rel_err(grads[name].grad.cpu(), p.grad, floor=1e-6) <= 1e-4, name

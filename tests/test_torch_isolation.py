@@ -40,6 +40,14 @@ assert main(["--arch", "falcon-mamba-7b-reduced", "--device", "cpu",
 assert main(["--pool", "--device", "cpu", "--topology", "4",
              "--pressure-policy", "shrink-regrow",
              "--queries", "reachability:shared:4,wrs:local:2"]) == 0
+import tempfile
+from repro_torch.launch.train import main as train_main
+with tempfile.TemporaryDirectory() as d:
+    assert train_main(["--device", "cpu", "--steps", "2", "--batch", "4",
+                       "--seq", "16", "--micro", "2", "--ckpt-dir", d]) == 0
+    assert train_main(["--arch", "falcon-mamba-7b-reduced", "--device", "cpu",
+                       "--steps", "1", "--batch", "2", "--seq", "8",
+                       "--micro", "1", "--adaptive"]) == 0
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LEAKED", bad)
 """
