@@ -9,12 +9,12 @@ and the script exits non-zero:
 1. device      — the card (nvidia-smi name and power limit), torch and CUDA.
 2. build       — nvcc builds the six kernel sources from
                  ``src/repro_torch/kernels/csrc``, all at once, and prints
-                 ptxas's registers, spills and shared memory of the five
-                 redesigned kernels (``bfs_frontier``, ``flash_attention``,
-                 ``rglru_scan``, ``alias_draw``, ``frame_accum``) and the
-                 bf16 attention body's HMMA/HGMMA count in the SASS
-                 (``cuobjdump -sass``); a missing ptxas report, a spill or
-                 a bf16 body without tensor-core instructions fails.
+                 ptxas's registers, spills and shared memory of every
+                 kernel of the six sources, and the HMMA/HGMMA count in
+                 the SASS (``cuobjdump -sass``) of the bf16 attention
+                 forward and of the bf16 backward's dK/dV and dQ kernels;
+                 a missing ptxas report, a spill or a bf16 instance without
+                 tensor-core instructions fails.
 3. wrs table   — the 2**24-item alias table of the wrs full-size run
                  (Pareto(1.5) weights, the host's Vose loop, then the card).
 4. kernels     — each kernel against its plain PyTorch version at the main
@@ -47,8 +47,9 @@ and the script exits non-zero:
                  at a ragged (3, 100, 125, 3).  The backward kernels:
                  ``flash_attention``'s (with the forward's logsumexp) at
                  h2o-danube-3-4b's train shape (1, 32, 4096, 120) kv 8
-                 window 4096 and recurrentgemma-2b's (1, 10, 4096, 256)
-                 kv 1 window 2048 in bf16 (timed beside the bound, the
+                 window 4096, recurrentgemma-2b's (1, 10, 4096, 256)
+                 kv 1 window 2048 and the training CLI's smollm-360m
+                 (4, 15, 512, 64) kv 5 in bf16 (timed beside the bound, the
                  plain backward and ``torch.autograd.grad`` through SDPA)
                  and a ragged f32 (2, 4, 100, 64); ``ssm_scan``'s exactly
                  at (1, 2048, 8192, 16) and ``rglru_scan``'s at
@@ -137,7 +138,8 @@ and the script exits non-zero:
                  2 micro-batches of (1, 4096), tokens/s, loss, grad norm,
                  peak memory, and a profile of a fourth step;
                  recurrentgemma-2b at full size and falcon-mamba-7b at full
-                 width (4 of 64 layers), one step each; the training CLI
+                 width (4 of 64 layers), 3 steps each (the first cold);
+                 the training CLI
                  (``launch/train.py``'s ``main``) on smollm-360m: 20 steps,
                  a run preempted at 5 and resumed with the same losses and
                  final checkpoint, and an ``--adaptive`` run.
@@ -235,6 +237,9 @@ MAMBA_PARAMS = 7_272_665_088
 FLASH_BWD_SHAPES = (  # (name, (B, H, KV, S, hd), window, dtype, timed)
     ("h2o-danube-3-4b train", (1, 32, 8, 4096, 120), 4096, "bfloat16", True),
     ("recurrentgemma-2b train", (1, 10, 1, 4096, 256), 2048, "bfloat16", True),
+    # the training CLI's smollm-360m micro-batch, the train path's most
+    # frequent backward call (2,560 a run), launch-sized
+    ("smollm-360m CLI train", (4, 15, 5, 512, 64), 0, "bfloat16", True),
     ("ragged f32", (2, 4, 2, 100, 64), 0, "float32", False),
     # 16 key tiles, the last ragged, a window across tile edges
     ("tiles and window f32", (1, 8, 2, 1000, 120), 300, "float32", False),
@@ -250,6 +255,7 @@ DANUBE_TRAIN = (2, 1, 4096)  # n_micro, micro-batch, S: 8,192 tokens a step
 DANUBE_TRAIN_STEPS = 3
 RG_TRAIN = (1, 4096)
 MAMBA_TRAIN = (1, 2048)
+OTHER_TRAIN_STEPS = 3        # rg's and mamba's: the first is cold, the rest warm
 MAMBA_TRAIN_LAYERS = 4       # 64 → 4: its AdamW state at full depth is ~87 GB
 MAMBA_TRAIN_PARAMS = 953_929_728
 CLI_ARGS = ("--arch", "smollm-360m", "--batch", "8", "--seq", "512",
@@ -281,9 +287,13 @@ KERNEL_NAMES = {  # device kernels of the port's wrappers, by name part
     "flash_attention": ("flash_bf16_kernel", "flash_f32_kernel"),
     "rglru_scan": ("rglru_scan_kernel",),
     "ssm_scan": ("ssm_scan_kernel",),
+    # D, then dK/dV and dQ: the f32 body's and the bf16 tensor-core body's
+    # (with the sum of its dK/dV parts where it splits that grid)
     "flash_attention_bwd": ("flash_bwd_dot_kernel", "flash_bwd_dkdv_kernel",
-                            "flash_bwd_dq_kernel"),
-    "scan_bwd": ("scan_bwd_kernel",),  # rglru_scan_bwd's and ssm_scan_bwd's
+                            "flash_bwd_dq_kernel", "flash_bwd_tc_dkdv_kernel",
+                            "flash_bwd_tc_dq_kernel", "flash_bwd_tc_sum_kernel"),
+    # rglru_scan_bwd's and ssm_scan_bwd's: the lane body and the ring body
+    "scan_bwd": ("scan_bwd_kernel", "scan_bwd_ring_kernel"),
 }
 
 
@@ -389,10 +399,17 @@ def phase_build(torch) -> None:
     emit({"phase": "build", "source": "csrc/flash_attention.cu",
           "sass_tensor_core_ops": mma})
     if mma is not None:
-        bf16 = {k: c for k, c in mma.items() if "flash_bf16" in k}
-        if not bf16 or not all(c["HMMA"] + c["HGMMA"] > 0 for c in bf16.values()):
-            raise AssertionError(f"flash_attention bf16: no tensor-core "
-                                 f"instructions in its SASS: {mma}")
+        # the bf16 forward and the bf16 backward's dK/dV and dQ kernels, at
+        # every padded HD and copy width (the backward's D kernel is a dot
+        # product over hd, bytes only)
+        for body in ("flash_bf16", "flash_bwd_tc_dkdv", "flash_bwd_tc_dq"):
+            found = {k: c for k, c in mma.items() if k.startswith(body + "_kernel<")}
+            if len(found) != 15 or not all(c["HMMA"] + c["HGMMA"] > 0
+                                           for c in found.values()):
+                raise AssertionError(f"{body}: not 15 instances (5 head dims "
+                                     f"× 3 copy widths), or one without "
+                                     f"tensor-core instructions in its SASS: "
+                                     f"{found}")
 
 
 class Timer:
@@ -816,14 +833,19 @@ def phase_kernels(torch, timer, check, g, table):
 
 def kernel_flash_attention_bwd(torch, timer, check, gen):
     """``flash_attention``'s backward kernel against its plain backward at
-    ``FLASH_BWD_SHAPES``: h2o-danube-3-4b's and recurrentgemma-2b's train
-    shapes in bf16 (timed beside the bound, the plain backward and
-    ``torch.autograd.grad`` through ``scaled_dot_product_attention`` with
-    the same boolean mask and ``enable_gqa``), a small ragged f32 one, and
-    one of 16 key tiles with a window across tile edges in both types;
-    each row reports every gradient's largest error and plain value.
-    The bound: 5 products × 2 × hd × admissible pairs × B × H at the
-    dtype's rate, against the bytes of q, k, v, o, dO, lse, dq, dk, dv."""
+    ``FLASH_BWD_SHAPES``: h2o-danube-3-4b's, recurrentgemma-2b's and the
+    training CLI's smollm-360m train shapes in bf16 (timed beside the
+    bound, the plain backward and ``torch.autograd.grad`` through
+    ``scaled_dot_product_attention``), a small ragged f32 one, and one of
+    16 key tiles with a window across tile edges in both types; each row
+    reports every gradient's largest error and plain value.  The bound: 5
+    products × 2 × hd × admissible pairs × B × H at the dtype's rate,
+    against the bytes of q, k, v, o, dO, lse (read) and dq, dk, dv
+    (written).  The library call is the fastest of SDPA with the boolean
+    mask and ``enable_gqa`` and, where the mask is plain causal (no window,
+    or one of S or more), SDPA with ``is_causal`` on K and V as given
+    (``enable_gqa``) and on K and V repeated to the query heads inside the
+    differentiated graph (the group's sum in its backward)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
@@ -845,7 +867,7 @@ def kernel_flash_attention_bwd(torch, timer, check, gen):
         if timed:
             pairs = B * H * attention_pairs(S, window)
             es = q.element_size()
-            nbytes = es * (5 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
+            nbytes = es * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
             ops = 5 * 2 * hd * pairs
             t_bound, by = bound_ms(nbytes, ops, BF16_OPS_PER_S if dt == torch.bfloat16
                                    else F32_OPS_PER_S)
@@ -854,8 +876,19 @@ def kernel_flash_attention_bwd(torch, timer, check, gen):
             if window > 0:
                 mask &= pos[None, :] > pos[:, None] - window
             leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-            sdpa = F.scaled_dot_product_attention(*leaves, attn_mask=mask,
-                                                  enable_gqa=True)
+            G = H // KV
+            graphs = {"boolean mask, enable_gqa": F.scaled_dot_product_attention(
+                *leaves, attn_mask=mask, enable_gqa=True)}
+            if window == 0 or window >= S:
+                graphs["is_causal, enable_gqa"] = F.scaled_dot_product_attention(
+                    *leaves, is_causal=True, enable_gqa=True)
+                graphs["is_causal, K and V repeated to the query heads"] = \
+                    F.scaled_dot_product_attention(
+                        leaves[0], leaves[1].repeat_interleave(G, dim=1),
+                        leaves[2].repeat_interleave(G, dim=1), is_causal=True)
+            library = {how: timer(lambda y=y: torch.autograd.grad(
+                y, leaves, do, retain_graph=True), reps=10) for how, y in graphs.items()}
+            fastest = min(library, key=library.get)
             row.update({
                 "admissible_pairs": pairs, "flops": ops, "bytes": nbytes,
                 "forward_bound_ms": bound_ms(es * (2 * q.numel() + 2 * k.numel()),
@@ -864,11 +897,11 @@ def kernel_flash_attention_bwd(torch, timer, check, gen):
                 "plain_ms": timer(lambda: ref.flash_attention_bwd_ref(
                     q, k, v, o, lse, do, window=window), reps=3, warmup=1),
                 "bound_ms": t_bound, "bound_by": by,
-                "library_ms": timer(lambda: torch.autograd.grad(
-                    sdpa, leaves, do, retain_graph=True), reps=10),
+                "library_ms": library[fastest],
                 "library": "torch.autograd.grad through F.scaled_dot_product_"
-                           "attention(enable_gqa=True, boolean mask)"})
-            del leaves, sdpa, mask
+                           f"attention({fastest})",
+                "library_variants_ms": library})
+            del leaves, graphs, mask
         emit({"phase": "kernels", "kernel": "flash_attention_bwd",
               "max_abs_err": check.max_err["flash_attention_bwd"],
               "tolerance": check.TOLERANCE["flash_attention_bwd"], **row})
@@ -2578,9 +2611,10 @@ def phase_train(torch):
     from seed 0, each model freed before the next: h2o-danube-3-4b at full
     size, ``DANUBE_TRAIN_STEPS`` steps of ``make_train_step`` (AdamW,
     remat "full") on ``micro_batches`` (2 × (1, 4096)) and a profile of one
-    more; recurrentgemma-2b at full size, one step at (1, 4096);
-    falcon-mamba-7b at full width, 4 of its 64 layers, one step at
-    (1, 2048); then the training CLI (``train_cli``)."""
+    more; recurrentgemma-2b at full size, ``OTHER_TRAIN_STEPS`` steps at
+    (1, 4096); falcon-mamba-7b at full width, 4 of its 64 layers,
+    ``OTHER_TRAIN_STEPS`` steps at (1, 2048) (the first step of each cold,
+    the rest warm); then the training CLI (``train_cli``)."""
     path = "train"
     for arch in TRAIN_GRAD_ARCHS:
         train_grads_vs_cpu(torch, arch)
@@ -2601,14 +2635,14 @@ def phase_train(torch):
 
     model = serve_model(torch, RG_ARCH, path, RG_PARAMS)
     model.requires_grad_(True)
-    train_steps(torch, model, "recurrentgemma-2b step", RG_TRAIN, 1)
+    train_steps(torch, model, "recurrentgemma-2b step", RG_TRAIN, OTHER_TRAIN_STEPS)
     del model
     torch.cuda.empty_cache()
 
     model = serve_model(torch, MAMBA_ARCH, path, MAMBA_TRAIN_PARAMS,
                         layers=MAMBA_TRAIN_LAYERS)
     model.requires_grad_(True)
-    train_steps(torch, model, "falcon-mamba-7b step", MAMBA_TRAIN, 1)
+    train_steps(torch, model, "falcon-mamba-7b step", MAMBA_TRAIN, OTHER_TRAIN_STEPS)
     del model
     torch.cuda.empty_cache()
 

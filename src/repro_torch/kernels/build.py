@@ -51,6 +51,7 @@ SIGNATURES = {
         "flash_attention_bf16": [_P] * 5 + [_I] * 6 + [_LP, _P],
         "flash_attention_bwd_f32": [_P] * 10 + [_I] * 6 + [_LP, _P],
         "flash_attention_bwd_bf16": [_P] * 10 + [_I] * 6 + [_LP, _P],
+        "flash_attention_bwd_bf16_scratch": [_I] * 6 + [_LP],
     },
     "rglru_scan": {
         "rglru_scan_f32": [_P, _P, _P, _I, _I, _I, _P],

@@ -456,6 +456,12 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t add
       : "r"(addr));
 }
 
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
+}
+
 // d += a·b for a 16×16 bf16 A (row), a 16×8 bf16 B (col), f32 D
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
@@ -472,25 +478,28 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // ROWS rows of hd bf16 from rows row0… of a strided tensor into a padded
-// shared tile of HD columns, by cp.async of kBytes a copy; rows at or past
-// S and columns at or past hd are zero-filled.
-template <int HD, int ROWS, int kBytes>
+// shared tile of HD columns, by the NT threads of a block, cp.async of
+// kBytes a copy; rows at or past S and columns at or past hd are
+// zero-filled.
+template <int HD, int ROWS, int kBytes, int NT = kThreads>
 __device__ __forceinline__ void load_tile(bf16* tile, const bf16* src,
                                           long long stride, int row0, int S,
                                           int hd, int tid) {
   constexpr int kElems = kBytes / 2;     // bf16 a copy
   constexpr int kChunks = HD / kElems;   // copies a row
-  static_assert(ROWS * kChunks % kThreads == 0, "whole copies a thread");
+  constexpr int kCopies = ROWS * kChunks;
   // the 16-byte copies unrolled whole (at most 16 a thread); the narrower
   // ones by 4, or the 8-byte instances at HD 128 and 256 spill
 #pragma unroll(kBytes == 16 ? 16 : 4)
-  for (int it = 0; it < ROWS * kChunks / kThreads; ++it) {
-    const int i = tid + it * kThreads;
-    const int r = i / kChunks, c = (i % kChunks) * kElems;
-    const int pos = row0 + r;
-    const bool in = pos < S && c < hd;
-    cp_async<kBytes>(smem_u32(tile + r * Cfg<HD>::LD + c),
-                     src + (in ? pos * stride + c : 0), in);
+  for (int it = 0; it < (kCopies + NT - 1) / NT; ++it) {
+    const int i = tid + it * NT;
+    if (kCopies % NT == 0 || i < kCopies) {  // fewer copies than threads
+      const int r = i / kChunks, c = (i % kChunks) * kElems;
+      const int pos = row0 + r;
+      const bool in = pos < S && c < hd;
+      cp_async<kBytes>(smem_u32(tile + r * Cfg<HD>::LD + c),
+                       src + (in ? pos * stride + c : 0), in);
+    }
   }
 }
 
@@ -786,42 +795,107 @@ int dispatch(const void* q, const void* k, const void* v, void* o, void* lse_,
 // flash_attention_bwd: the gradients of the forward above given dO, from
 // q, k, v, the forward's output o and its row logsumexp lse (natural log,
 // (B, H, S) f32).  The reference has no Pallas backward: XLA differentiates
-// its attention (repro/models/attention.py attn_full / attn_chunked).  In
-// f32, FlashAttention-2's recurrences:
+// its attention (repro/models/attention.py attn_full / attn_chunked).
+// FlashAttention-2's recurrences:
 //   D = rowsum(dO ∘ O),  P = exp(S·scale − lse) (0 where masked),
 //   dP = dO·Vᵀ,  dS = P ∘ (dP − D),
 //   dV = Pᵀ·dO,  dK = dSᵀ·Q·scale,  dQ = dS·K·scale,
 // with the forward's masks exactly (key k admissible for query q when
 // k ≤ q and, with a window, k > q − window) and 1/√hd of the true hd.
 //
-// Three launches, no atomics (deterministic, as bfs_frontier avoids them):
+// Three launches (four where bf16 splits the dK/dV grid, below), no atomics
+// (deterministic: remat's recompute and resumed runs rely on identical
+// bits):
 //   1. D, one warp a (b, head, row): the dot of dO and O over hd, in f32;
-//   2. dK and dV, one block a (b, kv head, key tile of T keys): it walks the
-//      group's G query heads and, for each, the query tiles that can see the
-//      key tile (rows [k0, k_last + window) with a window, [k0, S) without),
+//   2. dK and dV, one block a (b, kv head, key tile): it walks the group's
+//      G query heads and, for each, the query tiles that can see the key
+//      tile (rows [k0, k_last + window) with a window, [k0, S) without),
 //      and sums into f32 registers, so each GQA group's sum is one block's;
 //   3. dQ, one block a (b, head, query tile): it walks the key tiles the
 //      forward walks for that tile.
 // Both tile passes rebuild P and dS for each (query tile, key tile) pair
-// (S and dP twice, 7 products of hd against the 5 the gradients need).
-//
-// A simple first kernel, on the CUDA cores in f32 for both dtypes: each
-// tile (T rows × hd; T = 64, 32 at hd 256) is converted to f32 into padded
-// shared rows (HD + 4 floats), the T×T score tiles are an SGEMM micro-kernel
-// (4×4 or 2×2 a thread from float4s along hd), and the T×hd products R rows
-// × 4·CV columns a thread, as the forward's f32 body.  In the bf16 body the
-// tiles are the bf16 inputs exactly, and P and dS are rounded to bf16 only
-// as the operands of the three products that take them (the roundings a
-// tensor-core body will make, as the forward rounds P); D, lse, P and dS are
-// f32 elsewhere, and dq, dk, dv are rounded once at the store.  Tensor cores
-// (mma.sync / wgmma) are the redesign (ROADMAP).
+// (S and dP twice: 7 products of hd against the 5 the gradients need).
 //
 // Bound on the H100: operations, 5 products × 2 × hd × admissible pairs × B
 // × H, at the bf16 tensor-core rate (989 TFLOP/s) in bf16 and the f32 core
-// rate (67 TFLOP/s) in f32: 3.22e11 and 0.326 ms at h2o-danube-3-4b's train
-// shape (1, 32, 4096, 120), kv 8, window 4096.  This body runs 7 products on
-// the CUDA cores, so it stays far above that bound in bf16 (PERF.md has its
-// time).
+// rate (67 TFLOP/s) in f32: 3.22e11 and 0.326 ms in bf16 at h2o-danube-3-4b's
+// train shape (1, 32, 4096, 120), kv 8, window 4096.
+//
+// Two bodies, chosen by dtype at the entry point (not a fallback):
+//
+// f32 (namespace bw) — the CUDA cores, with the f32 numerics the gradient
+// checks rely on: each tile (T rows × hd; T = 64, 32 at hd 256) is loaded
+// element by element into padded f32 shared rows (HD + 4 floats), the T×T
+// score tiles are an SGEMM micro-kernel (4×4 or 2×2 a thread from float4s
+// along hd), and the T×hd products R rows × 4·CV columns a thread, as the
+// forward's f32 body.
+//
+// bf16 (namespace tcb) — the tensor cores.  The first port ran bf16 through
+// the f32 body (P and dS rounded to bf16 as the products' operands): 22.10
+// ms at danube's shape, 68× the bound and 9.2× SDPA's backward; 7 products
+// at padded HD 128 on the CUDA cores are 7.2 ms at their rate alone.  This
+// body runs all 7 as mma.sync.m16n8k16 (bf16 in, f32 accumulate; HMMA in the
+// SASS), FlashAttention-2's backward, with the forward's tc:: helpers:
+//   - both tile passes have one shape.  A block of 8 warps owns 64 rows
+//     (keys in dK/dV, queries in dQ) whose two tiles (K and V, or Q and
+//     dO) are copied into shared memory once, and streams tiles of BC
+//     columns (Q and dO with their lse and D rows, or K and V) through a
+//     two-stage cp.async ring (16, 8 or 4 bytes a copy, zero-filled past S):
+//     pair p + 1 is in flight while pair p is multiplied, and one block
+//     barrier a pair both publishes the landed tile and frees the other
+//     stage;
+//   - the score pair (Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ in dK/dV, S = Q·Kᵀ and
+//     dP = dO·Vᵀ in dQ): warp w takes rows 16·(w mod 4) … + 15 and column
+//     half w / 4, in the mma's f32 accumulators.  There P = exp2(S·scale·
+//     log2 e − lse·log2 e) and dS = P ∘ (dP − D) are formed in f32, masked
+//     only on tiles that cross the diagonal, the window's edge or S (a zero
+//     row past S would give P = exp2(−lse)), and written to shared memory
+//     in bf16: their one rounding, as the products' operands, the same as
+//     the first port's;
+//   - a second block barrier, then the gradient products (dV += Pᵀ·dO and
+//     dK += dSᵀ·Q, or dQ += dS·K): warp w takes the same 16 rows and hd
+//     half w / 4, P or dS by ldmatrix as A, the streamed tile by
+//     ldmatrix.trans as B;
+//   - why P and dS go through shared memory, and not through registers as
+//     the forward's P does (S's accumulators are P·V's A fragments): a warp
+//     that owns 16 key rows across all of hd holds HD f32 accumulators a
+//     thread for dK and dV (128 at HD 128, 256 at 256) beside Sᵀ and dPᵀ,
+//     where the forward's HD 128 body already takes 222 registers for 112
+//     live f32.  Split over hd halves, a warp holds HD/2 (and HD/4 for dQ)
+//     beside BC/2 score values, at every HD with one code path; the price
+//     is one bf16 write of P and dS a pair and two reads of it;
+//   - BC = 64 columns, 32 at HD 256 (shared memory).  Blocks are launched
+//     row tile by row tile, each across every head: key tiles ascending in
+//     dK/dV (the first see the most query tiles), query tiles descending in
+//     dQ, so the longest start first;
+//   - where the (key tile, kv head, b) grid has fewer blocks than the SMs
+//     hold (recurrentgemma's one kv head: 64 blocks for 132 SMs), the
+//     group's heads are split into the fewest parts (a divisor of the group)
+//     that bring the longest block's walk down to an SM's share of all the
+//     walks; each part writes its f32 sums to scratch after D, and
+//     flash_bwd_tc_sum_kernel adds the parts in order (deterministic) and
+//     rounds once.  Other grids keep the sum in one block;
+//   - dK, dV and dQ are rounded to bf16 once, at the store (dK and dQ after
+//     the 1/√hd scale).
+//   Shared memory (dynamic), dK/dV: (128·(HD + 8) + 4·BC·(HD + 8) + 128·(BC
+//   + 8))·2 + 16·BC bytes: 37,888 at HD 16, 50,176 at 32, 74,752 at 64,
+//   123,904 at 128, 145,920 at 256; dQ: (128 + 4·BC)·(HD + 8)·2 + 128·(BC +
+//   8) bytes: 27,648, 39,936, 64,512, 113,664, 140,288.
+//   Registers (nvcc -Xptxas -v for sm_90a, 256 threads): dK/dV, one block
+//   an SM, 93-98 at HD 16, 120-136 at 32, 132-163 at 64, 168-198 at 128,
+//   237-242 at 256; dQ, two blocks an SM up to HD 128, 84-87, 108-120,
+//   123-128, 126-128, and one at 256, 165-180; the sum kernel 32; no
+//   spills.  On an H100 SXM at 700 W this body takes 2.35-2.49 ms at
+//   danube's train shape (the first port 22.07-22.13, SDPA's backward with
+//   a boolean mask 2.40-2.77): dK/dV 1.41, dQ 0.89.  At recurrentgemma's (1, 10, 4096, 256) kv 1, window 2048, the
+//   whole group in a block took 2.41-2.48 ms, 1.7-1.8 of it dK/dV; split
+//   into 5 parts (320 blocks) it takes 1.35-1.51 (2 parts 1.52, 10 parts
+//   1.39).  Forced splits at danube's shape (2 parts 2.55 ms, 4 parts 2.49)
+//   gained nothing there.  In trials on the card these were not kept: dQ at
+//   one block an SM (1.17 ms instead of 0.89); BC = 32 at HD 128 (3.15 ms
+//   in all), and with it two blocks an SM for dK/dV too (2.38 ms, but 4-8
+//   bytes of spills).  wgmma and TMA (FlashAttention-3's backward) are left
+//   to later work.
 
 namespace bw {
 
@@ -843,26 +917,18 @@ struct Cfg {
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename E> __device__ __forceinline__ E from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-// P and dS as the products' operands: bf16 in the bf16 body
-template <typename E>
-__device__ __forceinline__ float operand(float x) { return to_f32(from_f32<E>(x)); }
 
-// T rows of hd elements from rows row0… of a strided tensor into a padded f32
+// T rows of hd floats from rows row0… of a strided tensor into a padded
 // tile of HD columns; rows at or past S and columns at or past hd are 0.
-template <int HD, typename E>
-__device__ __forceinline__ void load_tile(float* tile, const E* src,
+template <int HD>
+__device__ __forceinline__ void load_tile(float* tile, const float* src,
                                           long long stride, int row0, int S,
                                           int hd) {
   constexpr int T = Cfg<HD>::T, LD = Cfg<HD>::LD;
   for (int i = threadIdx.x; i < T * HD; i += kThreads) {
     const int r = i / HD, c = i % HD;
     const int pos = row0 + r;
-    tile[r * LD + c] = pos < S && c < hd ? to_f32(src[pos * stride + c]) : 0.0f;
+    tile[r * LD + c] = pos < S && c < hd ? src[pos * stride + c] : 0.0f;
   }
 }
 
@@ -897,11 +963,10 @@ __device__ __forceinline__ void tile_abt(float (&s)[Cfg<HD>::SR][Cfg<HD>::SR],
   }
 }
 
-// P and dS of one (query tile q0, key tile k0) pair, rounded as operands,
-// into Ps and dSs: [key][query] with kTrans (the dK/dV pass), else
+// P and dS of one (query tile q0, key tile k0) pair into Ps and dSs: [key][query] with kTrans (the dK/dV pass), else
 // [query][key].  Qs, dOs, Ks, Vs hold the tiles; lse2_s (log2 domain) and
 // D_s the query rows'.
-template <int HD, typename E, bool kTrans>
+template <int HD, bool kTrans>
 __device__ __forceinline__ void scores(float* Ps, float* dSs, const float* Qs,
                                        const float* dOs, const float* Ks,
                                        const float* Vs, const float* lse2_s,
@@ -923,8 +988,8 @@ __device__ __forceinline__ void scores(float* Ps, float* dSs, const float* Qs,
       const float p = ok ? exp2f(s[i][j] * scale_log2 - lse2_s[qr]) : 0.0f;
       const float ds = p * (dp[i][j] - D_s[qr]);
       const int at = kTrans ? kc * LDT + qr : qr * LDT + kc;
-      Ps[at] = operand<E>(p);
-      dSs[at] = operand<E>(ds);
+      Ps[at] = p;
+      dSs[at] = ds;
     }
   }
 }
@@ -966,8 +1031,8 @@ __device__ __forceinline__ void tile_ab(float (&acc)[Cfg<HD>::R][Cfg<HD>::CV][4]
 }
 
 // rows row0 + rg·R + i (< S) of acc · mul into a strided tensor, hd columns
-template <int HD, typename E>
-__device__ __forceinline__ void store_rows(E* dst, long long stride,
+template <int HD>
+__device__ __forceinline__ void store_rows(float* dst, long long stride,
                                            const float (&acc)[Cfg<HD>::R][Cfg<HD>::CV][4],
                                            float mul, int row0, int S, int hd,
                                            int rg, int cg) {
@@ -981,7 +1046,7 @@ __device__ __forceinline__ void store_rows(E* dst, long long stride,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = 4 * cg + 4 * C::CG * c + e;
-        if (col < hd) dst[row * stride + col] = from_f32<E>(acc[i][c][e] * mul);
+        if (col < hd) dst[row * stride + col] = acc[i][c][e] * mul;
       }
   }
 }
@@ -1013,12 +1078,12 @@ flash_bwd_dot_kernel(const E* __restrict__ o, const E* __restrict__ dO,
 }
 
 // dK, dV of one (b, kv head, key tile), summed over the group's query heads
-template <int HD, typename E>
+template <int HD>
 __global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_dkdv_kernel(const E* __restrict__ q, const E* __restrict__ k,
-                      const E* __restrict__ v, const E* __restrict__ dO,
+flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, const float* __restrict__ dO,
                       const float* __restrict__ lse, const float* __restrict__ D,
-                      E* __restrict__ dk, E* __restrict__ dv, int H, int S,
+                      float* __restrict__ dk, float* __restrict__ dv, int H, int S,
                       int hd, int group, int window, float scale_log2,
                       float scale, BwdStrides st) {
   using C = Cfg<HD>;
@@ -1053,8 +1118,8 @@ flash_bwd_dkdv_kernel(const E* __restrict__ q, const E* __restrict__ k,
 
   for (int g = 0; g < group; ++g) {
     const int h = hk * group + g;
-    const E* qb = q + bi * st.q[0] + h * st.q[1];
-    const E* db = dO + bi * st.dO[0] + h * st.dO[1];
+    const float* qb = q + bi * st.q[0] + h * st.q[1];
+    const float* db = dO + bi * st.dO[0] + h * st.dO[1];
     const long long lrow = (static_cast<long long>(bi) * H + h) * S;
     for (int qt = qt_lo; qt <= qt_hi; ++qt) {
       const int q0 = qt * T;
@@ -1067,7 +1132,7 @@ flash_bwd_dkdv_kernel(const E* __restrict__ q, const E* __restrict__ k,
         D_s[r] = in ? D[lrow + q0 + r] : 0.0f;
       }
       __syncthreads();
-      scores<HD, E, true>(PT, dST, Qs, dOs, Ks, Vs, lse2_s, D_s, q0, k0, S,
+      scores<HD, true>(PT, dST, Qs, dOs, Ks, Vs, lse2_s, D_s, q0, k0, S,
                           window, scale_log2);
       __syncthreads();
       tile_ab<HD>(acc_v, PT, dOs, rg, cg);   // dV += Pᵀ·dO
@@ -1081,12 +1146,12 @@ flash_bwd_dkdv_kernel(const E* __restrict__ q, const E* __restrict__ k,
 }
 
 // dQ of one (b, head, query tile)
-template <int HD, typename E>
+template <int HD>
 __global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_dq_kernel(const E* __restrict__ q, const E* __restrict__ k,
-                    const E* __restrict__ v, const E* __restrict__ dO,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dO,
                     const float* __restrict__ lse, const float* __restrict__ D,
-                    E* __restrict__ dq, int H, int S, int hd, int group,
+                    float* __restrict__ dq, int H, int S, int hd, int group,
                     int window, float scale_log2, float scale, BwdStrides st) {
   using C = Cfg<HD>;
   constexpr int T = C::T, LD = C::LD, LDT = C::LDT, R = C::R, CV = C::CV, CG = C::CG;
@@ -1115,8 +1180,8 @@ flash_bwd_dq_kernel(const E* __restrict__ q, const E* __restrict__ k,
     lse2_s[r] = in ? lse[lrow + q0 + r] * 1.4426950408889634f : 0.0f;
     D_s[r] = in ? D[lrow + q0 + r] : 0.0f;
   }
-  const E* kb = k + bi * st.k[0] + hk * st.k[1];
-  const E* vb = v + bi * st.v[0] + hk * st.v[1];
+  const float* kb = k + bi * st.k[0] + hk * st.k[1];
+  const float* vb = v + bi * st.v[0] + hk * st.v[1];
 
   float acc[R][CV][4];
 #pragma unroll
@@ -1132,7 +1197,7 @@ flash_bwd_dq_kernel(const E* __restrict__ q, const E* __restrict__ k,
     load_tile<HD>(Ks, kb, st.k[2], k0, S, hd);
     load_tile<HD>(Vs, vb, st.v[2], k0, S, hd);
     __syncthreads();
-    scores<HD, E, false>(Ps, dSs, Qs, dOs, Ks, Vs, lse2_s, D_s, q0, k0, S,
+    scores<HD, false>(Ps, dSs, Qs, dOs, Ks, Vs, lse2_s, D_s, q0, k0, S,
                          window, scale_log2);
     __syncthreads();
     tile_ab<HD>(acc, dSs, Ks, rg, cg);       // dQ += dS·K
@@ -1141,7 +1206,19 @@ flash_bwd_dq_kernel(const E* __restrict__ q, const E* __restrict__ k,
                  hd, rg, cg);
 }
 
-template <int HD, typename E>
+// D = rowsum(dO ∘ O) for the B·H·S rows, either body's first launch
+template <typename E>
+int launch_dot(const void* o, const void* dO, void* D, int B, int H, int S,
+               int hd, const BwdStrides& st, cudaStream_t stream) {
+  const long long rows = static_cast<long long>(B) * H * S;
+  flash_bwd_dot_kernel<E><<<static_cast<unsigned>((rows + kThreads / 32 - 1) / (kThreads / 32)),
+                            kThreads, 0, stream>>>(
+      static_cast<const E*>(o), static_cast<const E*>(dO), static_cast<float*>(D),
+      H, S, hd, rows, st);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD>
 int launch_bwd(const void* q, const void* k, const void* v, const void* o,
                const void* lse, const void* dO, void* dq, void* dk, void* dv,
                void* D, int B, int H, int KV, int S, int hd, int window,
@@ -1149,42 +1226,600 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
   constexpr int bytes = Cfg<HD>::kSmemBytes, T = Cfg<HD>::T;
   const float sl2 = scale_log2(hd);
   const float scale = 1.0f / sqrtf(static_cast<float>(hd));
-  const long long rows = static_cast<long long>(B) * H * S;
-  flash_bwd_dot_kernel<E><<<static_cast<unsigned>((rows + kThreads / 32 - 1) / (kThreads / 32)),
-                            kThreads, 0, stream>>>(
-      static_cast<const E*>(o), static_cast<const E*>(dO), static_cast<float*>(D),
-      H, S, hd, rows, st);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = static_cast<cudaError_t>(launch_dot<float>(o, dO, D, B, H, S, hd, st, stream));
   if (err != cudaSuccess) return static_cast<int>(err);
-  auto dkdv = flash_bwd_dkdv_kernel<HD, E>;
+  auto dkdv = flash_bwd_dkdv_kernel<HD>;
   err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles = (S + T - 1) / T;
   dkdv<<<dim3(tiles, KV, B), kThreads, bytes, stream>>>(
-      static_cast<const E*>(q), static_cast<const E*>(k), static_cast<const E*>(v),
-      static_cast<const E*>(dO), static_cast<const float*>(lse),
-      static_cast<const float*>(D), static_cast<E*>(dk), static_cast<E*>(dv), H, S,
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dO), static_cast<const float*>(lse),
+      static_cast<const float*>(D), static_cast<float*>(dk), static_cast<float*>(dv), H, S,
       hd, H / KV, window, sl2, scale, st);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  auto dqk = flash_bwd_dq_kernel<HD, E>;
+  auto dqk = flash_bwd_dq_kernel<HD>;
   err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   dqk<<<dim3(tiles, H, B), kThreads, bytes, stream>>>(
-      static_cast<const E*>(q), static_cast<const E*>(k), static_cast<const E*>(v),
-      static_cast<const E*>(dO), static_cast<const float*>(lse),
-      static_cast<const float*>(D), static_cast<E*>(dq), H, S, hd, H / KV, window,
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dO), static_cast<const float*>(lse),
+      static_cast<const float*>(D), static_cast<float*>(dq), H, S, hd, H / KV, window,
       sl2, scale, st);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename E>
+}  // namespace bw
+
+// -------------------------------------------- backward, bf16 tensor cores
+
+namespace tcb {
+
+using tc::bf16;
+constexpr int kThreads = 256;  // 8 warps: 4 row groups of 16 × 2 column halves
+constexpr int kRows = 64;      // rows of a block: keys (dK/dV) or queries (dQ)
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int HD>
+struct Cfg {
+  static constexpr int LD = tc::Cfg<HD>::LD;      // the forward's padded row
+  static constexpr int BC = HD == 256 ? 32 : 64;  // columns of a pair's tile
+  static constexpr int LDP = BC + 8;              // padded bf16 row of P or dS
+  static constexpr int NJ = BC / 16;  // 8-column mma tiles of a warp's scores
+  static constexpr int NI = HD / 16;  // 8-column mma tiles of a warp's gradient
+  // K, V; two stages of Q and dO; Pᵀ and dSᵀ; two stages of lse and D
+  static constexpr int kDkdvSmem =
+      (2 * kRows * LD + 4 * BC * LD + 2 * kRows * LDP) * 2 + 4 * BC * 4;
+  // Q, dO; two stages of K and V; dS
+  static constexpr int kDqSmem = (2 * kRows * LD + 4 * BC * LD + kRows * LDP) * 2;
+};
+
+// x = R1·C1ᵀ and y = R2·C2ᵀ on this warp's 16 rows (row group rw) and BC/2
+// columns (half cw) of a pair's 64 × BC score tiles, in the mma's f32
+// accumulators.  R1, R2: [64][LD] row tiles; C1, C2: [BC][LD] column tiles.
+template <int HD>
+__device__ __forceinline__ void tile_scores(float (&x)[Cfg<HD>::NJ][4],
+                                            float (&y)[Cfg<HD>::NJ][4],
+                                            const bf16* R1, const bf16* R2,
+                                            const bf16* C1, const bf16* C2,
+                                            int rw, int cw, int lane) {
+  using C = Cfg<HD>;
+  constexpr int LD = C::LD, NJ = C::NJ;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    x[j][0] = x[j][1] = x[j][2] = x[j][3] = 0.0f;
+    y[j][0] = y[j][1] = y[j][2] = y[j][3] = 0.0f;
+  }
+  // ldmatrix rows of this lane, as the forward reads Q (A) and K (B)
+  const int a_off = (rw * 16 + lane % 16) * LD + (lane / 16) * 8;
+  const int b_off = (cw * (C::BC / 2) + lane % 8 + (lane / 16) * 8) * LD +
+                    ((lane / 8) % 2) * 8;
+#pragma unroll
+  for (int kk = 0; kk < HD; kk += 16) {
+    uint32_t a1[4], a2[4];
+    tc::ldmatrix_x4(a1, smem_u32(R1 + a_off + kk));
+    tc::ldmatrix_x4(a2, smem_u32(R2 + a_off + kk));
+#pragma unroll
+    for (int j = 0; j < NJ; j += 2) {
+      uint32_t b[4];
+      tc::ldmatrix_x4(b, smem_u32(C1 + b_off + j * 8 * LD + kk));
+      tc::mma_bf16(x[j], a1, b[0], b[1]);
+      tc::mma_bf16(x[j + 1], a1, b[2], b[3]);
+      tc::ldmatrix_x4(b, smem_u32(C2 + b_off + j * 8 * LD + kk));
+      tc::mma_bf16(y[j], a2, b[0], b[1]);
+      tc::mma_bf16(y[j + 1], a2, b[2], b[3]);
+    }
+  }
+}
+
+// This warp's 16 × BC/2 part of a score tile, rounded to bf16, into the
+// shared [64][LDP] tile P (row-major, as the accumulators lie)
+template <int HD>
+__device__ __forceinline__ void store_scores(bf16* P, const float (&x)[Cfg<HD>::NJ][4],
+                                             int rw, int cw, int lane) {
+  using C = Cfg<HD>;
+  bf16* row = P + (rw * 16 + lane / 4) * C::LDP + cw * (C::BC / 2) + 2 * (lane % 4);
+#pragma unroll
+  for (int j = 0; j < C::NJ; ++j) {
+    *reinterpret_cast<uint32_t*>(row + j * 8) = tc::pack_bf16(x[j][0], x[j][1]);
+    *reinterpret_cast<uint32_t*>(row + 8 * C::LDP + j * 8) =
+        tc::pack_bf16(x[j][2], x[j][3]);
+  }
+}
+
+// acc += A·B on this warp's 16 rows (row group rw) and HD/2 columns (half
+// cw): A the shared [64][LDP] P or dS tile (by ldmatrix), B a [BC][LD]
+// column tile whose rows are the product's depth (by ldmatrix.trans, as the
+// forward reads V).
+template <int HD>
+__device__ __forceinline__ void tile_product(float (&acc)[Cfg<HD>::NI][4],
+                                             const bf16* A, const bf16* B,
+                                             int rw, int cw, int lane) {
+  using C = Cfg<HD>;
+  constexpr int LD = C::LD, NI = C::NI;
+  const int a_off = (rw * 16 + lane % 16) * C::LDP + (lane / 16) * 8;
+  const int b_off = (lane % 8 + ((lane / 8) % 2) * 8) * LD + cw * (HD / 2) +
+                    (lane / 16) * 8;
+#pragma unroll
+  for (int ks = 0; ks < C::BC; ks += 16) {
+    uint32_t a[4];
+    tc::ldmatrix_x4(a, smem_u32(A + a_off + ks));
+    if constexpr (NI == 1) {  // HD 16: one 8-column tile a warp
+      uint32_t b[2];
+      tc::ldmatrix_x2_trans(b, smem_u32(B + b_off + ks * LD));
+      tc::mma_bf16(acc[0], a, b[0], b[1]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < NI; i += 2) {
+        uint32_t b[4];
+        tc::ldmatrix_x4_trans(b, smem_u32(B + b_off + ks * LD + i * 8));
+        tc::mma_bf16(acc[i], a, b[0], b[1]);
+        tc::mma_bf16(acc[i + 1], a, b[2], b[3]);
+      }
+    }
+  }
+}
+
+// rows r0 and r0 + 8 (< S) of this warp's HD/2 gradient columns, times mul,
+// rounded to bf16 once (hd is even: col < hd covers col + 1)
+template <int HD>
+__device__ __forceinline__ void store_grad(bf16* dst, long long stride,
+                                           const float (&acc)[Cfg<HD>::NI][4],
+                                           float mul, int r0, int S, int hd,
+                                           int cw, int lane) {
+  const int r1 = r0 + 8;
+#pragma unroll
+  for (int i = 0; i < Cfg<HD>::NI; ++i) {
+    const int col = cw * (HD / 2) + i * 8 + 2 * (lane % 4);
+    if (col >= hd) continue;  // the padding's columns are not stored
+    if (r0 < S)
+      *reinterpret_cast<uint32_t*>(dst + r0 * stride + col) =
+          tc::pack_bf16(acc[i][0] * mul, acc[i][1] * mul);
+    if (r1 < S)
+      *reinterpret_cast<uint32_t*>(dst + r1 * stride + col) =
+          tc::pack_bf16(acc[i][2] * mul, acc[i][3] * mul);
+  }
+}
+
+// rows r0 and r0 + 8 (< S) of this warp's HD/2 gradient columns, in f32,
+// into a partial sum's [S][hd] rows
+template <int HD>
+__device__ __forceinline__ void store_part(float* dst, const float (&acc)[Cfg<HD>::NI][4],
+                                           int r0, int S, int hd, int cw, int lane) {
+  const int r1 = r0 + 8;
+#pragma unroll
+  for (int i = 0; i < Cfg<HD>::NI; ++i) {
+    const int col = cw * (HD / 2) + i * 8 + 2 * (lane % 4);
+    if (col >= hd) continue;
+    if (r0 < S)
+      *reinterpret_cast<float2*>(dst + static_cast<long long>(r0) * hd + col) =
+          make_float2(acc[i][0], acc[i][1]);
+    if (r1 < S)
+      *reinterpret_cast<float2*>(dst + static_cast<long long>(r1) * hd + col) =
+          make_float2(acc[i][2], acc[i][3]);
+  }
+}
+
+// dK, dV of one (b, kv head, 64-key tile), summed over `heads` consecutive
+// query heads of the group (all of it, or part hp of group / heads parts)
+// and the query tiles of BC rows that see the key tile.  The whole group
+// stores bf16 into dk and dv; a part stores its f32 sums into `part`
+// ([2: dK, dV][parts][B][KV][S][hd]), which flash_bwd_tc_sum_kernel adds.
+template <int HD, int kBytes>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_tc_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, const bf16* __restrict__ dO,
+                         const float* __restrict__ lse, const float* __restrict__ D,
+                         bf16* __restrict__ dk, bf16* __restrict__ dv,
+                         float* __restrict__ part, int H, int S, int hd, int group,
+                         int heads, int window, float scale_log2, float scale,
+                         bw::BwdStrides st) {
+  using C = Cfg<HD>;
+  constexpr int LD = C::LD, BC = C::BC, NJ = C::NJ, NI = C::NI;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [64][LD]
+  bf16* Vs = Ks + kRows * LD;                    // [64][LD]
+  bf16* Qs = Vs + kRows * LD;                    // [2][BC][LD]
+  bf16* dOs = Qs + 2 * BC * LD;                  // [2][BC][LD]
+  bf16* PT = dOs + 2 * BC * LD;                  // [64 keys][LDP]: Pᵀ
+  bf16* dST = PT + kRows * C::LDP;               // [64 keys][LDP]: dSᵀ
+  float* lse_s = reinterpret_cast<float*>(dST + kRows * C::LDP);  // [2][BC]
+  float* D_s = lse_s + 2 * BC;                                    // [2][BC]
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int rw = warp % 4, cw = warp / 4;
+  // key tiles ascending, each across every (kv head, part) before the next
+  const long long lin = static_cast<long long>(blockIdx.y) * gridDim.x + blockIdx.x;
+  const int k0 = static_cast<int>(lin / gridDim.y) * kRows;
+  const int parts = group / heads, hy = static_cast<int>(lin % gridDim.y);
+  const int hk = hy / parts, hp = hy % parts, bi = blockIdx.z;
+  const int k_last = min(k0 + kRows, S) - 1;
+  const int qt_lo = k0 / BC;
+  const int qt_hi = (window > 0 ? min(S - 1, k_last + window - 1) : S - 1) / BC;
+  const int nq = qt_hi - qt_lo + 1, pairs = heads * nq;
+
+  // pair p: query head hk·G + hp·heads + p / nq, query tile qt_lo + p % nq,
+  // with its lse and D rows, into ring stage `stage`
+  auto load_pair = [&](int p, int stage) {
+    const int h = hk * group + hp * heads + p / nq, q0 = (qt_lo + p % nq) * BC;
+    tc::load_tile<HD, BC, kBytes, kThreads>(Qs + stage * BC * LD,
+                                            q + bi * st.q[0] + h * st.q[1],
+                                            st.q[2], q0, S, hd, tid);
+    tc::load_tile<HD, BC, kBytes, kThreads>(dOs + stage * BC * LD,
+                                            dO + bi * st.dO[0] + h * st.dO[1],
+                                            st.dO[2], q0, S, hd, tid);
+    if (tid < 2 * BC) {
+      const int r = tid % BC, pos = q0 + r;
+      const bool in = pos < S;
+      const float* src = (tid < BC ? lse : D) +
+                         (in ? (static_cast<long long>(bi) * H + h) * S + pos : 0);
+      tc::cp_async<4>(smem_u32((tid < BC ? lse_s : D_s) + stage * BC + r), src, in);
+    }
+  };
+
+  tc::load_tile<HD, kRows, kBytes, kThreads>(Ks, k + bi * st.k[0] + hk * st.k[1],
+                                             st.k[2], k0, S, hd, tid);
+  tc::load_tile<HD, kRows, kBytes, kThreads>(Vs, v + bi * st.v[0] + hk * st.v[1],
+                                             st.v[2], k0, S, hd, tid);
+  load_pair(0, 0);
+  cp_async_commit();
+
+  float acc_k[NI][4], acc_v[NI][4];
+#pragma unroll
+  for (int i = 0; i < NI; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[i][e] = acc_v[i][e] = 0.0f;
+  const int kr = k0 + rw * 16 + lane / 4;  // this thread's keys kr, kr + 8
+
+  for (int p = 0; p < pairs; ++p) {
+    const int stage = p & 1;
+    cp_async_wait_all();
+    __syncthreads();  // pair p is in; every warp is done with pair p − 1
+    if (p + 1 < pairs) load_pair(p + 1, stage ^ 1);
+    cp_async_commit();
+    const bf16* Qc = Qs + stage * BC * LD;
+    const bf16* dOc = dOs + stage * BC * LD;
+    const float* lse_c = lse_s + stage * BC;
+    const float* D_c = D_s + stage * BC;
+    const int q0 = (qt_lo + p % nq) * BC;
+
+    float x[NJ][4], y[NJ][4];
+    tile_scores<HD>(x, y, Ks, Vs, Qc, dOc, rw, cw, lane);  // Sᵀ = K·Qᵀ, dPᵀ = V·dOᵀ
+
+    // Pᵀ and dSᵀ: lse and D by the accumulator's column, the query; masked
+    // only on tiles that cross the diagonal, the window's edge or S
+    const bool inside = k0 + kRows - 1 <= q0 && q0 + BC <= S &&
+                        (window <= 0 || k0 > q0 + BC - 1 - window);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int c = cw * (BC / 2) + j * 8 + 2 * (lane % 4);
+      const float2 l2 = *reinterpret_cast<const float2*>(lse_c + c);
+      const float2 d2 = *reinterpret_cast<const float2*>(D_c + c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kp = kr + (e >= 2 ? 8 : 0), qp = q0 + c + (e & 1);
+        const bool ok = inside || (kp <= qp && qp < S && (window <= 0 || kp > qp - window));
+        const float lq = ((e & 1) ? l2.y : l2.x) * kLog2e;
+        const float pr = ok ? exp2f(x[j][e] * scale_log2 - lq) : 0.0f;
+        x[j][e] = pr;
+        y[j][e] = pr * (y[j][e] - ((e & 1) ? d2.y : d2.x));
+      }
+    }
+    store_scores<HD>(PT, x, rw, cw, lane);
+    store_scores<HD>(dST, y, rw, cw, lane);
+    __syncthreads();  // Pᵀ and dSᵀ are whole
+    tile_product<HD>(acc_v, PT, dOc, rw, cw, lane);   // dV += Pᵀ·dO
+    tile_product<HD>(acc_k, dST, Qc, rw, cw, lane);   // dK += dSᵀ·Q
+  }
+  if (part == nullptr) {
+    store_grad<HD>(dk + bi * st.dk[0] + hk * st.dk[1], st.dk[2], acc_k, scale, kr, S,
+                   hd, cw, lane);
+    store_grad<HD>(dv + bi * st.dv[0] + hk * st.dv[1], st.dv[2], acc_v, 1.0f, kr, S,
+                   hd, cw, lane);
+  } else {
+    const int KV = gridDim.y / parts;
+    const long long slab = static_cast<long long>(S) * hd;
+    const long long per_part = gridDim.z * KV * slab;  // one part of dK or dV
+    float* pk = part + hp * per_part + (static_cast<long long>(bi) * KV + hk) * slab;
+    store_part<HD>(pk, acc_k, kr, S, hd, cw, lane);
+    store_part<HD>(pk + parts * per_part, acc_v, kr, S, hd, cw, lane);
+  }
+}
+
+// dK = scale · Σ_p part_p and dV = Σ_p part_p, the parts added in order
+// (deterministic), rounded to bf16 once; blockIdx.y: 0 dK, 1 dV.  Two
+// columns a thread (hd is even).
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_tc_sum_kernel(const float* __restrict__ part, int parts, int KV, int S,
+                        int hd, long long per_part, float scale,
+                        bf16* __restrict__ dk, bf16* __restrict__ dv,
+                        bw::BwdStrides st) {
+  const bool is_v = blockIdx.y == 1;
+  const float2* src = reinterpret_cast<const float2*>(part + (is_v ? parts * per_part : 0));
+  const long long half = per_part / 2;
+  const float mul = is_v ? 1.0f : scale;
+  for (long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+       i < half; i += static_cast<long long>(gridDim.x) * kThreads) {
+    float2 sum = src[i];
+    for (int p = 1; p < parts; ++p) {
+      const float2 t = src[p * half + i];
+      sum.x += t.x;
+      sum.y += t.y;
+    }
+    const long long row = 2 * i / hd;
+    const int col = static_cast<int>(2 * i - row * hd), pos = static_cast<int>(row % S);
+    const long long bh = row / S;
+    const long long b = bh / KV, h = bh % KV;
+    bf16* dst = is_v ? dv + b * st.dv[0] + h * st.dv[1] + pos * st.dv[2]
+                     : dk + b * st.dk[0] + h * st.dk[1] + pos * st.dk[2];
+    *reinterpret_cast<uint32_t*>(dst + col) = tc::pack_bf16(sum.x * mul, sum.y * mul);
+  }
+}
+
+// The parts each GQA group's dK/dV blocks are split into (a divisor of the
+// group: 1 keeps the sum in one block).  Where the (key tile, kv head, b)
+// grid leaves the SMs idle, at most one block each, the longest block is
+// the group's walk of the first key tile; the group is split into the
+// fewest parts that bring it down to an SM's share of all the walks
+// (pairs_max · heads ≤ Σ pairs · G · KV · B / slots).
+template <int HD>
+int dkdv_split(int B, int KV, int S, int group, int window, long long slots, int* parts) {
+  const int tiles = (S + kRows - 1) / kRows;
+  const long long blocks = static_cast<long long>(tiles) * KV * B;
+  *parts = 1;
+  if (blocks >= slots) return static_cast<int>(cudaSuccess);
+  long long sum = 0, most = 0;  // query tiles the key tiles see: Σ and max
+  for (int t = 0; t < tiles; ++t) {
+    const int k0 = t * kRows, k_last = (k0 + kRows < S ? k0 + kRows : S) - 1;
+    const int seen = window > 0 && k_last + window - 1 < S - 1 ? k_last + window - 1 : S - 1;
+    const long long nq = seen / Cfg<HD>::BC - k0 / Cfg<HD>::BC + 1;
+    sum += nq;
+    most = nq > most ? nq : most;
+  }
+  for (int d = 1; d <= group; ++d) {
+    if (group % d) continue;
+    *parts = d;
+    if (most * (group / d) * slots <= sum * group * KV * B) break;
+  }
+  return static_cast<int>(cudaSuccess);
+}
+
+template <int HD>
+int dkdv_parts(int B, int KV, int S, int group, int window, int* parts) {
+  using C = Cfg<HD>;
+  static int slots_of[64] = {};  // resident dK/dV blocks of a device, once known
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int slots = device < 64 ? slots_of[device] : 0;
+  if (slots == 0) {
+    auto kernel = flash_bwd_tc_dkdv_kernel<HD, 16>;
+    int sms = 0, per_sm = 0;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               C::kDkdvSmem);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
+                                                          C::kDkdvSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    slots = sms * per_sm;
+    if (device < 64) slots_of[device] = slots;
+  }
+  return dkdv_split<HD>(B, KV, S, group, window, slots, parts);
+}
+
+// Floats of the scratch the bf16 backward takes: D's B·H·S, then, where
+// the dK/dV grid is split, its f32 partial sums from a 16-byte boundary.
+long long part_offset(int B, int H, int S) {
+  return (static_cast<long long>(B) * H * S + 3) / 4 * 4;
+}
+
+// dQ of one (b, head, 64-query tile), over the key tiles of BC keys it sees;
+// two blocks an SM up to HD 128 (128 registers, no spills)
+template <int HD, int kBytes>
+__global__ void __launch_bounds__(kThreads, HD <= 128 ? 2 : 1)
+flash_bwd_tc_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, const bf16* __restrict__ dO,
+                       const float* __restrict__ lse, const float* __restrict__ D,
+                       bf16* __restrict__ dq, int H, int S, int hd, int group,
+                       int window, float scale_log2, float scale,
+                       bw::BwdStrides st) {
+  using C = Cfg<HD>;
+  constexpr int LD = C::LD, BC = C::BC, NJ = C::NJ, NI = C::NI;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [64][LD]
+  bf16* dOs = Qs + kRows * LD;                   // [64][LD]
+  bf16* Ks = dOs + kRows * LD;                   // [2][BC][LD]
+  bf16* Vs = Ks + 2 * BC * LD;                   // [2][BC][LD]
+  bf16* dSs = Vs + 2 * BC * LD;                  // [64 queries][LDP]
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int rw = warp % 4, cw = warp / 4;
+  // query tiles descending (the last see the most keys), each across every
+  // head before the next
+  const long long lin = static_cast<long long>(blockIdx.y) * gridDim.x + blockIdx.x;
+  const int q0 = (static_cast<int>(gridDim.x) - 1 - static_cast<int>(lin / gridDim.y)) * kRows;
+  const int h = static_cast<int>(lin % gridDim.y), bi = blockIdx.z, hk = h / group;
+  const int q_last = min(q0 + kRows, S) - 1;
+  const int kt_lo = window > 0 ? max(0, q0 - window + 1) / BC : 0;
+  const int kt_hi = q_last / BC;
+  const bf16* kb = k + bi * st.k[0] + hk * st.k[1];
+  const bf16* vb = v + bi * st.v[0] + hk * st.v[1];
+
+  tc::load_tile<HD, kRows, kBytes, kThreads>(Qs, q + bi * st.q[0] + h * st.q[1],
+                                             st.q[2], q0, S, hd, tid);
+  tc::load_tile<HD, kRows, kBytes, kThreads>(dOs, dO + bi * st.dO[0] + h * st.dO[1],
+                                             st.dO[2], q0, S, hd, tid);
+  tc::load_tile<HD, BC, kBytes, kThreads>(Ks, kb, st.k[2], kt_lo * BC, S, hd, tid);
+  tc::load_tile<HD, BC, kBytes, kThreads>(Vs, vb, st.v[2], kt_lo * BC, S, hd, tid);
+  cp_async_commit();
+
+  // this thread's rows r0, r0 + 8: lse (log2 domain) and D in registers
+  const int r0 = q0 + rw * 16 + lane / 4, r1 = r0 + 8;
+  const long long lrow = (static_cast<long long>(bi) * H + h) * S;
+  const float l0 = r0 < S ? lse[lrow + r0] * kLog2e : 0.0f;
+  const float l1 = r1 < S ? lse[lrow + r1] * kLog2e : 0.0f;
+  const float d0 = r0 < S ? D[lrow + r0] : 0.0f;
+  const float d1 = r1 < S ? D[lrow + r1] : 0.0f;
+
+  float acc[NI][4];
+#pragma unroll
+  for (int i = 0; i < NI; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.0f;
+
+  for (int kt = kt_lo; kt <= kt_hi; ++kt) {
+    const int stage = (kt - kt_lo) & 1;
+    cp_async_wait_all();
+    __syncthreads();  // tile kt is in; every warp is done with kt − 1
+    if (kt < kt_hi) {
+      const int next = (stage ^ 1) * BC * LD;
+      tc::load_tile<HD, BC, kBytes, kThreads>(Ks + next, kb, st.k[2], (kt + 1) * BC, S,
+                                              hd, tid);
+      tc::load_tile<HD, BC, kBytes, kThreads>(Vs + next, vb, st.v[2], (kt + 1) * BC, S,
+                                              hd, tid);
+    }
+    cp_async_commit();
+    const bf16* Kc = Ks + stage * BC * LD;
+    const bf16* Vc = Vs + stage * BC * LD;
+
+    float x[NJ][4], y[NJ][4];
+    tile_scores<HD>(x, y, Qs, dOs, Kc, Vc, rw, cw, lane);  // S = Q·Kᵀ, dP = dO·Vᵀ
+
+    const int k0 = kt * BC;
+    const bool inside = k0 + BC - 1 <= q0 && q0 + kRows <= S &&
+                        (window <= 0 || k0 > q0 + kRows - 1 - window);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qp = e < 2 ? r0 : r1;
+        const int kp = k0 + cw * (BC / 2) + j * 8 + 2 * (lane % 4) + (e & 1);
+        const bool ok = inside || (kp <= qp && qp < S && (window <= 0 || kp > qp - window));
+        const float pr = ok ? exp2f(x[j][e] * scale_log2 - (e < 2 ? l0 : l1)) : 0.0f;
+        y[j][e] = pr * (y[j][e] - (e < 2 ? d0 : d1));
+      }
+    }
+    store_scores<HD>(dSs, y, rw, cw, lane);
+    __syncthreads();  // dS is whole
+    tile_product<HD>(acc, dSs, Kc, rw, cw, lane);  // dQ += dS·K
+  }
+  store_grad<HD>(dq + bi * st.dq[0] + h * st.dq[1], st.dq[2], acc, scale, r0, S, hd,
+                 cw, lane);
+}
+
+template <int HD, int kBytes>
+int launch_bwd(const void* q, const void* k, const void* v, const void* o,
+               const void* lse, const void* dO, void* dq, void* dk, void* dv,
+               void* D, int B, int H, int KV, int S, int hd, int window,
+               const bw::BwdStrides& st, cudaStream_t stream) {
+  using C = Cfg<HD>;
+  const float sl2 = scale_log2(hd);
+  const float scale = 1.0f / sqrtf(static_cast<float>(hd));
+  cudaError_t err = static_cast<cudaError_t>(
+      bw::launch_dot<bf16>(o, dO, D, B, H, S, hd, st, stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = (S + kRows - 1) / kRows, group = H / KV;
+  int parts = 1;
+  err = static_cast<cudaError_t>(dkdv_parts<HD>(B, KV, S, group, window, &parts));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  float* part = parts > 1 ? static_cast<float*>(D) + part_offset(B, H, S) : nullptr;
+  auto dkdv = flash_bwd_tc_dkdv_kernel<HD, kBytes>;
+  err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             C::kDkdvSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dkdv<<<dim3(tiles, KV * parts, B), kThreads, C::kDkdvSmem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dO),
+      static_cast<const float*>(lse), static_cast<const float*>(D),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), part, H, S, hd, group,
+      group / parts, window, sl2, scale, st);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (part != nullptr) {
+    const long long per_part = static_cast<long long>(B) * KV * S * hd;
+    const long long need = (per_part / 2 + kThreads - 1) / kThreads;
+    const long long blocks = need < 4096 ? need : 4096;
+    flash_bwd_tc_sum_kernel<<<dim3(static_cast<unsigned>(blocks), 2), kThreads, 0, stream>>>(
+        part, parts, KV, S, hd, per_part, scale, static_cast<bf16*>(dk),
+        static_cast<bf16*>(dv), st);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  auto dqk = flash_bwd_tc_dq_kernel<HD, kBytes>;
+  err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             C::kDqSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dqk<<<dim3(tiles, H, B), kThreads, C::kDqSmem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dO),
+      static_cast<const float*>(lse), static_cast<const float*>(D),
+      static_cast<bf16*>(dq), H, S, hd, H / KV, window, sl2, scale, st);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// cp.async copies of 16, 8 or 4 bytes, the widest that q, k, v and dO allow
+// (a choice by layout, not a fallback); the wrapper makes dO contiguous, and
+// refuses q, k, v, where their layout allows none.
+template <int HD>
+int launch_widths(const void* q, const void* k, const void* v, const void* o,
+                  const void* lse, const void* dO, void* dq, void* dk, void* dv,
+                  void* D, int B, int H, int KV, int S, int hd, int window,
+                  const bw::BwdStrides& st, cudaStream_t stream) {
+  Strides loads;  // q, k, v, and dO in the place of o
+  for (int i = 0; i < 3; ++i) {
+    loads.q[i] = st.q[i];
+    loads.k[i] = st.k[i];
+    loads.v[i] = st.v[i];
+    loads.o[i] = st.dO[i];
+  }
+  switch (copy_bytes(q, k, v, dO, loads, hd, 2, 16)) {
+    case 16: return launch_bwd<HD, 16>(q, k, v, o, lse, dO, dq, dk, dv, D, B, H, KV, S, hd, window, st, stream);
+    case 8: return launch_bwd<HD, 8>(q, k, v, o, lse, dO, dq, dk, dv, D, B, H, KV, S, hd, window, st, stream);
+    case 4: return launch_bwd<HD, 4>(q, k, v, o, lse, dO, dq, dk, dv, D, B, H, KV, S, hd, window, st, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The scratch's floats (part_offset) at the padded HD that holds hd
+int scratch_floats(int B, int H, int KV, int S, int hd, int window, long long* floats) {
+  *floats = static_cast<long long>(B) * H * S;
+  if (B <= 0 || H <= 0 || S <= 0) return static_cast<int>(cudaSuccess);
+  if (hd < 1 || hd > 256 || KV < 1 || H % KV) return static_cast<int>(cudaErrorInvalidValue);
+  const int group = H / KV;
+  int parts = 1, err;
+  if (hd <= 16) err = dkdv_parts<16>(B, KV, S, group, window, &parts);
+  else if (hd <= 32) err = dkdv_parts<32>(B, KV, S, group, window, &parts);
+  else if (hd <= 64) err = dkdv_parts<64>(B, KV, S, group, window, &parts);
+  else if (hd <= 128) err = dkdv_parts<128>(B, KV, S, group, window, &parts);
+  else err = dkdv_parts<256>(B, KV, S, group, window, &parts);
+  if (parts > 1)
+    *floats = part_offset(B, H, S) + 2LL * parts * B * KV * S * hd;
+  return err;
+}
+
+}  // namespace tcb
+
+// The backward of either dtype: bf16 on the tensor-core body, f32 on the
+// CUDA-core body, each instantiated for the smallest padded HD ≥ hd.
+template <bool kBf16, int HD>
+int launch_bwd_body(const void* q, const void* k, const void* v, const void* o,
+               const void* lse, const void* dO, void* dq, void* dk, void* dv,
+               void* D, int B, int H, int KV, int S, int hd, int window,
+               const bw::BwdStrides& st, cudaStream_t stream) {
+  if constexpr (kBf16)
+    return tcb::launch_widths<HD>(q, k, v, o, lse, dO, dq, dk, dv, D, B, H, KV, S, hd, window, st, stream);
+  else
+    return bw::launch_bwd<HD>(q, k, v, o, lse, dO, dq, dk, dv, D, B, H, KV, S, hd, window, st, stream);
+}
+
+template <bool kBf16>
 int dispatch_bwd(const void* q, const void* k, const void* v, const void* o,
                  const void* lse, const void* dO, void* dq, void* dk, void* dv,
                  void* D, int B, int H, int KV, int S, int hd, int window,
                  const long long* strides, void* stream) {
   if (B <= 0 || H <= 0 || S <= 0) return static_cast<int>(cudaSuccess);
-  BwdStrides st;
+  bw::BwdStrides st;
   for (int i = 0; i < 3; ++i) {
     st.q[i] = strides[i];
     st.k[i] = strides[3 + i];
@@ -1197,14 +1832,12 @@ int dispatch_bwd(const void* q, const void* k, const void* v, const void* o,
   }
   const auto s = static_cast<cudaStream_t>(stream);
   if (hd < 1 || hd > 256) return static_cast<int>(cudaErrorInvalidValue);
-  if (hd <= 16) return launch_bwd<16, E>(q, k, v, o, lse, dO, dq, dk, dv, D, B, H, KV, S, hd, window, st, s);
-  if (hd <= 32) return launch_bwd<32, E>(q, k, v, o, lse, dO, dq, dk, dv, D, B, H, KV, S, hd, window, st, s);
-  if (hd <= 64) return launch_bwd<64, E>(q, k, v, o, lse, dO, dq, dk, dv, D, B, H, KV, S, hd, window, st, s);
-  if (hd <= 128) return launch_bwd<128, E>(q, k, v, o, lse, dO, dq, dk, dv, D, B, H, KV, S, hd, window, st, s);
-  return launch_bwd<256, E>(q, k, v, o, lse, dO, dq, dk, dv, D, B, H, KV, S, hd, window, st, s);
+  if (hd <= 16) return launch_bwd_body<kBf16, 16>(q, k, v, o, lse, dO, dq, dk, dv, D, B, H, KV, S, hd, window, st, s);
+  if (hd <= 32) return launch_bwd_body<kBf16, 32>(q, k, v, o, lse, dO, dq, dk, dv, D, B, H, KV, S, hd, window, st, s);
+  if (hd <= 64) return launch_bwd_body<kBf16, 64>(q, k, v, o, lse, dO, dq, dk, dv, D, B, H, KV, S, hd, window, st, s);
+  if (hd <= 128) return launch_bwd_body<kBf16, 128>(q, k, v, o, lse, dO, dq, dk, dv, D, B, H, KV, S, hd, window, st, s);
+  return launch_bwd_body<kBf16, 256>(q, k, v, o, lse, dO, dq, dk, dv, D, B, H, KV, S, hd, window, st, s);
 }
-
-}  // namespace bw
 
 }  // namespace
 
@@ -1234,17 +1867,29 @@ int flash_attention_bwd_f32(const void* q, const void* k, const void* v,
                             void* dq, void* dk, void* dv, void* D, int B, int H,
                             int KV, int S, int hd, int window,
                             const long long* strides, void* stream) {
-  return bw::dispatch_bwd<float>(q, k, v, o, lse, dO, dq, dk, dv, D, B, H, KV,
-                                 S, hd, window, strides, stream);
+  return dispatch_bwd<false>(q, k, v, o, lse, dO, dq, dk, dv, D, B, H, KV, S, hd,
+                             window, strides, stream);
 }
 
+// bf16 needs what the forward's bf16 body needs of q, k, v and dO (an even
+// hd, even strides, 4-byte aligned pointers), and of dq, dk, dv for their
+// 4-byte stores; the wrapper checks this.  D is f32 scratch of
+// flash_attention_bwd_bf16_scratch's floats (B·H·S, and the dK/dV partial
+// sums where the grid is split), 16-byte aligned.
 int flash_attention_bwd_bf16(const void* q, const void* k, const void* v,
                              const void* o, const void* lse, const void* dO,
                              void* dq, void* dk, void* dv, void* D, int B,
                              int H, int KV, int S, int hd, int window,
                              const long long* strides, void* stream) {
-  return bw::dispatch_bwd<__nv_bfloat16>(q, k, v, o, lse, dO, dq, dk, dv, D, B,
-                                         H, KV, S, hd, window, strides, stream);
+  return dispatch_bwd<true>(q, k, v, o, lse, dO, dq, dk, dv, D, B, H, KV, S, hd,
+                            window, strides, stream);
+}
+
+// The floats of flash_attention_bwd_bf16's scratch D at these shapes, on
+// the current device.
+int flash_attention_bwd_bf16_scratch(int B, int H, int KV, int S, int hd,
+                                     int window, long long* floats) {
+  return tcb::scratch_floats(B, H, KV, S, hd, window, floats);
 }
 
 }  // extern "C"

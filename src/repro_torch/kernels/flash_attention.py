@@ -23,10 +23,16 @@ softmax scale is 1/√hd of the true hd.
 
 The forward writes each row's logsumexp ``lse`` (B, H, S) f32 when asked
 (``return_lse``), which is what :func:`flash_attention_bwd`, the backward
-kernel (``flash_attention_bwd_{f32,bf16}``: D, then dK/dV a key tile and dQ
-a query tile, no atomics, on the CUDA cores in f32 with P and dS rounded to
-bf16 as operands in the bf16 body), rebuilds the probabilities from; it
-has a launch counter of its own, ``bwd_launches``.
+kernel, rebuilds the probabilities from: D, then dK/dV a key tile and dQ a
+query tile, no atomics.  Its bodies are chosen by dtype too:
+``flash_attention_bwd_bf16`` runs all seven products on the tensor cores
+(``mma.sync``, Q/dO or K/V tiles by ``cp.async`` through a two-stage ring,
+P and dS rounded to bf16 as the products' operands; where the dK/dV grid
+has too few blocks for the card, each GQA group's heads are split and
+their f32 partial sums added in order, in scratch whose size
+``flash_attention_bwd_bf16_scratch`` gives);
+``flash_attention_bwd_f32`` runs on the CUDA cores in f32.  It has a launch
+counter of its own, ``bwd_launches``.
 
 Replaces :func:`repro.kernels.flash_attention.flash_attention`; the
 reference has no Pallas backward (XLA differentiates its attention).  Its plain
@@ -103,8 +109,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device) \
         if return_lse else None
     if q.dtype == torch.bfloat16 and (hd % 2 or any(
-            t.data_ptr() % 4 or any(s % 2 for s in t.stride()[:3])
-            for t in (q, k, v, o))):
+            _odd_layout(t) for t in (q, k, v, o))):
         raise ValueError("flash_attention bf16 kernel copies 4 bytes at the "
                          "least: it needs an even hd and 4-byte aligned "
                          "tensors whose (b, head, position) strides are even")
@@ -123,6 +128,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return (o, lse) if return_lse else o
 
 
+def _odd_layout(t: torch.Tensor) -> bool:
+    """Whether a bf16 tensor's layout forbids 4-byte copies: a pointer not
+    4-byte aligned or an odd (b, head, position) stride."""
+    return t.data_ptr() % 4 != 0 or any(s % 2 for s in t.stride()[:3])
+
+
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                         *, window: int = 0):
@@ -130,9 +141,14 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     memory layout (``torch.empty_like``).  q, k, v as the forward takes
     them (the same checks); o the forward's output (q's shape and dtype,
     head dimension contiguous); lse its (B, H, S) f32 logsumexp; do the
-    output's gradient, taken with its own strides when its head dimension
-    is contiguous and made contiguous otherwise.  No alignment is needed:
-    the tiles are loaded element by element."""
+    output's gradient, taken with its own strides when the body can copy
+    it as it lies.  That is a choice by layout, not a fallback: ``do`` is
+    made contiguous when its head dimension is not contiguous, and, in
+    bf16, when its pointer is not 4-byte aligned or a (b, head, position)
+    stride is odd (the bf16 body copies 4 bytes at the least).  In bf16, q,
+    k and v must allow 4-byte copies as in the forward (an even hd, even
+    strides, 4-byte aligned), since dq, dk and dv take their layout; the
+    f32 body loads element by element and needs no alignment."""
     global bwd_launches
     _check_inputs(q, k, v, window)
     B, H, S, hd = q.shape
@@ -149,14 +165,27 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention_bwd: lse must be a contiguous "
                          f"(B, H, S) float32 tensor, got {tuple(lse.shape)} "
                          f"{lse.dtype}")
-    if do.stride(-1) != 1:
-        do = do.contiguous()
+    bf16 = q.dtype == torch.bfloat16
+    if bf16 and (hd % 2 or any(_odd_layout(t) for t in (q, k, v))):
+        raise ValueError("flash_attention_bwd bf16 kernel copies 4 bytes at "
+                         "the least: it needs an even hd and 4-byte aligned "
+                         "q, k, v whose (b, head, position) strides are even")
+    if do.stride(-1) != 1 or (bf16 and _odd_layout(do)):
+        do = do.clone(memory_format=torch.contiguous_format)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    D = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 24)(*[s for t in (q, k, v, o, do, dq, dk, dv)
                                          for s in t.stride()[:3]])
-    fn = getattr(build.load("flash_attention"), _BWD_ENTRY[q.dtype])
+    lib = build.load("flash_attention")
+    fn = getattr(lib, _BWD_ENTRY[q.dtype])
     with torch.cuda.device(q.device):
+        floats = ctypes.c_longlong(B * H * S)
+        if bf16:  # D, and the dK/dV partial sums where the body splits its grid
+            err = lib.flash_attention_bwd_bf16_scratch(B, H, KV, S, hd, int(window),
+                                                       ctypes.byref(floats))
+            if err != 0:
+                raise RuntimeError(f"flash_attention_bwd scratch query failed: "
+                                   f"cudaError {err}")
+        D = torch.empty(floats.value, dtype=torch.float32, device=q.device)
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),

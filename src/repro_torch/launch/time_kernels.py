@@ -1,7 +1,7 @@
 """Time, on one CUDA card, the calls that the driven paths make most of with
-the redesigned kernels (``bfs_frontier``, ``flash_attention``,
-``rglru_scan``, ``alias_draw``, ``frame_accum``), so that two trees of the
-port can be held side by side:
+the redesigned kernels (``bfs_frontier``, ``flash_attention`` and its
+backward, ``rglru_scan`` and the scans' backward, ``alias_draw``,
+``frame_accum``), so that two trees of the port can be held side by side:
 
 - ``flash_attention`` in bf16 at ``adaptive_eval``'s shape, q (4, 10, 64,
   256) and k/v (4, 1, 64, 256), window 2048, and at recurrentgemma-2b's
@@ -20,6 +20,13 @@ port can be held side by side:
   (lanes, vertices) shapes, as recorded in the warm-up run;
 - ``rglru_scan`` at recurrentgemma-2b's prefill (2, 4096, 2560) and at
   ``adaptive_eval``'s (4, 64, 2560);
+- the backward of ``flash_attention`` in bf16 (with the forward's
+  logsumexp, q, k, v and dO as the model's views) at the train step's
+  shapes: h2o-danube-3-4b's (1, 32, 4096, 120) kv 8 window 4096,
+  recurrentgemma-2b's (1, 10, 4096, 256) kv 1 window 2048 and the training
+  CLI's smollm-360m (4, 15, 512, 64) kv 5;
+- the scans' shared backward kernel: ``rglru_scan_bwd`` at (1, 4096, 2560)
+  and ``ssm_scan_bwd`` at (1, 2048, 8192, 16), the train steps' shapes;
 - ``alias_draw`` on a 2²⁴-bucket table (the wrs path's size; random valid
   ``prob``/``alias``, not a Vose build) at 2¹⁸ draws (the wrs path's
   W·batch), 2²⁰, 2²² and 2²⁴ draws, with prob uniform on [0, 1) (half the
@@ -41,8 +48,10 @@ one that ``PYTHONPATH`` gives, so the file can time another tree::
     PYTHONPATH=old/src python src/repro_torch/launch/time_kernels.py --label old
 
 ``--only flash,frame_accum`` times only those groups (``flash``,
-``frame_accum``, ``rglru``, ``alias``, ``conformance``; the last times
-``bfs_frontier`` too).
+``frame_accum``, ``rglru``, ``flash_bwd``, ``scan_bwd``, ``alias``,
+``conformance``; the last times ``bfs_frontier`` too).  The backward groups
+call only the wrappers' public functions, so a tree from before their
+redesign times as well.
 
 Prints one JSON line.
 """
@@ -96,7 +105,8 @@ def loop_us(fn, calls: int = 200, loops: int = 5) -> float:
     return statistics.median(times)
 
 
-GROUPS = ("flash", "frame_accum", "rglru", "alias", "conformance")
+GROUPS = ("flash", "frame_accum", "rglru", "flash_bwd", "scan_bwd", "alias",
+          "conformance")
 
 
 def main(argv=None) -> dict:
@@ -160,12 +170,49 @@ def main(argv=None) -> dict:
                      "loop_us": loop_us(call)}
         del a, b
 
+    if "flash_bwd" in only:
+        time_flash_bwd(out, flush, gen)
+    if "scan_bwd" in only:
+        time_scan_bwd(out, flush, gen)
     if "alias" in only:
         time_alias_draw(out, flush, gen)
     if "conformance" in only:
         time_conformance(out, flush, args.reps)
     print(json.dumps(out), flush=True)
     return out
+
+
+def time_flash_bwd(out, flush, gen):
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+
+    for name, (B, H, KV, S, hd), window in (
+            ("flash_bwd_danube", (1, 32, 8, 4096, 120), 4096),
+            ("flash_bwd_rg", (1, 10, 1, 4096, 256), 2048),
+            ("flash_bwd_smollm_cli", (4, 15, 5, 512, 64), 0)):
+        q, k, v, do = [torch.randn((B, S, n, hd), generator=gen, device="cuda")
+                       .to(torch.bfloat16).transpose(1, 2) for n in (H, KV, KV, H)]
+        o, lse = flash_attention(q, k, v, window=window, return_lse=True)
+        call = lambda: flash_attention_bwd(q, k, v, o, lse, do, window=window)  # noqa: E731
+        out[name] = {"q": list(q.shape), "kv": list(k.shape), "window": window,
+                     "ms": event_ms(call, flush, reps=10), "loop_us": loop_us(call)}
+        del q, k, v, do, o, lse
+
+
+def time_scan_bwd(out, flush, gen):
+    from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_bwd
+    from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_bwd
+
+    for name, shape, fwd, bwd in (
+            ("rglru_scan_bwd", (1, 4096, 2560), rglru_scan, rglru_scan_bwd),
+            ("ssm_scan_bwd", (1, 2048, 8192, 16), ssm_scan, ssm_scan_bwd)):
+        a = torch.rand(shape, generator=gen, device="cuda") * 0.75 + 0.2
+        g = torch.randn(shape, generator=gen, device="cuda")
+        h = fwd(a, torch.randn(shape, generator=gen, device="cuda"))
+        call = lambda: bwd(a, h, g)  # noqa: E731
+        out[name] = {"shape": list(shape), "ms": event_ms(call, flush),
+                     "loop_us": loop_us(call)}
+        del a, g, h
 
 
 def time_alias_draw(out, flush, gen):

@@ -3,6 +3,8 @@ version.  This file imports neither JAX nor the reference, so that it runs
 on a machine that has only PyTorch: ``python -m pytest -q -m cuda tests/``.
 Without a card every test here skips."""
 
+import ctypes
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -11,6 +13,7 @@ import numpy as np
 
 from repro_torch.graphs import bfs_sssp, erdos_renyi, from_edges
 from repro_torch.kernels import alias_draw as alias_mod
+from repro_torch.kernels import build
 from repro_torch.kernels import bfs_frontier as bfs_mod
 from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.kernels import frame_accum as accum_mod
@@ -531,16 +534,18 @@ FLASH_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("window", [0, 40])
-@pytest.mark.parametrize("group", [1, 4])
+@pytest.mark.parametrize("window", [0, 40, 150])
+@pytest.mark.parametrize("group", [1, 4, 8])
 @pytest.mark.parametrize("s", [1, 64, 100, 130, 300])
 @pytest.mark.parametrize("hd", [16, 20, 32, 64, 120, 128, 256])
 def test_flash_attention_bwd_kernel_on_card(cuda_device, hd, s, group, window,
                                             dtype):
     """The forward's logsumexp and the backward kernel against the plain
     versions at every padded head dim (and 20, 120), ragged S (up to five
-    key tiles), GQA groups and windows, on the model's strided views, with
-    a strided dO; each gradient held row by row."""
+    64-row tiles, nine 32-column ones at hd 256), GQA groups up to
+    danube's 8, windows inside a tile and across several tile edges, on
+    the model's strided views, with a strided dO; each gradient held row
+    by row."""
     q, k, v = _flash_views(cuda_device, 2, s, 2 * group, 2, hd, dtype, seed=hd + s)
     gen = torch.Generator(device=cuda_device).manual_seed(7)
     o, lse = flash_mod.flash_attention(q, k, v, window=window, return_lse=True)
@@ -557,6 +562,91 @@ def test_flash_attention_bwd_kernel_on_card(cuda_device, hd, s, group, window,
     res = ref.flash_attention_bwd_check(q, k, v, o, lse, do, got, window=window,
                                         tol=FLASH_BWD_TOL[dtype])
     assert all(r["worst"] <= 1.0 for r in res.values()), res
+
+
+def _flash_bwd_inputs(device, b, s, h, kv, hd, window, seed):
+    q, k, v = _flash_views(device, b, s, h, kv, hd, torch.bfloat16, seed=seed)
+    o, lse = flash_mod.flash_attention(q, k, v, window=window, return_lse=True)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    do = torch.randn((b, s, h, hd), generator=gen, device=device
+                     ).to(torch.bfloat16).transpose(1, 2)
+    return q, k, v, o, lse, do
+
+
+@pytest.mark.parametrize("layout", ["odd position stride", "offset of 1"])
+@pytest.mark.parametrize("hd", [64, 120])
+def test_flash_attention_bwd_bf16_copies_a_do_it_cannot_load(cuda_device, hd,
+                                                             layout):
+    """A bf16 dO whose layout forbids 4-byte copies (an odd position
+    stride, or a storage offset of one element) is made contiguous by the
+    wrapper: the gradients equal those from a contiguous dO bit for bit."""
+    b, s, h = 2, 150, 8
+    q, k, v, o, lse, do = _flash_bwd_inputs(cuda_device, b, s, h, 2, hd, 0, hd)
+    if layout == "odd position stride":
+        buf = torch.zeros((b, h, s, hd + 1), dtype=torch.bfloat16, device=cuda_device)
+        buf[..., :hd] = do
+        odd = buf[..., :hd]
+    else:
+        flat = torch.empty(do.numel() + 1, dtype=torch.bfloat16, device=cuda_device)
+        flat[1:] = do.transpose(1, 2).reshape(-1)
+        odd = flat[1:].view(b, s, h, hd).transpose(1, 2)
+    assert torch.equal(odd, do) and odd.stride(-1) == 1
+    assert odd.data_ptr() % 4 or any(x % 2 for x in odd.stride()[:3])
+    before = flash_mod.bwd_launches
+    got = flash_mod.flash_attention_bwd(q, k, v, o, lse, odd, window=0)
+    exp = flash_mod.flash_attention_bwd(q, k, v, o, lse, do.contiguous(), window=0)
+    torch.cuda.synchronize()
+    assert flash_mod.bwd_launches == before + 2
+    assert all(torch.equal(g, e) for g, e in zip(got, exp))
+    res = ref.flash_attention_bwd_check(q, k, v, o, lse, odd, got, window=0,
+                                        tol=FLASH_BWD_TOL[torch.bfloat16])
+    assert all(r["worst"] <= 1.0 for r in res.values()), res
+
+
+@pytest.mark.parametrize("hd,s,group,window", [(120, 300, 8, 150), (256, 200, 1, 70),
+                                               (64, 130, 3, 0), (16, 100, 2, 40)])
+def test_flash_attention_bwd_bf16_is_deterministic_on_card(cuda_device, hd, s,
+                                                           group, window):
+    """No atomics: two calls on the same inputs give the same bits (remat's
+    recompute and resumed runs rely on it)."""
+    args = _flash_bwd_inputs(cuda_device, 2, s, 2 * group, 2, hd, window, hd + s)
+    first = flash_mod.flash_attention_bwd(*args, window=window)
+    second = flash_mod.flash_attention_bwd(*args, window=window)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+# the bf16 dK/dV grid whole (enough blocks of (b, kv head, key tile) for
+# every SM: each sums its GQA group) and split over the group's heads (too
+# few: f32 partial sums, added in order by a second kernel), recurrentgemma's
+# group of 10 and danube's window among them
+@pytest.mark.parametrize("b,s,h,kv,hd,window,split", [
+    (8, 2048, 8, 2, 64, 0, False), (4, 1100, 32, 8, 120, 600, False),
+    (1, 1024, 10, 1, 256, 512, True), (1, 700, 8, 1, 120, 0, True),
+    (2, 300, 6, 2, 64, 100, True)])
+def test_flash_attention_bwd_bf16_whole_and_split_grid_on_card(
+        cuda_device, b, s, h, kv, hd, window, split):
+    floats = ctypes.c_longlong(0)
+    with torch.cuda.device(cuda_device):
+        assert build.load("flash_attention").flash_attention_bwd_bf16_scratch(
+            b, h, kv, s, hd, window, ctypes.byref(floats)) == 0
+    assert (floats.value > b * h * s) == split
+    args = _flash_bwd_inputs(cuda_device, b, s, h, kv, hd, window, s + hd)
+    got = flash_mod.flash_attention_bwd(*args, window=window)
+    again = flash_mod.flash_attention_bwd(*args, window=window)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    res = ref.flash_attention_bwd_check(*args, got, window=window,
+                                        tol=FLASH_BWD_TOL[torch.bfloat16])
+    assert all(r["worst"] <= 1.0 for r in res.values()), res
+
+
+def test_flash_attention_bwd_bf16_refuses_unaligned_views(cuda_device):
+    q, k, v, o, lse, do = _flash_bwd_inputs(cuda_device, 1, 40, 4, 2, 64, 0, 5)
+    bad = _flash_views(cuda_device, 1, 40, 4, 2, 64, torch.bfloat16, seed=5,
+                       offset=1)[0]
+    with pytest.raises(ValueError, match="4 bytes"):
+        flash_mod.flash_attention_bwd(bad, k, v, o, lse, do)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -579,6 +669,33 @@ def test_rglru_scan_bwd_kernel_on_card(cuda_device, shape):
     b = torch.randn(shape, generator=gen, device=cuda_device)
     g = torch.randn(shape, generator=gen, device=cuda_device)
     h = rglru_mod.rglru_scan(a, b)
+    da, db = rglru_mod.rglru_scan_bwd(a, h, g)
+    eda, edb = ref.scan_bwd_ref(a, h, g)
+    torch.cuda.synchronize()
+    assert torch.equal(da, eda) and torch.equal(db, edb)
+
+
+# the ring body (B × lanes below a full wave of 256-thread blocks): ragged S
+# (not a multiple of its 64-step stages), ragged lanes (not a multiple of
+# its 16-lane blocks), lanes × 4 bytes or a pointer not a multiple of 16
+# (4-byte copies), B of 1 and 4, S = 1
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("shape", [(1, 4096, 2560), (1, 100, 2560), (4, 130, 2560),
+                                   (1, 300, 1000), (4, 65, 1001), (1, 1, 64),
+                                   (4, 1, 33), (1, 64, 2558), (4, 200, 48)])
+def test_rglru_scan_bwd_ring_on_card(cuda_device, shape, offset):
+    gen = torch.Generator(device=cuda_device).manual_seed(shape[1] + offset)
+    n = int(np.prod(shape))
+
+    def tensor(x):  # a contiguous tensor `offset` floats into its storage
+        buf = torch.empty(n + offset, device=cuda_device)
+        buf[offset:] = x.reshape(-1)
+        return buf[offset:].view(shape)
+
+    a = tensor(torch.rand(shape, generator=gen, device=cuda_device) * 0.75 + 0.2)
+    b = tensor(torch.randn(shape, generator=gen, device=cuda_device))
+    g = tensor(torch.randn(shape, generator=gen, device=cuda_device))
+    h = tensor(rglru_mod.rglru_scan(a, b))
     da, db = rglru_mod.rglru_scan_bwd(a, h, g)
     eda, edb = ref.scan_bwd_ref(a, h, g)
     torch.cuda.synchronize()
