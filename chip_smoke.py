@@ -99,6 +99,18 @@ and the script exits non-zero:
                  versions, counts its launches and checks that it imported
                  no jax or repro.  W processes on one card: no line is a
                  multi-GPU number.
+9b. pool-ranks — the pool's process-group sessions: a ``RankPool`` of 4
+                 gloo ranks sharing the card, which load phase 6's graph
+                 and phase 8's alias table from files written once;
+                 ``POOL_QUERIES`` as shard_map sessions through phase 9's
+                 drain (each equal to its phase 9 solo VMAP result), with
+                 the spawn wall, drain wall, checked samples/s, each tick's
+                 wall and the bytes and seconds of each pull and push (by
+                 checkpoint and reshard); a drain stopped after 2 ticks and
+                 resumed; two W = 2 kadabra-full sessions alone and then at
+                 once on disjoint ranks; ``compressed_psum`` of a 2**24
+                 f32 leaf over the 4 ranks, within its bounds.  The ranks'
+                 launches join the ``pool-ranks`` path.
 10. rg serve   — recurrentgemma-2b at full width (26 layers, d 2560, vocab
                  256,000, bf16, random weights from seed 0) through the
                  port's serving entry points: ``make_prefill_step`` on
@@ -144,16 +156,17 @@ and the script exits non-zero:
                  a run preempted at 5 and resumed with the same losses and
                  final checkpoint, and an ``--adaptive`` run.
 14. kernels    — every kernel (the three backward kernels too) with its
-                 launches on the nine paths (phases 5–6, 7, 8, 9, 9a —
-                 this process's and its worker processes' —, 10, 11, 12
-                 and 13), each counted from 0 just before its path; each
+                 launches on the ten paths (phases 5–6, 7, 8, 9, 9a and
+                 9b — this process's and its worker processes' —, 10, 11,
+                 12 and 13), each counted from 0 just before its path; each
                  path's line also splits its kernel calls by shape (the
                  kernels line repeats ``flash_attention``'s on the
                  families path).
 
-While phases 5–13 run, in this process and in the worker processes of 9a,
-the kernels behind ``kernels.ops`` (forward and backward) are wrapped so
-that their calls are held against the plain versions on the same tensors:
+While phases 5–13 run, in this process and in the worker processes of 9a
+and 9b, the kernels behind ``kernels.ops`` (forward and backward) are
+wrapped so that their calls are held against the plain versions on the
+same tensors:
 every call on the conformance path, and elsewhere each call whose kernel,
 shapes and types phase 4 or an earlier call has not compared yet.
 
@@ -1616,7 +1629,7 @@ def pool_order(solo) -> list:
         [q for q in rest if q.split(":")[2] == "2"] + [x, y]
 
 
-def phase_pool(torch, kad, wrs, graph=None, device="cuda"):
+def phase_pool(torch, kad, wrs, graph=None, device="cuda", solo_out=None):
     """The adaptive-query pool at full size: ``POOL_QUERIES`` through
     ``EpochScheduler`` (2 in flight, 4 slots, shrink-regrow, a checkpoint
     every tick), each query held against its solo session and the solo
@@ -1624,7 +1637,8 @@ def phase_pool(torch, kad, wrs, graph=None, device="cuda"):
     and resumed from its checkpoints; a checkpoint of the kadabra-full
     SHARED session timed; the ``--pool`` CLI, then ``--resume``.
     ``graph`` is phase 6's (graph, preprocessing), which ``kad``'s build
-    then finds in the instance cache instead of building them again."""
+    then finds in the instance cache instead of building them again; each
+    query's solo (estimate, result, wall) goes into ``solo_out``."""
     import shutil
     import tempfile
 
@@ -1676,6 +1690,8 @@ def phase_pool(torch, kad, wrs, graph=None, device="cuda"):
                 abs(float(est[0]) - float(built.oracle[0])) > built.eps:
             raise AssertionError(f"pool: {q}: |μ̂ − μ| > 2·rtol·μ = {built.eps}")
         solo[q] = (est, res, session.wall_s)
+    if solo_out is not None:
+        solo_out.update(solo)
     order = pool_order(solo)
 
     def scheduler(**kw):
@@ -1907,6 +1923,45 @@ def rank_probe(group):
         yield report
 
 
+def write_graph(d: Path, g, pre) -> None:
+    """Phase 6's graph and preprocessing as files for the worker
+    processes (``load_graph``)."""
+    import numpy as np
+    arrays = {"indptr": g.indptr, "indices_padded": g.indices_padded,
+              "src": g.src, "dst": g.dst, "components": pre.components}
+    for name in GRAPH_ARRAYS:
+        np.save(d / f"{name}.npy", arrays[name].cpu().numpy())
+    (d / "meta.json").write_text(json.dumps(
+        {"n": g.n, "omega": pre.omega, "vd_upper": pre.vd_upper,
+         "diam_levels": pre.diam_levels}))
+
+
+def load_graph(d: Path, dev):
+    """In a worker process: kadabra-full registered over the graph and
+    preprocessing ``write_graph`` wrote (the registry and the instance
+    cache are per process), on ``dev``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import instances
+    from repro_torch.core.instances import register_instance
+    from repro_torch.graphs.csr import graph_from_arrays
+    from repro_torch.graphs.kadabra import Preprocessed
+
+    meta = json.loads((d / "meta.json").read_text())
+    a = {k: np.load(d / f"{k}.npy") for k in GRAPH_ARRAYS}
+    g = graph_from_arrays(meta["n"], a["indptr"], a["indices_padded"],
+                          a["src"], a["dst"], dev)
+    pre = Preprocessed(omega=meta["omega"], vd_upper=meta["vd_upper"],
+                       components=torch.from_numpy(a["components"]).to(dev),
+                       diam_levels=meta["diam_levels"])
+    kad = kadabra_full_instance()
+    instances._CACHE[("kadabra", kad, dev)] = (g, pre,
+                                               np.full((g.n,), np.nan))
+    register_instance(kad, overwrite=True)
+    return kad
+
+
 def substrate_rank(group, graph_dir, runs):
     """One rank of phase 9a: phase 6's graph and preprocessing from
     ``graph_dir`` on the rank's card, kadabra-full registered over them
@@ -1919,24 +1974,11 @@ def substrate_rank(group, graph_dir, runs):
     import numpy as np
     import torch
 
-    from repro_torch.core import distributed, instances
-    from repro_torch.core.instances import register_instance, run_instance
-    from repro_torch.graphs.csr import graph_from_arrays
-    from repro_torch.graphs.kadabra import Preprocessed
+    from repro_torch.core import distributed
+    from repro_torch.core.instances import run_instance
 
-    d = Path(graph_dir)
-    meta = json.loads((d / "meta.json").read_text())
-    a = {k: np.load(d / f"{k}.npy") for k in GRAPH_ARRAYS}
     dev = group.device
-    g = graph_from_arrays(meta["n"], a["indptr"], a["indices_padded"],
-                          a["src"], a["dst"], dev)
-    pre = Preprocessed(omega=meta["omega"], vd_upper=meta["vd_upper"],
-                       components=torch.from_numpy(a["components"]).to(dev),
-                       diam_levels=meta["diam_levels"])
-    kad = kadabra_full_instance()
-    instances._CACHE[("kadabra", kad, dev)] = (g, pre,
-                                               np.full((g.n,), np.nan))
-    register_instance(kad, overwrite=True)
+    kad = load_graph(Path(graph_dir), dev)
     # the first collective sets up the backend's connections (NCCL's
     # communicator): take it before the timed runs
     distributed.all_reduce(torch.zeros(1, dtype=torch.int32, device=dev),
@@ -2034,13 +2076,7 @@ def phase_substrate(torch, g, full, check, rank_reports):
             and np.array_equal(a["est"], b["est"])
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_graph_") as tmp:
-        arrays = {"indptr": g.indptr, "indices_padded": g.indices_padded,
-                  "src": g.src, "dst": g.dst, "components": pre.components}
-        for name in GRAPH_ARRAYS:
-            np.save(Path(tmp) / f"{name}.npy", arrays[name].cpu().numpy())
-        (Path(tmp) / "meta.json").write_text(json.dumps(
-            {"n": g.n, "omega": pre.omega, "vd_upper": pre.vd_upper,
-             "diam_levels": pre.diam_levels}))
+        write_graph(Path(tmp), g, pre)
         for (world, backend), runs in SUBSTRATE_RUNS.items():
             t0 = time.time()
             out = spawn_workers(substrate_rank, world, backend=backend,
@@ -2103,6 +2139,332 @@ def phase_substrate(torch, g, full, check, rank_reports):
     if failed:
         raise AssertionError("substrate equivalence failed:\n"
                              + "\n".join(failed))
+
+
+# phase 9b: the pool's process-group sessions on a rank pool sharing the card
+POOL_RANKS = 4              # gloo ranks on cuda:0 (NCCL: one rank a card)
+POOL_RANKS_PAIR = ("kadabra-full:local:2:0", "kadabra-full:local:2:1")
+COMPRESS_ELEMENTS = 16 * 2 ** 20
+COMPRESS_STEPS = 3
+_RANK_PROBE: dict = {}
+
+
+def pool_rank_setup(group, graph_dir, wrs_dir):
+    """A rank of phase 9b's pool: kadabra-full over phase 6's graph and
+    wrs-full over phase 8's alias table, from the files the controller
+    wrote (no graph build, no Vose loop), then its kernel calls held
+    against their plain versions and counted from 0 until
+    ``pool_rank_report``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import instances
+    from repro_torch.core.instances import register_instance
+    from repro_torch.sampling.alias import AliasTable
+
+    dev = group.device
+    load_graph(Path(graph_dir), dev)
+    d = Path(wrs_dir)
+    wrs = wrs_full_instance()
+    a = {k: torch.from_numpy(np.load(d / f"{k}.npy")).to(dev)
+         for k in ("prob", "alias", "values")}
+    mu = json.loads((d / "meta.json").read_text())["mu"]
+    instances._CACHE[("wrs", wrs, dev)] = (
+        AliasTable(n=a["prob"].shape[0], prob=a["prob"], alias=a["alias"]),
+        a["values"], mu)
+    register_instance(wrs, overwrite=True)
+    probe = probed(group, every=False)
+    _RANK_PROBE["probe"] = probe
+    _RANK_PROBE["report"] = probe.__enter__()[0]
+
+
+def pool_rank_report(group):
+    """The rank's probe report (``probed``), its launches since
+    ``pool_rank_setup``."""
+    _RANK_PROBE.pop("probe").__exit__(None, None, None)
+    return _RANK_PROBE.pop("report")
+
+
+def tree_bytes(tree) -> int:
+    from repro_torch.core.epoch import map_tree
+    n = [0]
+    map_tree(lambda x: n.__setitem__(0, n[0] + x.numel() * x.element_size()),
+             tree)
+    return n[0]
+
+
+@contextlib.contextmanager
+def moves_timed(stats):
+    """Time each pull and push of a state between the ranks and this
+    process, by what moved it (``checkpoint`` in ``save``, ``reshard`` in
+    the scheduler's reshards): {kind: {"pull"/"push": [n, s, bytes]}},
+    and {"bytes_by_shape": {shape: bytes of its last pull}}."""
+    from repro_torch.serve import scheduler as sched_mod
+    from repro_torch.serve.ranks import RankStepper
+    from repro_torch.serve.session import AdaptiveSession
+    saved = (RankStepper.pull, RankStepper.push, AdaptiveSession.save,
+             sched_mod.reshard_session)
+    kind = ["other"]
+
+    def timed(name, fn):
+        def call(self, arg):
+            t0 = time.time()
+            out = fn(self, arg)
+            rec = stats.setdefault(kind[0], {}).setdefault(name, [0, 0.0, 0])
+            rec[0] += 1
+            rec[1] += time.time() - t0
+            nbytes = tree_bytes(out if name == "pull" else arg)
+            rec[2] += nbytes
+            if name == "pull":
+                spec = self.spec
+                stats.setdefault("bytes_by_shape", {})[
+                    f"{spec.instance}:{spec.strategy}:{spec.world}"] = nbytes
+            return out
+        return call
+
+    def labelled(label, fn):
+        def call(*a, **kw):
+            kind[0] = label
+            try:
+                return fn(*a, **kw)
+            finally:
+                kind[0] = "other"
+        return call
+
+    RankStepper.pull = timed("pull", saved[0])
+    RankStepper.push = timed("push", saved[1])
+    AdaptiveSession.save = labelled("checkpoint", saved[2])
+    sched_mod.reshard_session = labelled("reshard", saved[3])
+    try:
+        yield stats
+    finally:
+        (RankStepper.pull, RankStepper.push, AdaptiveSession.save,
+         sched_mod.reshard_session) = saved
+
+
+def phase_pool_ranks(torch, g, pre, wrs, table, solo, rank_reports,
+                     device="cuda"):
+    """Phase 9b: the pool's process-group sessions.  A rank pool of
+    ``POOL_RANKS`` gloo ranks sharing the card; ``POOL_QUERIES`` as
+    shard_map sessions (each on the ranks of its lease) through
+    ``EpochScheduler`` with phase 9's settings (shrink-regrow over 4
+    slots, a checkpoint every tick, phase 9's order), each equal to
+    phase 9's solo VMAP result (``solo``); a drain stopped after 2 ticks
+    and resumed; the two W = 2 sessions ``POOL_RANKS_PAIR`` alone and then
+    at once on disjoint ranks; ``compressed_psum`` of a
+    ``COMPRESS_ELEMENTS`` f32 leaf over the 4 ranks.  The ranks' probe
+    reports go to ``rank_reports``."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.launch.spawn import RankPool, foreign_modules, rank_info
+    from repro_torch.optim.compress import compress_on_rank
+    from repro_torch.serve import (AdaptiveSession, DevicePool,
+                                   EpochScheduler, PressurePolicy, SessionSpec,
+                                   StepperCache)
+    from repro_torch.serve.ranks import make_groups
+
+    def sync():
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+
+    qid = {q: q.replace(":", "-") for q in POOL_QUERIES}
+    order = pool_order(solo)
+
+    def same(r, q):
+        est, res, _ = solo[q]
+        return r.stopped and (r.tau, r.epochs, r.stop_epoch) == \
+            (res.num, res.epochs, res.stop_epoch) and \
+            np.array_equal(r.estimate, est)
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ranks_"))
+    pool = None
+    try:
+        (tmp / "graph").mkdir()
+        write_graph(tmp / "graph", g, pre)
+        (tmp / "wrs").mkdir()
+        values = wrs._setup(torch.device(device))[1]
+        for k, v in (("prob", table.prob), ("alias", table.alias),
+                     ("values", values)):
+            np.save(tmp / "wrs" / f"{k}.npy", v.cpu().numpy())
+        (tmp / "wrs" / "meta.json").write_text(json.dumps(
+            {"mu": wrs._setup(torch.device(device))[2]}))
+
+        t0 = time.time()
+        pool = RankPool(POOL_RANKS, backend="gloo", device=device,
+                        timeout=SUBSTRATE_TIMEOUT_S)
+        spawn_s = time.time() - t0
+        t0 = time.time()
+        pool.call(pool_rank_setup, str(tmp / "graph"), str(tmp / "wrs"))
+        setup_s = time.time() - t0
+        t0 = time.time()
+        for _ in range(50):   # a round trip to the ranks that samples nothing
+            pool.call(rank_info)
+        emit({"phase": "pool-ranks", "ranks": POOL_RANKS, "backend": "gloo",
+              "processes": f"{POOL_RANKS} processes on one card, not a "
+                           f"multi-GPU number",
+              "spawn_wall_s": spawn_s, "setup_s": setup_s,
+              "round_trip_ms": (time.time() - t0) / 50 * 1e3})
+
+        def scheduler(**kw):
+            return EpochScheduler(max_in_flight=POOL_IN_FLIGHT,
+                                  substrate="shard_map",
+                                  pool=DevicePool(POOL_SLOTS),
+                                  pressure=PressurePolicy.parse("shrink-regrow"),
+                                  checkpoint_every=1, device=device,
+                                  ranks=pool, **kw)
+
+        # 1. the drain: phase 9's queries and order, on the ranks
+        stats = {}
+        sched = scheduler(checkpoint_dir=tmp / "drain")
+        for q in order:
+            sched.submit(SessionSpec.parse(q), qid=qid[q])
+        events, ticks = [], []
+        with moves_timed(stats):
+            sync()
+            t0 = time.time()
+            while not sched.idle:
+                t1 = time.time()
+                events.append(sched.tick())
+                ticks.append((sched.in_flight + len(events[-1].retired),
+                              time.time() - t1))
+            wall = time.time() - t0
+        differ = [q for q in POOL_QUERIES if not same(sched.results[qid[q]], q)]
+        for q in order:
+            r = sched.results[qid[q]]
+            emit({"phase": "pool-ranks", "query": q, "tau": r.tau,
+                  "epochs": r.epochs, "final_world": r.spec.world,
+                  "final_placement": r.spec.placement,
+                  "devices_leased": r.devices_leased, "wall_s": r.wall_s,
+                  "vmap_solo_wall_s": solo[q][2],
+                  "equals_vmap_solo": q not in differ})
+        taus = sum(r.tau for r in sched.results.values())
+        reshards = [(ev.tick, q, old, new) for ev in events
+                    for q, old, new in ev.resharded]
+        pull_bytes = stats.pop("bytes_by_shape")
+        moves = {k: {op: {"n": n, "s": sec, "bytes": nb,
+                          "s_each": sec / max(n, 1),
+                          "bytes_each": nb / max(n, 1)}
+                     for op, (n, sec, nb) in v.items()}
+                 for k, v in stats.items()}
+        emit({"phase": "pool-ranks", "order": order, "ticks": sched.tick_count,
+              "drain_wall_s": wall, "checked_samples_per_s": taus / wall,
+              "samples": taus, "tick_s": [t for _, t in ticks],
+              "in_flight": [n for n, _ in ticks], "reshards": reshards,
+              "moves": moves, "pull_bytes_by_shape": pull_bytes,
+              "steppers_built": len(sched.cache)})
+        if differ:
+            raise AssertionError(f"pool-ranks: {differ} differ from their "
+                                 f"solo VMAP sessions")
+        if not any(new < old for _, _, old, new in reshards) or \
+                not any(new > old for _, _, old, new in reshards):
+            raise AssertionError(f"pool-ranks: no shrink and regrow: "
+                                 f"{reshards}")
+        shutil.rmtree(tmp / "drain")
+
+        # 2. a drain stopped after 2 ticks, resumed from its checkpoints
+        sched = scheduler(checkpoint_dir=tmp / "resume")
+        for q in order:
+            sched.submit(SessionSpec.parse(q), qid=qid[q])
+        sched.tick()
+        sched.tick()
+        early = dict(sched.results)
+        del sched
+        sync()
+        t0 = time.time()
+        resumed = EpochScheduler.resume(
+            tmp / "resume", max_in_flight=POOL_IN_FLIGHT,
+            substrate="shard_map", pool=DevicePool(POOL_SLOTS),
+            pressure=PressurePolicy.parse("shrink-regrow"),
+            checkpoint_every=1, device=device, ranks=pool)
+        pending = resumed.pending
+        resumed.drain()
+        results = {**early, **resumed.results}
+        differ = [q for q in POOL_QUERIES if not same(results[qid[q]], q)]
+        emit({"phase": "pool-ranks", "resume": "after 2 ticks",
+              "retired_before": sorted(early), "resumed_pending": pending,
+              "resumed_wall_s": time.time() - t0,
+              "equals_vmap_solo": not differ})
+        if differ:
+            raise AssertionError(f"pool-ranks: resumed {differ} differ")
+
+        # 3. two W = 2 sessions alone, then at once on disjoint ranks
+        specs = [dataclasses.replace(SessionSpec.parse(q), substrate="shard_map",
+                                     placement=ids)
+                 for q, ids in zip(POOL_RANKS_PAIR, ((0, 1), (2, 3)))]
+        vmap = StepperCache(device)
+        alone = []
+        for spec in specs:
+            ref = AdaptiveSession.create(dataclasses.replace(
+                spec, substrate="vmap", placement=None), cache=vmap)
+            ref.start().run()
+            session = AdaptiveSession.create(spec, cache=StepperCache(
+                device, ranks=pool))
+            sync()
+            t0 = time.time()
+            session.start().run()
+            alone.append((time.time() - t0, session.result(), ref.result(),
+                          ref.wall_s))
+            session.close()
+        sched = EpochScheduler(max_in_flight=2, pool=DevicePool(POOL_SLOTS),
+                               device=device, ranks=pool)
+        for i, spec in enumerate(specs):
+            sched.submit(dataclasses.replace(spec, placement=None), qid=str(i))
+        sync()
+        t0 = time.time()
+        sched.drain()
+        both = time.time() - t0
+        equal = []
+        for i, (_, (est, res), (ref_est, ref_res), _) in enumerate(alone):
+            r = sched.results[str(i)]
+            equal.append(r.spec.placement == specs[i].placement
+                         and (r.tau, r.stop_epoch) == (res.num, res.stop_epoch)
+                         and np.array_equal(r.estimate, est)
+                         and (res.num, res.stop_epoch) ==
+                         (ref_res.num, ref_res.stop_epoch)
+                         and np.array_equal(est, ref_est))
+        emit({"phase": "pool-ranks", "concurrent": list(POOL_RANKS_PAIR),
+              "placements": [s.placement for s in specs],
+              "alone_wall_s": [a[0] for a in alone],
+              "vmap_solo_wall_s": [a[3] for a in alone],
+              "together_wall_s": both,
+              "together_over_alone_sum": both / sum(a[0] for a in alone),
+              "equal_to_alone_and_vmap": equal})
+        if not all(equal):
+            raise AssertionError(f"pool-ranks: concurrent sessions differ "
+                                 f"from their solo runs: {equal}")
+
+        # 4. compressed_psum of a 16 M-element f32 leaf over the 4 ranks
+        ids = tuple(range(POOL_RANKS))
+        pool.call(make_groups, ids, 0)
+        outs = pool.call(compress_on_rank, ids, None, (COMPRESS_ELEMENTS,), 0,
+                         COMPRESS_STEPS)
+        worst = {k: max(max(o[k]) for o in outs)
+                 for k in ("mean_err_over_scale", "ef_over_scale")}
+        emit({"phase": "pool-ranks", "compressed_psum": COMPRESS_ELEMENTS,
+              "steps": COMPRESS_STEPS, "scale": [float(v[0])
+                                                 for v in outs[0]["scale"]],
+              "step_s": outs[0]["step_s"], **worst,
+              "mean_over_steps_err": max(o["mean_over_steps_err"]
+                                         for o in outs),
+              "collectives_rank0": outs[0]["calls"],
+              "bound": "first step |mean − exact| ≤ scale, |ef| ≤ scale"})
+        if worst["mean_err_over_scale"] > 1.0 or worst["ef_over_scale"] > 1.0:
+            raise AssertionError(f"pool-ranks: compressed_psum out of its "
+                                 f"bounds: {worst}")
+
+        reports = pool.call(pool_rank_report)
+        leaked = sorted({m for ms in pool.call(foreign_modules) for m in ms})
+        rank_reports += reports
+        if leaked:
+            raise AssertionError(f"pool-ranks: the ranks imported {leaked}")
+    finally:
+        if pool is not None:
+            pool.close()
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def serve_model(torch, arch, path, expect_params, layers=None):
@@ -2750,15 +3112,22 @@ def main() -> int:
           "bfs_frontier_ms_weighted": weighted,
           "bfs_frontier_ms_profiled": measured["ms"],
           "levels_past_timed": sum(c for lv, c in levels.items() if lv > last)})
+    solo = {}
     by_path["pool"] = drive(
         "pool", lambda: phase_pool(torch, kadabra_full_instance(), wrs,
-                                   graph=(g, full["pre"])),
+                                   graph=(g, full["pre"]), solo_out=solo),
         ("frame_accum", "bfs_frontier", "alias_draw"))
     substrate_ranks = []
     by_path["substrate"] = drive(
         "substrate",
         lambda: phase_substrate(torch, g, full, check, substrate_ranks),
         ("bfs_frontier", "alias_draw"), every=False, ranks=substrate_ranks)
+    pool_ranks = []
+    by_path["pool-ranks"] = drive(
+        "pool-ranks",
+        lambda: phase_pool_ranks(torch, g, full["pre"], wrs, table, solo,
+                                 pool_ranks),
+        ("frame_accum", "bfs_frontier", "alias_draw"), ranks=pool_ranks)
     del g, table, wrs
     torch.cuda.empty_cache()
     model = serve_model(torch, RG_ARCH, "rg serve", RG_PARAMS)

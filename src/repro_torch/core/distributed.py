@@ -16,6 +16,16 @@ the CPU.  :func:`init_worker_group` makes the group this process's current
 one (:func:`current_worker_group`), which the substrate takes when it is
 given no group; :func:`repro_torch.launch.spawn.spawn_workers` starts the W
 processes.
+
+Lease groups.  A persistent pool of n ranks
+(:class:`repro_torch.launch.spawn.RankPool`) runs sessions on subsets of
+its ranks: :func:`lease_group` turns the slot ids of a lease into a
+:class:`WorkerGroup` whose ``rank`` is the position in the lease (the ids
+in ascending order, so that the process group's own ranks are the
+positions) and whose ``world`` is its width.  ``dist.new_group`` is
+collective over the whole pool, so every rank of the pool makes a lease's
+groups, in the same order (:func:`process_group`, cached by rank tuple:
+a long stream of queries makes a bounded number of groups).
 """
 
 from __future__ import annotations
@@ -39,12 +49,18 @@ _ALL_GATHER = "all_gather_single" \
     if hasattr(dist, "all_gather_single") else "all_gather_into_tensor"
 
 _CURRENT: Optional["WorkerGroup"] = None
+# process groups by their global ranks (ascending): the pg, or None on a
+# rank outside it; every rank of the world makes them in the same order
+_PGS: Dict[Tuple[int, ...], Any] = {}
+_LEASES: Dict[Tuple[int, ...], "WorkerGroup"] = {}
 
 
 @dataclasses.dataclass(frozen=True)
 class WorkerGroup:
     """This process's place among the W worker processes: ``rank`` is the
-    worker it holds, ``pg`` the world's process group."""
+    worker it holds, ``pg`` the group's process group.  ``ranks`` are the
+    global ranks of a lease group's positions (``None``: the world, rank r
+    at position r)."""
 
     rank: int
     world: int
@@ -52,24 +68,32 @@ class WorkerGroup:
     device: torch.device
     timeout: float                # seconds, for the init and every group
     pg: Any = dataclasses.field(repr=False)
+    ranks: Optional[Tuple[int, ...]] = None
     _blocks: Dict[tuple, Any] = dataclasses.field(
         default_factory=dict, repr=False, compare=False)
 
+    def global_ranks(self, positions: Sequence[int]) -> Tuple[int, ...]:
+        return tuple(int(p) if self.ranks is None else self.ranks[int(p)]
+                     for p in positions)
+
     def block_group(self, blocks: Sequence[Sequence[int]]):
         """The process group of this rank's block of a partition of the
-        ranks (``None`` if no block holds it).
+        positions (``None`` if no block holds it).
 
         ``dist.new_group`` is collective over the world, groups that a rank
         is not in included, so every rank must ask for the same partitions
-        in the same order.  Each partition's groups are built once, block
-        by block, and cached; a block of the whole world is ``pg``."""
+        in the same order.  The world group makes each partition's groups
+        on first use; a lease group only finds them, since the ranks
+        outside the lease do not take part: every rank of the pool made
+        them beforehand (:func:`process_group`).  A block of the whole
+        group is ``pg``."""
         key = tuple(tuple(int(r) for r in b) for b in blocks)
         if key not in self._blocks:
             mine = None
             for block in key:
-                pg = self.pg if len(block) == self.world else dist.new_group(
-                    list(block),
-                    timeout=datetime.timedelta(seconds=self.timeout))
+                pg = self.pg if len(block) == self.world else process_group(
+                    self.global_ranks(block), self.timeout,
+                    make=self.ranks is None)
                 if self.rank in block:
                     mine = pg
             self._blocks[key] = mine
@@ -153,7 +177,57 @@ def destroy_worker_group() -> None:
     global _CURRENT
     if _CURRENT is not None:
         _CURRENT = None
+        _PGS.clear()
+        _LEASES.clear()
         dist.destroy_process_group()
+
+
+def process_group(ranks: Sequence[int], timeout: float = DEFAULT_TIMEOUT_S,
+                  make: bool = True):
+    """The process group of the global ``ranks`` (any order), made once
+    and cached; ``None`` on a rank outside it.  Making one is collective
+    over the world: every rank asks for the same groups in the same order.
+    With ``make=False`` a group not made yet raises instead, where only
+    some ranks could ask for it."""
+    key = tuple(sorted(int(r) for r in ranks))
+    if key not in _PGS:
+        if not make:
+            raise RuntimeError(
+                f"no process group of ranks {key} yet: every rank of the "
+                f"pool makes a lease's groups first (serve.ranks.make_groups)")
+        if len(key) == dist.get_world_size():
+            pg = dist.group.WORLD
+        else:
+            pg = dist.new_group(list(key),
+                                timeout=datetime.timedelta(seconds=timeout))
+        _PGS[key] = pg if dist.get_rank() in key else None
+    return _PGS[key]
+
+
+def lease_group(ids: Sequence[int]) -> Optional[WorkerGroup]:
+    """The worker group of a lease of the world's ranks ``ids``: position
+    p holds the p-th smallest id.  Every rank of the world calls it with
+    the same leases in the same order (it makes the lease's process group);
+    ranks outside the lease get ``None``."""
+    world = _CURRENT
+    if world is None:
+        raise RuntimeError("lease_group runs in a rank of a worker group")
+    ranks = tuple(sorted(int(i) for i in ids))
+    if len(set(ranks)) != len(ranks) or not all(
+            0 <= r < world.world for r in ranks):
+        raise ValueError(f"lease {tuple(ids)} is not a set of the world's "
+                         f"ranks 0..{world.world - 1}")
+    pg = process_group(ranks, world.timeout)
+    if world.rank not in ranks:
+        return None
+    if len(ranks) == world.world:
+        return world
+    if ranks not in _LEASES:
+        _LEASES[ranks] = WorkerGroup(
+            rank=ranks.index(world.rank), world=len(ranks),
+            backend=world.backend, device=world.device,
+            timeout=world.timeout, pg=pg, ranks=ranks)
+    return _LEASES[ranks]
 
 
 # -- the collectives the port issues, by name at call time -----------------
@@ -177,12 +251,13 @@ _RECORDED = ("all_reduce", "reduce_scatter_tensor", "reduce_scatter_single",
 
 
 @contextlib.contextmanager
-def record_collectives():
+def record_collectives(detail: bool = False):
     """Record every call of ``torch.distributed``'s collectives made by
     attribute while the block runs: yields a list of ``(op, group size,
     elements of the largest tensor argument, its device type)``, one a
-    call."""
-    calls: List[Tuple[str, int, int, str]] = []
+    call; with ``detail``, each tuple adds the reduce op's name (``""``
+    when the call takes none) and the largest tensor's dtype."""
+    calls: List[tuple] = []
     saved = {name: getattr(dist, name) for name in _RECORDED
              if hasattr(dist, name)}
 
@@ -194,8 +269,15 @@ def record_collectives():
             big = max((a for a in (*args, *kwargs.values())
                        if isinstance(a, torch.Tensor)),
                       key=torch.Tensor.numel, default=None)
-            calls.append((name, size, 0 if big is None else big.numel(),
-                          "" if big is None else big.device.type))
+            call = (name, size, 0 if big is None else big.numel(),
+                    "" if big is None else big.device.type)
+            if detail:
+                red = type(dist.ReduceOp.SUM)
+                op = kwargs.get("op", next(
+                    (a for a in args if isinstance(a, red)), None))
+                call += ("" if op is None else str(op).split(".")[-1],
+                         None if big is None else big.dtype)
+            calls.append(call)
             return fn(*args, **kwargs)
         return call
 

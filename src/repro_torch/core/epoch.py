@@ -30,6 +30,15 @@ serves every seed of a shape.  Generators are mutable: ``body`` advances
 the generators of the state it is given and hands them on, so a state is
 consumed by the step that advances it.  Whatever keeps a state beside its
 successor (a checkpoint, a reshard) copies the generators' states.
+
+A state's tree form (:func:`state_to_tree`) holds the generators as their
+``uint8`` (W·k, state bytes) states and the host scalars as 0-d tensors:
+a checkpoint's tree.  A process's state in tree form holds the rows of
+its workers; :func:`join_held` joins the processes' trees, in worker
+order, into the tree of one process holding all W workers (VMAP's layout;
+every worker's generators included), and :func:`held_tree` takes a
+process's rows back out of it: ``join_held([held_tree(t, (w,), ...) for w
+in range(W)], ...) == t`` leaf for leaf.
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..device import to_host
@@ -116,6 +126,96 @@ class EpochState:
     stop_epoch: int        # epoch at which stop was first seen
 
 
+def map_tree(fn: Callable, tree):
+    """``tree`` with ``fn`` applied to each tensor or array leaf (through
+    dataclasses, dicts, lists and tuples; other leaves are kept)."""
+    if isinstance(tree, (torch.Tensor, np.ndarray)):
+        return fn(tree)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: map_tree(fn, getattr(tree, f.name))
+            for f in dataclasses.fields(tree)})
+    if isinstance(tree, dict):
+        return {k: map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_tree(fn, v) for v in tree)
+    return tree
+
+
+def state_to_tree(state: EpochState) -> EpochState:
+    """Checkpoint form: the generators as their (W·k, bytes) uint8 states,
+    the host scalars as 0-d tensors."""
+    return dataclasses.replace(
+        state, gens=torch.stack([g.get_state() for g in state.gens]),
+        stop=torch.tensor(state.stop),
+        epoch=torch.tensor(state.epoch, dtype=torch.int32),
+        stop_epoch=torch.tensor(state.stop_epoch, dtype=torch.int32))
+
+
+def tree_to_state(tree: EpochState, device: torch.device) -> EpochState:
+    """The inverse of :func:`state_to_tree`, generators on ``device`` (the
+    tensor leaves stay where they are)."""
+    gens = []
+    for row in tree.gens:
+        gen = torch.Generator(device=device)
+        # set_state reads the storage from its start: give it a row of its own
+        gen.set_state(torch.as_tensor(row).cpu().clone())
+        gens.append(gen)
+    return dataclasses.replace(tree, gens=gens, stop=bool(tree.stop),
+                               epoch=int(tree.epoch),
+                               stop_epoch=int(tree.stop_epoch))
+
+
+def held_tree(tree: EpochState, workers: Sequence[int], fold: Optional[int],
+              shared: bool) -> EpochState:
+    """The rows of ``workers`` out of a tree in VMAP's layout: their
+    generators (k = ``fold`` a worker), their pending rows and, under
+    SHARED_FRAME (``shared``), their shards of the total.  The rest (the
+    carry, the aux, the scalars, a replicated total) is every worker's."""
+    k = fold or 1
+    rows = list(workers)
+    streams = [w * k + j for w in rows for j in range(k)]
+
+    def pick(idx):
+        return lambda x: x[idx]
+
+    total = tree.total
+    if shared:
+        total = StateFrame(num=total.num,
+                           data=tree_map(pick(rows), total.data))
+    return dataclasses.replace(
+        tree, gens=tree.gens[streams], total=total,
+        pending=StateFrame(num=tree.pending.num[rows],
+                           data=tree_map(pick(rows), tree.pending.data)))
+
+
+def join_held(parts: Sequence[EpochState], fold: Optional[int],
+              shared: bool) -> EpochState:
+    """The inverse of :func:`held_tree`: the trees of the processes that
+    hold workers 0, 1, … (each its own rows) joined into one tree in VMAP's
+    layout.  Generators, pending rows and, under SHARED_FRAME, the total's
+    shards are concatenated in that order; the rest (aux included: worker
+    0's, as VMAP reports it) is the first tree's."""
+    def cat(xs):
+        return np.concatenate(xs) if isinstance(xs[0], np.ndarray) \
+            else torch.cat(xs)
+
+    def rows(get):
+        return [get(p) for p in parts]
+
+    first = parts[0]
+    total = first.total
+    if shared:
+        total = StateFrame(num=total.num, data=tree_map(
+            lambda *xs: cat(xs), *rows(lambda p: p.total.data)))
+    return dataclasses.replace(
+        first, gens=cat(rows(lambda p: p.gens)), total=total,
+        pending=StateFrame(
+            num=cat(rows(lambda p: p.pending.num)),
+            data=tree_map(lambda *xs: cat(xs),
+                          *rows(lambda p: p.pending.data))))
+
+
 def _sample_epoch(sample_fn: SampleFn, template, rounds: int,
                   gens: Sequence[torch.Generator], carry) -> Tuple[StateFrame, Any]:
     """K sampling rounds accumulated into fresh stacked delta frames."""
@@ -133,13 +233,17 @@ class EpochProgram:
     ``cond(state)`` is the keep-running predicate, ``blank(carry)`` is a
     state of the same layout that nothing has sampled into (zero frames
     and aux, unseeded generators), and ``gather(state)`` is a state in the
-    layout of one process holding all W workers (the identity there)."""
+    layout of one process holding all W workers (the identity there).
+    ``push(part)`` is the held workers' state from their rows of a tree
+    in that layout (:func:`held_tree`; the whole tree when one process
+    holds all W)."""
 
     init: Callable[[Any, int], EpochState]
     body: Callable[[EpochState, int], EpochState]
     cond: Callable[[EpochState], bool]
     blank: Callable[[Any], EpochState]
     gather: Callable[[EpochState], EpochState]
+    push: Callable[[EpochState], EpochState]
 
 
 def _shard_zeros(template, world: int, shards: int) -> StateFrame:
@@ -338,5 +442,9 @@ def make_program(sample_fn: SampleFn, check_fn: CheckFn, template,
                 aux = shard_check(total, 0)[1]
         return dataclasses.replace(st, total=total, pending=pending, aux=aux)
 
+    def push(part: EpochState) -> EpochState:
+        part = map_tree(lambda x: torch.as_tensor(x).to(device), part)
+        return tree_to_state(part, device)
+
     return EpochProgram(init=init, body=body, cond=cond, blank=blank,
-                        gather=gather)
+                        gather=gather, push=push)

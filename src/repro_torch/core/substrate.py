@@ -35,7 +35,8 @@ import enum
 from typing import Any, Optional
 
 from .distributed import WorkerGroup, current_worker_group
-from .epoch import EpochConfig, EpochProgram, EpochState, make_program
+from .epoch import (EpochConfig, EpochProgram, EpochState, make_program,
+                    state_to_tree)
 from .frames import (process_collectives, sequential_collectives,
                      virtual_collectives)
 
@@ -124,7 +125,11 @@ class EpochStepper:
     ``gathered(step^n(init(seed)))`` is :func:`run_on_substrate`'s result
     bit for bit: the run to the end is this loop.  On SHARD_MAP a state
     holds this rank's worker; ``gathered`` brings it into VMAP's layout
-    (the identity on the other substrates).
+    (the identity on the other substrates).  ``pull`` gives the tree of
+    the workers this process holds (a checkpoint's tree, VMAP's layout
+    when it holds all W; on SHARD_MAP the ranks' trees join into it,
+    :func:`~repro_torch.core.epoch.join_held`), and ``push`` the state
+    from such rows (:func:`~repro_torch.core.epoch.held_tree`).
     """
 
     substrate: Substrate
@@ -154,6 +159,12 @@ class EpochStepper:
 
     def state_template(self) -> EpochState:
         return self.program.blank(self.init_carry)
+
+    def pull(self, state: EpochState) -> EpochState:
+        return state_to_tree(state)
+
+    def push(self, part: EpochState) -> EpochState:
+        return self.program.push(part)
 
 
 def make_stepper(sample_fn, check_fn, template, init_carry, world: int,

@@ -12,6 +12,13 @@ forward pass a sample.  Port of :mod:`repro.launch.serve`.
     PYTHONPATH=src python -m repro_torch.launch.serve --pool --topology 4 \
         --pressure-policy shrink-regrow \
         --queries reachability:shared:4,wrs:local:2
+    # the same on a rank pool of 4 processes (shard_map sessions, each on
+    # the ranks of its lease; gloo CPU ranks here, ranks sharing the card
+    # without --device)
+    PYTHONPATH=src python -m repro_torch.launch.serve --pool \
+        --substrate shard_map --topology 4 --device cpu \
+        --pressure-policy shrink-regrow \
+        --queries reachability:shared:4,wrs:local:2
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m-reduced \\
         --batch 4 --prompt-len 32 --gen 16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-3-4b
@@ -95,7 +102,24 @@ DEFAULT_POOL_QUERIES = "wrs:local:2,triangles:local:2:1"
 
 
 def serve_pool(args) -> int:
-    """Drive the epoch-granular scheduler over a query stream."""
+    """Drive the epoch-granular scheduler over a query stream; with
+    ``--substrate shard_map`` on a rank pool of ``--topology``'s width,
+    started here and closed on exit."""
+    if args.substrate != "shard_map":
+        return _serve_pool(args)
+    from ..serve.placement import DeviceTopology
+    from .spawn import RankPool
+    cuda = args.device is None or torch.device(args.device).type == "cuda"
+    n = DeviceTopology.parse(args.topology or "auto").num_devices
+    backend = args.backend or (
+        "nccl" if cuda and n <= torch.cuda.device_count() else "gloo")
+    with RankPool(n, backend=backend, device=args.device) as ranks:
+        print(f"[serve] rank pool: {n} {backend} rank(s) on "
+              f"{ranks.device_type} in {ranks.spawn_s:.1f}s")
+        return _serve_pool(args)
+
+
+def _serve_pool(args) -> int:
     from ..serve import EpochScheduler, PressurePolicy, SessionSpec
     from .mesh import make_device_pool
 
@@ -181,11 +205,17 @@ def main(argv=None) -> int:
                          "--resume defaults to the restored stream only)")
     ap.add_argument("--max-in-flight", type=int, default=2)
     ap.add_argument("--substrate", default=None,
-                    help="sequential | vmap (the pool's shard_map sessions "
-                         "wait for ROADMAP queue 1 item 9 and raise)")
+                    help="sequential | vmap | shard_map (each session's "
+                         "workers on the ranks of its lease in a rank pool "
+                         "of --topology's width)")
+    ap.add_argument("--backend", default=None,
+                    help="shard_map's process groups: nccl (one rank a "
+                         "card) | gloo (default when ranks share a card or "
+                         "run on the CPU)")
     ap.add_argument("--topology", default="",
                     help="device pool topology: 'auto' (the host's CUDA "
-                         "devices), 'N' (one group of N slots), or 'GxN' "
+                         "devices; under shard_map the rank pool's "
+                         "slots), 'N' (one group of N slots), or 'GxN' "
                          "(G groups of N); empty = no placement pool")
     ap.add_argument("--pressure-policy", default="none",
                     help="none | shrink | shrink-regrow[:min=N] — resize "

@@ -9,10 +9,14 @@ physical workers for any W′ | W:
    into W′ contiguous shards of n/W′ each;
 2. the W logical generators keep their order and are folded k = W/W′ per
    physical worker (``core/epoch.make_program(fold=k)``), so every logical
-   stream goes on where it left off; they are copies, so the old state and
-   the new one share no generator;
+   stream goes on where it left off; the new state's generators are made
+   from their states, so the old state and the new one share none;
 3. the pending deltas are redistributed, sum-preservingly (⊕ is exact over
    integer frames, and the next reduce-scatter reads only their sum).
+
+Every session is resharded on its checkpoint tree (VMAP's layout): a
+shard_map session's is pulled from its ranks, and the resharded tree is
+pushed onto the ranks of the new lease.
 
 The global delta of each epoch and the verdict are unchanged, so the
 resumed run's (τ, estimate) is bit-identical to the uninterrupted W-worker
@@ -48,13 +52,6 @@ def elastic_restore(manager: CheckpointManager, tree_like: PyTree,
     return manager.restore_latest(tree_like, device=device)
 
 
-def clone_generator(gen: torch.Generator) -> torch.Generator:
-    """A new generator at ``gen``'s position, sharing nothing with it."""
-    out = torch.Generator(device=gen.device)
-    out.set_state(gen.get_state())
-    return out
-
-
 def _redistribute(stacked: torch.Tensor, new_world: int) -> torch.Tensor:
     """Regroup per-worker leaves (P, ...) into (W′, ...) preserving the sum
     along axis 0 — old worker i's contribution lands on new worker i mod W′.
@@ -87,10 +84,12 @@ def _rescatter(x: torch.Tensor, world: int, frame_shards: int,
 def reshard_state(state: EpochState, *, old_spec: SessionSpec,
                   new_spec: SessionSpec, template_state: EpochState
                   ) -> EpochState:
-    """A SHARED_FRAME state moved from the old physical layout to the new
-    one (see the module docstring).  ``template_state`` (the new stepper's
-    :meth:`~repro_torch.core.substrate.EpochStepper.state_template`) gives
-    the new aux layout: aux is zeroed, the next check recomputes it."""
+    """A SHARED_FRAME state in tree form (a checkpoint's:
+    :meth:`~repro_torch.serve.session.AdaptiveSession.tree`, the
+    generators as their stacked states, which keep their order) moved from
+    the old physical layout to the new one (see the module docstring).
+    ``template_state`` (the new session's ``state_template()``) gives the
+    new aux layout: aux is zeroed, the next check recomputes it."""
     P, W2 = old_spec.world, new_spec.world
     F_old = old_spec.frame_shards or P
     total = StateFrame(
@@ -100,7 +99,7 @@ def reshard_state(state: EpochState, *, old_spec: SessionSpec,
     pending = StateFrame(
         num=_redistribute(state.pending.num, W2),
         data=tree_map(lambda x: _redistribute(x, W2), state.pending.data))
-    return EpochState(gens=[clone_generator(g) for g in state.gens],
+    return EpochState(gens=state.gens.clone(),
                       carry=state.carry, total=total, pending=pending,
                       stop=state.stop, aux=template_state.aux,
                       epoch=state.epoch, stop_epoch=state.stop_epoch)
@@ -115,9 +114,11 @@ def reshard_session(session: AdaptiveSession, new_world: int, *,
     ``new_world`` must divide the session's logical width; the returned
     session continues the identical logical trajectory — per-worker shard
     memory becomes Θ(n/W′) — and its final (τ, estimate) is bit-identical
-    to the uninterrupted original run.  ``placement`` pins it to device
-    ids and implies ``substrate="shard_map"``, whose pool sessions wait for
-    the pool's process-group sessions (ROADMAP queue 1 item 9).
+    to the uninterrupted original run.  ``placement`` pins it to the
+    slots of a rank pool and implies ``substrate="shard_map"``: the state
+    is pulled from the old session's ranks (or taken from its process),
+    resharded, and pushed onto the new placement's ranks.  The old
+    session keeps its state (``close()`` frees it on the ranks).
     """
     spec = session.spec
     if spec.frame_strategy != FrameStrategy.SHARED_FRAME:
@@ -141,8 +142,8 @@ def reshard_session(session: AdaptiveSession, new_world: int, *,
     resharded = AdaptiveSession.create(
         new_spec, cache=cache,
         device=session.device if cache is None else None)
-    resharded.state = reshard_state(
-        session.state, old_spec=spec, new_spec=new_spec,
-        template_state=resharded.stepper.state_template())
+    resharded.load_tree(reshard_state(
+        session.tree(), old_spec=spec, new_spec=new_spec,
+        template_state=resharded.state_template()))
     resharded.wall_s = session.wall_s
     return resharded

@@ -27,13 +27,13 @@ Meyerhenke 2019, exploits across hosts).  This module models that:
   its logical width when the queue drains.
 
 The pool accounts in **worker slots**: a session's footprint is its
-``world``.  Under ``shard_map`` each slot is a physical device and the
-lease's ids become the session's devices (``lease_devices``; the port
-runs shard_map in worker processes, and the pool's sessions on it wait
-for its process-group sessions, ROADMAP queue 1 item 9); under ``vmap``
-the W virtual workers timeshare one device, but the lease still reserves W
-slots so admission and pressure behave identically across substrates (and
-are testable on a 1-device host with an abstract topology).
+``world``.  Under ``shard_map`` each slot is a rank of the rank pool
+(:class:`~repro_torch.launch.spawn.RankPool`), slot i being rank i on
+``cuda:(i % device_count)`` (``lease_devices``), and the lease's ranks
+hold the session's workers; under ``vmap`` the W virtual workers
+timeshare one device, but the lease still reserves W slots so admission
+and pressure behave identically across substrates (and are testable on a
+1-device host with an abstract topology).
 """
 
 from __future__ import annotations
@@ -83,8 +83,15 @@ class DeviceTopology:
 
     @classmethod
     def from_host(cls) -> "DeviceTopology":
-        """The host's CUDA devices (``torch.cuda.device_count()``), in one
-        group; one slot on a host without a card."""
+        """The slots of this process's rank pool when one is open (the
+        shard_map sessions' slots: one H100 holds as many ranks as the
+        pool has), else the host's CUDA devices
+        (``torch.cuda.device_count()``), in one group; one slot on a host
+        without a card."""
+        from ..launch.spawn import current_rank_pool
+        pool = current_rank_pool()
+        if pool is not None:
+            return cls(groups=(tuple(range(pool.world)),))
         import torch
         return cls(groups=(tuple(range(max(torch.cuda.device_count(), 1))),))
 
@@ -261,13 +268,27 @@ class DevicePool:
         return new
 
 
-def lease_devices(ids: Iterable[int]) -> list:
-    """The ``torch.device("cuda:i")`` of each leased id, in lease order.
+def lease_devices(ids: Iterable[int], ranks=None) -> list:
+    """The device of each leased id, in lease order: on a rank pool
+    (``ranks``, else the current one) slot i is rank i, on
+    ``cuda:(i % device_count)`` or the CPU for a CPU pool; without one,
+    ``torch.device("cuda:i")``.
 
-    Raises with the available ids when a leased id is not present on this
-    host — the placement was recorded for a differently-provisioned machine
-    (e.g. a checkpoint resumed without re-leasing through the pool)."""
+    Raises with the available ids when a leased id is not present — the
+    placement was recorded for a differently-provisioned machine (e.g. a
+    checkpoint resumed without re-leasing through the pool)."""
     import torch
+    from ..launch.spawn import current_rank_pool
+    pool = ranks if ranks is not None else current_rank_pool()
+    ids = list(ids)
+    if pool is not None:
+        missing = [i for i in ids if not 0 <= i < pool.world]
+        if missing:
+            raise RuntimeError(
+                f"leased slot ids {missing} are not ranks of the rank pool "
+                f"(ranks 0..{pool.world - 1}) — re-lease through the "
+                f"DevicePool instead of reusing a recorded placement verbatim")
+        return [pool.slot_device(i) for i in ids]
     have = range(torch.cuda.device_count())
     missing = [i for i in ids if i not in have]
     if missing:

@@ -1,6 +1,8 @@
 """Epoch-granular continuous-batching scheduler for adaptive queries.
 Port of :mod:`repro.serve.scheduler`; its sessions run on one device,
-the scheduler's ``device`` (``None`` → the CUDA card).
+the scheduler's ``device`` (``None`` → the CUDA card), and its shard_map
+sessions on the ranks of a rank pool (``ranks``, else the current one):
+each is bound to the ranks of its lease.
 
 The paper's loop only synchronizes at epoch boundaries, so an epoch is the
 natural scheduling quantum.  :meth:`EpochScheduler.tick` is three stages:
@@ -21,7 +23,10 @@ natural scheduling quantum.  :meth:`EpochScheduler.tick` is three stages:
    (one batched device step per session; the built instance and stepper
    of each shape come from the shared
    :class:`~repro_torch.serve.session.StepperCache`), retire the sessions
-   whose stopping condition fired, and release their leases.
+   whose stopping condition fired, and release their leases (and their
+   state on the ranks).  Every session on ranks is sent its step before
+   any reply is read, so sessions on disjoint ranks step at once, as the
+   reference's asynchronous dispatch lets them.
 
 A long-running query therefore never blocks a short one — there is no
 run-to-completion head-of-line, only admission policy.
@@ -120,7 +125,7 @@ class EpochScheduler:
                  pool: Optional[DevicePool] = None,
                  pressure: Optional[PressurePolicy] = None,
                  checkpoint_dir: "str | Path | None" = None,
-                 checkpoint_every: int = 0, device=None):
+                 checkpoint_every: int = 0, device=None, ranks=None):
         if max_in_flight < 1:
             raise ValueError("max_in_flight must be >= 1")
         if pressure is not None and pool is None:
@@ -131,7 +136,7 @@ class EpochScheduler:
         self.pressure = pressure
         self.checkpoint_dir = Path(checkpoint_dir) if checkpoint_dir else None
         self.checkpoint_every = checkpoint_every
-        self.cache = StepperCache(device)
+        self.cache = StepperCache(device, ranks=ranks)
         self._queue: Deque[Tuple[str,
                                  "SessionSpec | AdaptiveSession | _Restore"]]
         self._queue = deque()
@@ -273,6 +278,7 @@ class EpochScheduler:
             session, new_world, cache=self.cache, placement=placement,
             substrate=None if placement is not None
             else session.spec.substrate)
+        session.close()
         return old_world, new_world
 
     def _apply_pressure(self) -> List[Tuple[str, int, int]]:
@@ -317,9 +323,10 @@ class EpochScheduler:
         admitted, blocked_on_placement = self._admit()
 
         retired: List[str] = []
+        for session in self._active.values():
+            session.send_step()
         for qid, session in list(self._active.items()):
-            session.step()
-            if session.done:
+            if session.finish_step():
                 retired.append(qid)
 
         for qid in retired:
@@ -341,6 +348,7 @@ class EpochScheduler:
                 # final state persists too — a restore after drain sees the
                 # query as done instead of re-running it.
                 session.save(self.checkpoint_dir / qid)
+            session.close()
 
         if blocked_on_placement:
             # the queue spent this tick waiting on devices, not on the
@@ -398,7 +406,8 @@ class EpochScheduler:
                max_in_flight: int = 4, substrate: Optional[str] = None,
                pool: Optional[DevicePool] = None,
                pressure: Optional[PressurePolicy] = None,
-               checkpoint_every: int = 0, device=None) -> "EpochScheduler":
+               checkpoint_every: int = 0, device=None,
+               ranks=None) -> "EpochScheduler":
         """Rebuild a scheduler from a checkpoint directory: every per-query
         subdirectory with a complete checkpoint is resubmitted as a pending
         restore — materialized at admission, so its recorded placement is
@@ -419,7 +428,8 @@ class EpochScheduler:
         sched = cls(max_in_flight=max_in_flight, substrate=substrate,
                     pool=pool, pressure=pressure,
                     checkpoint_dir=checkpoint_dir,
-                    checkpoint_every=checkpoint_every, device=device)
+                    checkpoint_every=checkpoint_every, device=device,
+                    ranks=ranks)
         root = Path(checkpoint_dir)
 
         def try_submit(item, qid):

@@ -20,6 +20,13 @@ states, a ``uint8`` (W·k, state bytes) leaf.  A CPU generator's state
 device type it was written on (``meta["device_type"]``) and raises
 otherwise.  The device is an argument (``None`` → the CUDA card), not a
 field of the spec.
+
+A ``substrate="shard_map"`` session runs on a rank pool
+(:class:`~repro_torch.launch.spawn.RankPool`; the cache's, else this
+process's current one): its state lives on the ranks of its placement
+(:mod:`repro_torch.serve.ranks`), its device is the ranks' device type,
+and its checkpoint is the tree and meta a VMAP session of the same spec
+writes, so either substrate restores the other's.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from ..core.frames import FrameStrategy
 from ..core.instances import BuiltInstance, get_instance
 from ..core.substrate import WORKER_AXIS, EpochStepper, make_stepper
 from ..device import resolve_device
+from .ranks import RankState, RankStepper, pool_for
 
 PyTree = Any
 
@@ -133,32 +141,31 @@ class StepperCache:
 
     One scheduler owns one cache; all queries with the same
     :meth:`SessionSpec.stepper_key` reuse the same built instance (its
-    graph or alias table) and stepper.
+    graph or alias table) and stepper.  A shard_map shape's entry is
+    ``(None, RankStepper)``: the instance is built on the ranks of its
+    placement, on ``ranks`` (else the current rank pool), so two
+    placements of one shape are two entries.
     """
 
-    def __init__(self, device=None):
+    def __init__(self, device=None, ranks=None):
         self.device = resolve_device(device)
-        self._cache: Dict[tuple, Tuple[BuiltInstance, EpochStepper]] = {}
+        self.ranks = ranks
+        self._cache: Dict[tuple, Tuple[Optional[BuiltInstance],
+                                       "EpochStepper | RankStepper"]] = {}
 
-    def get(self, spec: SessionSpec) -> Tuple[BuiltInstance, EpochStepper]:
+    def get(self, spec: SessionSpec):
         key = spec.stepper_key()
         if key not in self._cache:
-            self._cache[key] = _build(spec, self.device)
+            self._cache[key] = _build(spec, self.device, self.ranks)
         return self._cache[key]
 
     def __len__(self) -> int:
         return len(self._cache)
 
 
-def _build(spec: SessionSpec, device: torch.device
-           ) -> Tuple[BuiltInstance, EpochStepper]:
+def _build(spec: SessionSpec, device: torch.device, ranks=None):
     if spec.substrate == "shard_map":
-        # the pool is one controller process; a session whose workers are
-        # other processes needs a controller/worker protocol of its own
-        raise NotImplementedError(
-            "the pool's sessions run on the sequential and vmap substrates; "
-            "shard_map sessions (workers in other processes) wait for the "
-            "pool's process-group sessions: ROADMAP queue 1 item 9")
+        return None, RankStepper(pool_for(ranks), spec)
     inst = get_instance(spec.instance)
     lw = spec.logical_world or spec.world
     # build() pads SHARED frames for the LOGICAL world; every W' | lw then
@@ -172,28 +179,6 @@ def _build(spec: SessionSpec, device: torch.device
                            substrate=spec.substrate,
                            frame_shards=spec.frame_shards, fold=spec.fold)
     return built, stepper
-
-
-def _state_to_tree(state: EpochState) -> EpochState:
-    """Checkpoint form: the generators as their (W·k, bytes) uint8 states,
-    the host scalars as 0-d tensors."""
-    return dataclasses.replace(
-        state, gens=torch.stack([g.get_state() for g in state.gens]),
-        stop=torch.tensor(state.stop),
-        epoch=torch.tensor(state.epoch, dtype=torch.int32),
-        stop_epoch=torch.tensor(state.stop_epoch, dtype=torch.int32))
-
-
-def _tree_to_state(tree: EpochState, device: torch.device) -> EpochState:
-    gens = []
-    for row in tree.gens:
-        gen = torch.Generator(device=device)
-        # set_state reads the storage from its start: give it a row of its own
-        gen.set_state(row.cpu().clone())
-        gens.append(gen)
-    return dataclasses.replace(tree, gens=gens, stop=bool(tree.stop),
-                               epoch=int(tree.epoch),
-                               stop_epoch=int(tree.stop_epoch))
 
 
 class AdaptiveSession:
@@ -212,21 +197,31 @@ class AdaptiveSession:
         # r continues bit-identically to an uninterrupted s
     """
 
-    def __init__(self, spec: SessionSpec, built: BuiltInstance,
-                 stepper: EpochStepper, device: torch.device):
+    def __init__(self, spec: SessionSpec, built: Optional[BuiltInstance],
+                 stepper: "EpochStepper | RankStepper",
+                 device: torch.device):
         self.spec = spec
-        self.built = built
+        self.built = built            # None on shard_map: built on the ranks
         self.stepper = stepper
-        self.device = device
-        self.state: Optional[EpochState] = None
+        self.device = stepper.device if self.on_ranks else device
+        self.state: "EpochState | RankState | None" = None
         self.wall_s = 0.0             # host-measured time spent stepping
+        self._ticket = None           # a step sent to the ranks, not read
+
+    @property
+    def on_ranks(self) -> bool:
+        """Whether the state lives on the ranks of a rank pool."""
+        return isinstance(self.stepper, RankStepper)
 
     @classmethod
     def create(cls, spec: SessionSpec, cache: Optional[StepperCache] = None,
                device=None) -> "AdaptiveSession":
         """A session of ``spec`` on ``device`` (``None`` → the cache's
-        device, or the CUDA card without a cache)."""
+        device, or the CUDA card without a cache; a shard_map session runs
+        on its ranks' device)."""
         if cache is None:
+            if spec.substrate == "shard_map":
+                return cls(spec, *_build(spec, None), None)
             device = resolve_device(device)
             return cls(spec, *_build(spec, device), device)
         if device is not None and resolve_device(device) != cache.device:
@@ -238,13 +233,18 @@ class AdaptiveSession:
                          cache: Optional[StepperCache] = None
                          ) -> "AdaptiveSession":
         """Re-bind this session to other leased devices (same shape); the
-        state is kept, the stepper swapped."""
+        state is kept, the stepper swapped.  A shard_map session's state
+        is pulled from its old ranks and pushed onto the new ones."""
         placement = None if placement is None else tuple(placement)
         if placement == self.spec.placement:
             return self
+        tree = self.tree() if self.on_ranks and self.started else None
+        self.close()
         self.spec = dataclasses.replace(self.spec, placement=placement)
         self.built, self.stepper = cache.get(self.spec) \
             if cache is not None else _build(self.spec, self.device)
+        if tree is not None:
+            self.load_tree(tree)
         return self
 
     # ------------------------------------------------------------- running
@@ -260,28 +260,53 @@ class AdaptiveSession:
 
     @property
     def done(self) -> bool:
+        self.finish_step()
         return self.started and not self.stepper.active(self.state)
 
     @property
     def epoch(self) -> int:
         assert self.started
+        self.finish_step()
         return self.state.epoch
 
     @property
     def tau(self) -> int:
         """Samples in the checked consistent state (the paper's τ)."""
         assert self.started
+        self.finish_step()
+        if self.on_ranks:
+            return self.state.tau
         return int(self.state.total.num.item())
 
     def step(self) -> bool:
         """Advance one epoch; returns ``done``.  No-op once stopped."""
+        self.send_step()
+        return self.finish_step()
+
+    def send_step(self) -> None:
+        """The first half of :meth:`step`: on the ranks, the step is sent
+        and :meth:`finish_step` reads its reply, so the steps of sessions
+        on other ranks run meanwhile; elsewhere the whole step."""
         assert self.started, "call start() (or restore) first"
         if self.done:
-            return True
+            return
         t0 = time.perf_counter()
+        if self.on_ranks:
+            self._ticket = (self.stepper.send_step(self.state, self.spec.seed),
+                            t0)
+            return
         self.state = self.stepper.step(self.state, self.spec.seed)
         self.wall_s += time.perf_counter() - t0
-        return self.done
+
+    def finish_step(self) -> bool:
+        """The second half of :meth:`step` (a no-op when no step is in
+        flight); returns ``done``."""
+        if self._ticket is not None:
+            ticket, t0 = self._ticket
+            self._ticket = None
+            self.state = self.stepper.finish_step(self.state, ticket)
+            self.wall_s += time.perf_counter() - t0
+        return self.started and not self.stepper.active(self.state)
 
     def run(self) -> "AdaptiveSession":
         while not self.done:
@@ -289,8 +314,12 @@ class AdaptiveSession:
         return self
 
     def result(self) -> Tuple[np.ndarray, AdaptiveResult]:
-        """(estimate, AdaptiveResult) from the current consistent state."""
+        """(estimate, AdaptiveResult) from the current consistent state (on
+        shard_map computed on the ranks; its ``state`` is ``None``)."""
         assert self.started
+        if self.on_ranks:
+            self.finish_step()
+            return self.stepper.result(self.state)
         res = result_from_state(self.state, strategy=self.spec.frame_strategy,
                                 world=self.spec.world,
                                 frame_shards=self.spec.frame_shards)
@@ -298,16 +327,40 @@ class AdaptiveSession:
                                   float(max(res.num, 1)))
         return est, res
 
+    def close(self) -> None:
+        """Free the state a rank pool holds for this session (nothing to
+        free elsewhere); the session is not started afterwards."""
+        if self.on_ranks and self.started:
+            self.finish_step()
+            self.stepper.drop(self.state)
+            self.state = None
+
     # -------------------------------------------------------- checkpointing
     def state_template(self) -> EpochState:
         """The checkpoint tree's layout (zeros; nothing is sampled)."""
-        return _state_to_tree(self.stepper.state_template())
+        if self.on_ranks:
+            return self.stepper.state_template()
+        return self.stepper.pull(self.stepper.state_template())
+
+    def tree(self) -> EpochState:
+        """The current state's checkpoint tree (VMAP's layout on every
+        substrate; pulled from the ranks on shard_map)."""
+        assert self.started
+        self.finish_step()
+        return self.stepper.pull(self.state)
+
+    def load_tree(self, tree: EpochState) -> "AdaptiveSession":
+        """Take ``tree`` (a checkpoint tree of this spec's layout) as the
+        state (each rank's rows pushed onto it on shard_map)."""
+        self.close()
+        self.state = self.stepper.push(tree)
+        return self
 
     def save(self, directory: "str | Path") -> Path:
         """Atomic checkpoint at the current epoch boundary."""
         assert self.started, "nothing to save before start()"
         return save_checkpoint(
-            _state_to_tree(self.state), directory, step=self.epoch,
+            self.tree(), directory, step=self.epoch,
             meta={"spec": self.spec.as_meta(), "kind": "adaptive-session",
                   "tau": self.tau, "wall_s": self.wall_s,
                   "device_type": self.device.type})
@@ -315,10 +368,14 @@ class AdaptiveSession:
     @classmethod
     def restore(cls, directory: "str | Path", step: Optional[int] = None,
                 cache: Optional[StepperCache] = None,
-                placement: Any = "keep", device=None) -> "AdaptiveSession":
+                placement: Any = "keep", device=None,
+                substrate: Any = "keep") -> "AdaptiveSession":
         """Rebuild from a checkpoint directory onto ``device`` (as in
         :meth:`create`).  ``placement`` overrides the manifest's recorded
-        device ids (``None`` drops the pin); ``"keep"`` keeps them."""
+        device ids (``None`` drops the pin); ``"keep"`` keeps them.
+        ``substrate`` overrides the recorded substrate (a checkpoint of
+        either of vmap and shard_map restores on the other; leaving
+        shard_map drops the placement)."""
         directory = Path(directory)
         if step is None:
             step = latest_step(directory)
@@ -327,11 +384,20 @@ class AdaptiveSession:
                                         f"{directory}")
         meta = read_meta(directory, step)
         spec = SessionSpec.from_meta(meta["spec"])
+        if not (isinstance(substrate, str) and substrate == "keep"):
+            spec = dataclasses.replace(
+                spec, substrate=substrate, placement=spec.placement
+                if substrate == "shard_map" else None)
         if not (isinstance(placement, str) and placement == "keep"):
             spec = dataclasses.replace(
                 spec, placement=None if placement is None
                 else tuple(placement))
-        target = cache.device if cache is not None else resolve_device(device)
+        if spec.substrate == "shard_map":
+            pool = pool_for(cache.ranks if cache is not None else None)
+            target = torch.device(pool.device_type)
+        else:
+            target = cache.device if cache is not None \
+                else resolve_device(device)
         written_on = meta.get("device_type")
         if written_on != target.type:
             raise ValueError(
@@ -342,7 +408,7 @@ class AdaptiveSession:
         session = cls.create(spec, cache=cache, device=device)
         tree, _meta = load_checkpoint(session.state_template(), directory,
                                       step)
-        session.state = _tree_to_state(tree, session.device)
+        session.load_tree(tree)
         # stepping time before the preemption carries over
         session.wall_s = float(meta.get("wall_s", 0.0))
         return session

@@ -48,6 +48,21 @@ with tempfile.TemporaryDirectory() as d:
     assert train_main(["--arch", "falcon-mamba-7b-reduced", "--device", "cpu",
                        "--steps", "1", "--batch", "2", "--seq", "8",
                        "--micro", "1", "--adaptive"]) == 0
+import torch
+from repro_torch.launch.spawn import RankPool, foreign_modules
+from repro_torch.optim.compress import compress_on_rank, quantize_int8
+from repro_torch.serve import AdaptiveSession, SessionSpec
+from repro_torch.serve.ranks import make_groups
+q, scale = quantize_int8(torch.randn(64), torch.Generator().manual_seed(0))
+assert q.dtype == torch.int8 and float(scale) > 0
+with RankPool(2, device="cpu") as ranks:
+    s = AdaptiveSession.create(SessionSpec("wrs", "local", world=2,
+                                           substrate="shard_map")).start()
+    assert s.run().result()[1].stopped
+    ranks.call(make_groups, (0, 1), 0)
+    ranks.call(compress_on_rank, (0, 1), None, (64,))
+    in_ranks = sorted(set(sum(ranks.call(foreign_modules), [])))
+print("RANKS_LEAKED", in_ranks)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LEAKED", bad)
 """
@@ -58,7 +73,8 @@ def test_port_imports_no_jax_and_no_reference():
                          text=True, timeout=300,
                          env={**os.environ, "PYTHONPATH": str(SRC)})
     assert out.returncode == 0, out.stderr
-    assert "LEAKED []" in out.stdout, out.stdout
+    assert "\nLEAKED []" in out.stdout, out.stdout
+    assert "RANKS_LEAKED []" in out.stdout, out.stdout
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):

@@ -266,8 +266,8 @@ def test_adaptive_eval_stops_on_the_empirical_bernstein_rule():
 
 def test_unported_paths_raise_naming_their_roadmap_item():
     """Every family of the zoo builds on the CPU (item 10.2 is ported); an
-    unknown family raises, and so does the pool's shard_map session, which
-    waits for item 9's process-group sessions."""
+    unknown family raises, and so does the pool's shard_map session when
+    no rank pool is open (item 9's process-group sessions run on one)."""
     for arch in ("smollm-360m-reduced", "mixtral-8x22b-reduced",
                  "seamless-m4t-large-v2-reduced", "internvl2-76b-reduced"):
         cfg = resolve_config(arch)
@@ -275,10 +275,9 @@ def test_unported_paths_raise_naming_their_roadmap_item():
         assert model.cfg.family in ("dense", "moe", "encdec", "vlm")
     with pytest.raises(ValueError, match="unknown model family"):
         Model(dataclasses.replace(resolve_config(ARCH), family="rnn"), device=CPU)
-    # the pool's sessions run on the sequential and vmap substrates; the
-    # shard_map one waits for the pool's process-group sessions
+    # the pool's shard_map sessions run on the ranks of a rank pool
     from repro_torch.serve import AdaptiveSession, SessionSpec
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+    with pytest.raises(RuntimeError, match="RankPool"):
         AdaptiveSession.create(SessionSpec("wrs", "local", world=1,
                                            substrate="shard_map"),
                                device=CPU)

@@ -338,9 +338,9 @@ def test_same_spec_sessions_interleaved_share_no_generators():
     assert_same_result(b.result(), reference(spec))
 
 
-def test_shard_map_substrate_raises_naming_queue_item():
+def test_shard_map_session_needs_an_open_rank_pool():
     spec = SessionSpec(INSTANCE, "local", world=1, substrate="shard_map")
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+    with pytest.raises(RuntimeError, match="RankPool"):
         AdaptiveSession.create(spec, device="cpu")
 
 
