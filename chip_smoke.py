@@ -47,7 +47,7 @@ and the script exits non-zero:
                  at a ragged (3, 100, 125, 3).  The backward kernels:
                  ``flash_attention``'s (with the forward's logsumexp) at
                  h2o-danube-3-4b's train shape (1, 32, 4096, 120) kv 8
-                 window 4096, recurrentgemma-2b's (1, 10, 4096, 256)
+                 window 4096 (in bf16 and in f32), recurrentgemma-2b's (1, 10, 4096, 256)
                  kv 1 window 2048 and the training CLI's smollm-360m
                  (4, 15, 512, 64) kv 5 in bf16 (timed beside the bound, the
                  plain backward and ``torch.autograd.grad`` through SDPA)
@@ -155,16 +155,35 @@ and the script exits non-zero:
                  (``launch/train.py``'s ``main``) on smollm-360m: 20 steps,
                  a run preempted at 5 and resumed with the same losses and
                  final checkpoint, and an ``--adaptive`` run.
-14. kernels    — every kernel (the three backward kernels too) with its
-                 launches on the ten paths (phases 5–6, 7, 8, 9, 9a and
+14. zoo-mesh   — the model zoo on a mesh (``launch/sharded.py``,
+                 ``launch/pipeline.py``): h2o-danube-3-4b at full width and
+                 depth (seed 0, bf16) in this process — prefill B = 2,
+                 S = 4096, 8 decode steps from an empty cache at
+                 positions 2047 … 2054 (across the model ranks' halves
+                 of the slots), its 24
+                 blocks over 4 micro-batches of (1, 2048) in a loop —, then
+                 4 gloo ranks sharing the card: the same prefill and decode
+                 steps on the (data 2, model 2) mesh, the weights drawn
+                 shard by shard from seed 0, under the default flags (a
+                 warm-up prefill, then the timed one and 8 decode steps)
+                 and fsdp + seq_parallel (one prefill, 2 decode steps),
+                 each logit within the bf16 gate of the one-process
+                 run's; ``flash_attention`` on each rank's
+                 local heads (1, 16, 4096, 120) kv 4, every call held
+                 against its plain version; the GPipe pipeline over 4
+                 stages of 6 blocks, bit-equal to the loop
+                 (``torch.equal``, else the phase fails).  Wall per step, weight bytes and peak memory
+                 per rank, the collectives by kind (``analysis.comms``).
+15. kernels    — every kernel (the three backward kernels too) with its
+                 launches on the eleven paths (phases 5–6, 7, 8, 9, 9a and
                  9b — this process's and its worker processes' —, 10, 11,
-                 12 and 13), each counted from 0 just before its path; each
-                 path's line also splits its kernel calls by shape (the
+                 12, 13 and 14), each counted from 0 just before its path;
+                 each path's line also splits its kernel calls by shape (the
                  kernels line repeats ``flash_attention``'s on the
                  families path).
 
-While phases 5–13 run, in this process and in the worker processes of 9a
-and 9b, the kernels behind ``kernels.ops`` (forward and backward) are
+While phases 5–14 run, in this process and in the worker processes of 9a,
+9b and 14, the kernels behind ``kernels.ops`` (forward and backward) are
 wrapped so that their calls are held against the plain versions on the
 same tensors:
 every call on the conformance path, and elsewhere each call whose kernel,
@@ -249,6 +268,8 @@ MAMBA_PARAMS = 7_272_665_088
 # phase 13, train: the backward kernels' shapes in phase 4, then the steps
 FLASH_BWD_SHAPES = (  # (name, (B, H, KV, S, hd), window, dtype, timed)
     ("h2o-danube-3-4b train", (1, 32, 8, 4096, 120), 4096, "bfloat16", True),
+    # the f32 body (the CUDA-core ``bw::`` kernels) at the same shape
+    ("h2o-danube-3-4b train f32", (1, 32, 8, 4096, 120), 4096, "float32", True),
     ("recurrentgemma-2b train", (1, 10, 1, 4096, 256), 2048, "bfloat16", True),
     # the training CLI's smollm-360m micro-batch, the train path's most
     # frequent backward call (2,560 a run), launch-sized
@@ -2757,6 +2778,226 @@ def phase_families(torch):
         torch.cuda.empty_cache()
 
 
+# phase 14: the model zoo on a mesh of 4 gloo ranks sharing the card
+ZOO_MESH, ZOO_AXES = (2, 2), ("data", "model")
+ZOO_PREFILL = (2, 4096)     # B, S: the batch over "data", the heads over "model"
+ZOO_DECODE = 8              # decode steps from an empty cache of S slots,
+ZOO_DECODE_START = 2047     # at positions 2047 …: across the model ranks'
+                            # halves of the slots (2048 each), both flags
+# (name, policy flags, decode steps, warm-up prefill): fsdp + sp gathers
+# every layer's weights over "data" at every step, so it decodes 2 steps
+ZOO_FLAGS = (("default", None, ZOO_DECODE, True),
+             ("fsdp+sp", {"fsdp": True, "seq_parallel": True}, 2, False))
+PIPE_STAGES = 4
+PIPE_MICRO = (4, 1, 2048)   # M micro-batches of (1, 2048)
+ZOO_TIMEOUT_S = 900.0
+
+
+def zoo_inputs():
+    """The serving cell's prompts (B, S) and decode tokens (B, ZOO_DECODE)."""
+    import numpy as np
+    rng = np.random.default_rng(14)
+    B, S = ZOO_PREFILL
+    return (rng.integers(0, 32000, (B, S)), rng.integers(0, 32000, (B, ZOO_DECODE)))
+
+
+def pipe_input(torch, d, device):
+    """The pipeline's M micro-batches of activations, (M, 1, 2048, d) bf16,
+    the same from seed 14 on every process of the card."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(14)
+    return (torch.randn(PIPE_MICRO + (d,), generator=gen, device=device)
+            * 0.02).to(torch.bfloat16)
+
+
+def zoo_mesh_rank(group, prompts, dec, out_dir):
+    """One of phase 14's ranks: h2o-danube-3-4b on the (2, 2) mesh under
+    each of ``ZOO_FLAGS`` (``serve_rank``: shards drawn from seed 0, a
+    warm prefill, the timed prefill, ``ZOO_DECODE`` decode steps and the
+    serving step), then its stage of the GPipe pipeline (layers
+    [6·rank, 6·rank + 6) of the same weights); rank 0 writes the
+    pipeline's output to ``out_dir``.  Every kernel call is held against
+    its plain version (``probed``)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import distributed
+    from repro_torch.launch.pipeline import DecoderLayer, pipeline_forward
+    from repro_torch.launch.sharded import draw_params, serve_rank
+    from repro_torch.models import Model, resolve_config
+
+    out = {}
+    with probed(group, every=True) as (report, check):
+        for name, flags, steps, warm in ZOO_FLAGS:
+            out[name] = serve_rank(group, DANUBE_ARCH, ZOO_MESH, ZOO_AXES, flags,
+                                   0, None, None, prompts, dec[:, :steps],
+                                   ZOO_PREFILL[1], warm, ZOO_DECODE_START)
+            torch.cuda.empty_cache()
+        cfg = resolve_config(DANUBE_ARCH)
+        L, S, sid = cfg.n_layers, PIPE_STAGES, group.rank
+        lo, hi = sid * L // S, (sid + 1) * L // S
+        torch.cuda.reset_peak_memory_stats()
+        model = draw_params(
+            Model(cfg, device="meta"), 0, group.device,
+            lambda n, full: full if n.startswith("layers.")
+            and lo <= int(n.split(".")[1]) < hi else None)
+        x = pipe_input(torch, cfg.d_model, group.device)
+        staged = distributed.host_staged
+        torch.cuda.synchronize()
+        t0 = time.time()
+        y = pipeline_forward(DecoderLayer(cfg), model.layers, x, group)
+        torch.cuda.synchronize()
+        out["pipeline"] = {
+            "wall_s": time.time() - t0, "layers": [lo, hi],
+            "host_staged_messages": distributed.host_staged - staged,
+            "weight_bytes": sum(p.numel() * p.element_size()
+                                for n, p in model.named_parameters()
+                                if p.device.type == "cuda"),
+            "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+        if group.rank == 0:
+            np.save(Path(out_dir) / "pipeline.npy",
+                    y.view(torch.int16).cpu().numpy())
+        del model, x, y
+    return out, report
+
+
+def phase_zoo_mesh(torch, rank_reports):
+    """Phase 14: the model zoo on a mesh (``launch/sharded.py``,
+    ``launch/pipeline.py``).  h2o-danube-3-4b at full width and depth in
+    one process (seed 0): prefill ``ZOO_PREFILL``, ``ZOO_DECODE`` decode
+    steps from ``ZOO_DECODE_START``, and its 24 blocks over
+    ``PIPE_MICRO`` in a loop; then 4 gloo ranks sharing the card
+    (``zoo_mesh_rank``): the same prefill and
+    decode steps sharded on the (data 2, model 2) mesh under each of
+    ``ZOO_FLAGS``, each logit within the bf16 gate of phases 10–12
+    (``SERVE_GATES``) of the one-process run's; and the GPipe
+    pipeline over 4 stages, bit-equal to the loop (``torch.equal``).
+    The ranks' reports (launches, comparisons, calls by shape) go to
+    ``rank_reports``."""
+    import math
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.launch.pipeline import DecoderLayer
+    from repro_torch.launch.spawn import spawn_workers
+
+    path = "zoo-mesh"
+    prompts, dec = zoo_inputs()
+    model = serve_model(torch, DANUBE_ARCH, path, DANUBE_PARAMS)
+    cfg = model.cfg
+    B, S = ZOO_PREFILL
+    with torch.inference_mode():
+        toks = torch.as_tensor(prompts, device="cuda")
+        model.prefill({"tokens": toks})                   # warm-up
+        torch.cuda.synchronize()
+        t0 = time.time()
+        single = {"prefill": model.prefill({"tokens": toks}).float()}
+        torch.cuda.synchronize()
+        single_wall = {"prefill": time.time() - t0, "decode": []}
+        cache = model.init_cache(B, S)
+        steps = []
+        for t in range(ZOO_DECODE):
+            t0 = time.time()
+            cache, lg = model.decode_step(cache, {
+                "tokens": torch.as_tensor(dec[:, t], device="cuda"),
+                "pos": torch.full((B,), ZOO_DECODE_START + t, dtype=torch.int32,
+                                  device="cuda")})
+            steps.append(lg.float())
+            torch.cuda.synchronize()
+            single_wall["decode"].append(time.time() - t0)
+        single["decode"] = torch.stack(steps)
+        del cache, steps
+        layer = DecoderLayer(cfg)
+        x = pipe_input(torch, cfg.d_model, "cuda")
+        t0 = time.time()
+        loop = []
+        for m in range(x.shape[0]):
+            y = x[m]
+            for lp in model.layers:
+                y = layer(lp, y)
+            loop.append(y)
+        loop = torch.stack(loop)
+        torch.cuda.synchronize()
+        single_wall["pipeline_loop"] = time.time() - t0
+        single = {k: v.cpu().numpy() for k, v in single.items()}
+        loop = loop.cpu()
+    del model, x
+    torch.cuda.empty_cache()
+    emit({"phase": path, "step": "one process", "arch": cfg.name,
+          "prefill": [B, S], "decode_steps": ZOO_DECODE,
+          "decode_start": ZOO_DECODE_START, "wall_s": single_wall})
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_zoo_") as tmp:
+        t0 = time.time()
+        out = spawn_workers(zoo_mesh_rank, 4, backend="gloo", device="cuda",
+                            args=(prompts, dec, tmp), timeout=ZOO_TIMEOUT_S)
+        spawn_wall = time.time() - t0
+        piped = torch.from_numpy(np.load(Path(tmp) / "pipeline.npy")).view(
+            torch.bfloat16)
+    rank_reports += [report for _, report in out]
+    ranks = [r for r, _ in out]
+    flash_by_rank = [rep["by_shape"].get("flash_attention", {})
+                     for _, rep in out]
+    failed = []
+    for name, flags, steps, warm in ZOO_FLAGS:
+        r0 = ranks[0][name]
+        errs = {}
+        for key, got in (("prefill", r0["prefill_logits"]),
+                         ("decode", r0["decode_logits"])):
+            exp = single[key][:steps] if key == "decode" else single[key]
+            errs[key] = float(np.abs(got - exp).max()) / float(np.abs(exp).max())
+        agree = float((r0["prefill_logits"].argmax(-1)
+                       == single["prefill"].argmax(-1)).mean())
+        emit({"phase": path, "step": "sharded serving", "arch": cfg.name,
+              "mesh": dict(zip(ZOO_AXES, ZOO_MESH)), "flags": name,
+              "processes": "4 gloo ranks on one card, not a multi-GPU number",
+              "prefill": [B, S], "decode_steps": steps,
+              "decode_start": ZOO_DECODE_START, "warm_prefill": warm,
+              "rel_err": errs, "gate_rel": SERVE_GATES["bf16"],
+              "prefill_argmax_agree": agree,
+              "prefill_wall_s": [r[name]["prefill"]["wall_s"] for r in ranks],
+              "decode_wall_s": [r[name]["decode"]["wall_s"] for r in ranks],
+              "one_process_wall_s": {k: single_wall[k]
+                                     for k in ("prefill", "decode")},
+              "weight_bytes": [r[name]["weight_bytes"] for r in ranks],
+              "peak_mem_bytes": [r[name].get("peak_mem_bytes") for r in ranks],
+              "host_staged_messages": [r[name]["host_staged_messages"]
+                                       for r in ranks],
+              "collectives_prefill": [r[name]["prefill"]["collectives"]
+                                      for r in ranks],
+              "collectives_decode_step_0": [r[name]["decode"]["collectives"][0]
+                                            for r in ranks],
+              "local_logits": r0["prefill"]["local_logits"]})
+        if not all(math.isfinite(e) and e <= SERVE_GATES["bf16"]
+                   for e in errs.values()):
+            failed.append(f"{name}: {errs}")
+    equal = torch.equal(piped, loop)
+    diff = float((piped.float() - loop.float()).abs().max())
+    rel = diff / float(loop.float().abs().max())
+    emit({"phase": path, "step": "pipeline", "arch": cfg.name,
+          "stages": PIPE_STAGES, "micro_batches": list(PIPE_MICRO),
+          "layers": cfg.n_layers, "equal": equal, "max_abs_diff": diff,
+          "rel_diff": rel, "ranks": [r["pipeline"] for r in ranks],
+          "loop_wall_s": single_wall["pipeline_loop"], "spawn_and_run_s": spawn_wall,
+          "flash_attention_calls_by_rank": flash_by_rank,
+          "flash_attention_compared_by_rank": [rep["compared"]["flash_attention"]
+                                               for _, rep in out],
+          "flash_attention_max_abs_err_by_rank": [
+              rep["max_err"]["flash_attention"] for _, rep in out],
+          # the ranks' walls above include these comparisons
+          "plain_compare_s_by_rank": [rep["compare_s"] for _, rep in out]})
+    # bit-equal: every micro-batch meets the same kernels on the same
+    # shapes in the same order as in the loop
+    if not equal:
+        failed.append(f"pipeline differs from the loop by {diff} "
+                      f"({rel} of its scale)")
+    if any(not f for f in flash_by_rank):
+        failed.append(f"a rank launched no flash_attention: {flash_by_rank}")
+    if failed:
+        raise AssertionError("zoo-mesh: " + "; ".join(failed))
+
+
 GEMM_PARTS = ("gemm", "nvjet", "xmma", "cutlass")
 
 
@@ -3160,6 +3401,12 @@ def main() -> int:
                               "ssm_scan_bwd"))
     emit({"phase": "train", "flash_attention_bwd_checks":
           check.flash_bwd_rows[checked_before:]})
+    torch.cuda.empty_cache()
+    zoo_ranks = []
+    by_path["zoo-mesh"] = drive("zoo-mesh",
+                                lambda: phase_zoo_mesh(torch, zoo_ranks),
+                                ("flash_attention",), every=True,
+                                ranks=zoo_ranks)
 
     meta = {
         "frame_accum": ("src/repro_torch/kernels/csrc/frame_accum.cu",

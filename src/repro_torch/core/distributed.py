@@ -288,3 +288,104 @@ def record_collectives(detail: bool = False):
     finally:
         for name, fn in saved.items():
             setattr(dist, name, fn)
+
+
+# -- CUDA tensors on gloo, staged through the host --------------------------
+
+# collectives and point-to-point messages of CUDA tensors carried as host
+# copies on gloo groups (``stage_through_host``).  gloo's point-to-point
+# calls take host memory only; and on torch 2.11 a DTensor collective
+# (``_c10d_functional``) of a CUDA tensor over gloo crashed the rank in
+# ``wait_tensor`` where the same collectives called directly took CUDA
+# tensors: so DTensor's collectives on the card go through the host too.
+host_staged = 0
+STAGED_DEVICE = "cuda"
+_FUNCOL_STAGED = ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor",
+                  "all_to_all_single", "broadcast")
+
+
+def p2p_exchange(pg, send: Optional[tuple], recv: Optional[tuple]) -> None:
+    """``send`` = (tensor, group rank) and ``recv`` = (buffer, group rank),
+    either None, posted at once with ``dist.batch_isend_irecv`` and waited.
+    gloo's point-to-point calls take host memory only: on a gloo group a
+    CUDA tensor goes through a host copy (``stage_through_host``)."""
+    gloo = dist.get_backend(pg) == "gloo"
+    ops: List[dist.P2POp] = []
+    back = None
+
+    def peer(r):
+        return dist.get_global_rank(pg, r) if pg is not None else r
+
+    if send is not None:
+        t, r = send
+        if gloo and t.device.type == STAGED_DEVICE:
+            t = stage_through_host(t)
+        ops.append(dist.P2POp(dist.isend, t, peer(r), group=pg))
+    if recv is not None:
+        buf, r = recv
+        if gloo and buf.device.type == STAGED_DEVICE:
+            back, buf = buf, stage_through_host(buf, copy=False)
+        ops.append(dist.P2POp(dist.irecv, buf, peer(r), group=pg))
+    if ops:
+        for w in dist.batch_isend_irecv(ops):
+            w.wait()
+    if back is not None:
+        back.copy_(buf)
+
+
+def stage_through_host(t: torch.Tensor, copy: bool = True) -> torch.Tensor:
+    """A host tensor standing in for the CUDA tensor ``t`` in a gloo
+    message (its values with ``copy``, else a buffer of its shape);
+    counted in ``host_staged``."""
+    global host_staged
+    host_staged += 1
+    if not copy:
+        return torch.empty(t.shape, dtype=t.dtype)
+    return t.detach().to("cpu", copy=True).contiguous()
+
+
+@contextlib.contextmanager
+def staged_collectives():
+    """While the block runs, every ``_c10d_functional`` collective (the ones
+    DTensor issues) of a CUDA tensor runs on a host copy, waited at once,
+    and its result comes back to the card: the computation stays on the
+    card, only the message goes through host memory.  For gloo groups (the
+    ranks that share a card)."""
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_map
+
+    funcol = torch.ops._c10d_functional
+
+    class _Staged(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if any(issubclass(t, DTensor) for t in types):
+                return NotImplemented
+            name = getattr(func, "_overloadpacket", None)
+            name = getattr(name, "__name__", "")
+            t = args[0] if args else None
+            if func.namespace == "_c10d_functional" and name in _FUNCOL_STAGED \
+                    and isinstance(t, torch.Tensor) \
+                    and t.device.type == STAGED_DEVICE:
+                dev = t.device
+                out = func(*tree_map(lambda a: stage_through_host(a)
+                                     if isinstance(a, torch.Tensor) else a,
+                                     args), **kwargs)
+                return funcol.wait_tensor(out).to(dev)
+            return func(*args, **kwargs)
+
+    with _Staged():
+        yield
+
+
+def broadcast(t: torch.Tensor, src: int, pg=None) -> None:
+    """``t`` from group rank ``src`` to every rank of ``pg``, in place; on
+    gloo a CUDA tensor goes through a host copy."""
+    root = dist.get_global_rank(pg, src) if pg is not None else src
+    if dist.get_backend(pg) == "gloo" and t.device.type == STAGED_DEVICE:
+        h = stage_through_host(t)
+        dist.broadcast(h, src=root, group=pg)
+        t.copy_(h)
+        return
+    dist.broadcast(t, src=root, group=pg)

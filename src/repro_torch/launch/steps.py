@@ -81,9 +81,21 @@ def make_serve_step(model: Model) -> Callable:
 
     def serve_step(cache, batch):
         cache, logits = model.decode_step(cache, batch)
-        return cache, torch.argmax(logits, dim=-1).to(torch.int32)
+        return cache, torch.argmax(_whole_vocab(logits), dim=-1).to(torch.int32)
 
     return serve_step
+
+
+def _whole_vocab(logits: torch.Tensor) -> torch.Tensor:
+    """Logits (B, V) with the vocab whole on every rank where they are a
+    vocab-sharded DTensor (one small all-gather), so that the argmax is a
+    local one; a plain tensor as it is."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(logits, DTensor):
+        return logits
+    pl = tuple(Replicate() if p == Shard(logits.dim() - 1) else p
+               for p in logits.placements)
+    return logits.redistribute(logits.device_mesh, pl)
 
 
 def step_for(model: Model, kind: str) -> Callable:

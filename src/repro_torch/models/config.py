@@ -111,6 +111,16 @@ class ModelConfig:
             total += enc + self.n_layers * (attn + d)
         return emb + total
 
+    def active_param_count(self) -> int:
+        """Parameters active per token (moe: top_k of the n_experts)."""
+        if self.family != "moe" or not self.n_experts:
+            return self.param_count()
+        d = self.d_model
+        ff_w = self.moe_ff or self.d_ff
+        dense_moe = self.n_experts * 3 * d * ff_w
+        active_moe = self.top_k * 3 * d * ff_w
+        return self.param_count() - self.n_layers * (dense_moe - active_moe)
+
 
 @dataclasses.dataclass(frozen=True)
 class ShapeConfig:

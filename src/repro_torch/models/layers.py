@@ -1,17 +1,28 @@
-"""Parameter definitions, initialisation and the shared numerics.
+"""Parameter definitions, initialisation, logical-axis sharding and the
+shared numerics.  Port of :mod:`repro.models.layers`.
 
-Port of :mod:`repro.models.layers` without its sharding rules (those are
-mesh-specific, ROADMAP queue 1 item 11).  A :class:`ParamDef` gives a
-parameter's shape, dtype and init kind; :class:`Params` holds one block's
-parameters as an ``nn.Module`` whose names are the reference tree's keys,
-and reads like the reference's dict (``p["w_in"]``).
+A :class:`ParamDef` gives a parameter's shape, dtype, init kind and
+*logical* axis names (``"embed"``, ``"vocab"``, ``"heads"``, ``"ffn"``,
+``"experts"``, …); :class:`Params` holds one block's parameters as an
+``nn.Module`` whose names are the reference tree's keys, and reads like
+the reference's dict (``p["w_in"]``).
+
+A :class:`ShardingRules` table maps logical axes to mesh axes with the
+reference's **divisibility fallback** (an axis that does not divide a dim
+evenly is not used for it, e.g. smollm's 15 heads on a 16-way model axis)
+and its rule that a mesh axis shards at most one dim of a tensor.  A spec
+is a tuple with one entry per dim: ``None``, one mesh-axis name, or a
+tuple of names, as a ``jax.sharding.PartitionSpec`` reads.
+:func:`placements` turns a spec into DTensor placements over a mesh, and
+:func:`constrain` redistributes a DTensor activation to its logical
+layout (the counterpart of ``with_sharding_constraint``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -27,6 +38,25 @@ class ParamDef:
     fan_in: int = 0                        # contraction size for "scaled"
                                            # (0 → shape[-2], or shape[-1]
                                            # for a vector)
+    logical: Optional[Tuple[Optional[str], ...]] = None  # one logical name
+                                           # (or None) per dim; None → all None
+
+    def __post_init__(self):
+        if self.logical is None:
+            object.__setattr__(self, "logical", (None,) * len(self.shape))
+        if len(self.logical) != len(self.shape):
+            raise ValueError(f"ParamDef: {len(self.shape)} dims {self.shape} "
+                             f"but logical names {self.logical}")
+
+    def stacked(self, n: int) -> "ParamDef":
+        """The def of ``n`` such parameters stacked along a new leading
+        ``layers`` dim (the reference's scan weights); ``fan_in`` stays
+        that of one layer."""
+        fan_in = self.fan_in or (self.shape[-2] if len(self.shape) >= 2
+                                 else self.shape[-1])
+        return dataclasses.replace(self, shape=(n,) + tuple(self.shape),
+                                   logical=("layers",) + tuple(self.logical),
+                                   fan_in=fan_in)
 
 
 def _trunc_normal(shape, generator: torch.Generator) -> torch.Tensor:
@@ -81,6 +111,143 @@ class Params(nn.Module):
 
 
 # ---------------------------------------------------------------------------
+# Logical-axis sharding
+# ---------------------------------------------------------------------------
+
+Spec = Tuple[object, ...]   # per dim: None, a mesh-axis name, or a tuple of names
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingRules:
+    """logical axis → tuple of mesh axes (applied with divisibility check)."""
+    rules: Dict[str, Tuple[str, ...]]
+    mesh_shape: Dict[str, int]
+
+    def spec_for(self, d: ParamDef) -> Spec:
+        return self.spec_for_shape(d.shape, d.logical)
+
+    def spec_for_shape(self, shape: Sequence[int],
+                       logical: Sequence[Optional[str]]) -> Spec:
+        """Each dim takes, in order, the rule's mesh axes that are larger
+        than 1, not used by an earlier dim, and whose product with the axes
+        it already took divides its size."""
+        used: set = set()
+        out = []
+        for size, name in zip(shape, logical):
+            axes = self.rules.get(name, ()) if name else ()
+            chosen = []
+            prod = 1
+            for ax in axes:
+                if ax in used:
+                    continue
+                a = self.mesh_shape.get(ax, 1)
+                if a > 1 and size % (prod * a) == 0:
+                    chosen.append(ax)
+                    prod *= a
+            used.update(chosen)
+            out.append(tuple(chosen) if len(chosen) > 1
+                       else (chosen[0] if chosen else None))
+        return tuple(out)
+
+
+def spec_axes(entry) -> Tuple[str, ...]:
+    """The mesh axes of one spec entry, outermost first."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def mesh_axes(mesh) -> Tuple[Tuple[str, ...], Tuple[int, ...]]:
+    """(axis names, shape) of a ``DeviceMesh`` or of a mesh description
+    (anything with ``axis_names`` and ``shape``)."""
+    names = getattr(mesh, "mesh_dim_names", None) or getattr(mesh, "axis_names")
+    return tuple(names), tuple(int(n) for n in mesh.shape)
+
+
+def placements(spec: Spec, mesh) -> tuple:
+    """DTensor placements of ``spec`` over ``mesh``: mesh dim i is
+    ``Shard(d)`` where tensor dim d names axis i, else ``Replicate()``."""
+    from torch.distributed.tensor import Replicate, Shard
+    names, _ = mesh_axes(mesh)
+    out = [Replicate()] * len(names)
+    for d, entry in enumerate(spec):
+        for ax in spec_axes(entry):
+            out[names.index(ax)] = Shard(d)
+    return tuple(out)
+
+
+def local_shape(shape: Sequence[int], spec: Spec, mesh) -> Tuple[int, ...]:
+    """The shape of one device's shard of a ``shape`` tensor laid out by
+    ``spec`` (every sharded dim divides, by the fallback)."""
+    names, sizes = mesh_axes(mesh)
+    size = dict(zip(names, sizes))
+    out = []
+    for n, entry in zip(shape, spec):
+        for ax in spec_axes(entry):
+            n //= size[ax]
+        out.append(n)
+    return tuple(out)
+
+
+def shard_range(mesh, pl: Sequence, dim: int, size: int) -> Tuple[int, int]:
+    """(first index, length) of this rank's block of dim ``dim``, of
+    ``size``, of a tensor laid out by placements ``pl`` on the
+    ``DeviceMesh`` ``mesh``: the dim chunked by each mesh dim that shards
+    it, outermost first, as DTensor lays shards out."""
+    from torch.distributed.tensor import Shard
+    coord = mesh.get_coordinate()
+    first, n = 0, size
+    for i, p in enumerate(pl):
+        if p == Shard(dim):
+            if n % mesh.size(i):
+                raise ValueError(f"dim {dim} of size {size} does not divide "
+                                 f"into {mesh.size(i)} shards")
+            n //= mesh.size(i)
+            first += coord[i] * n
+    return first, n
+
+
+def local_chunk(full: torch.Tensor, mesh, pl: Sequence) -> torch.Tensor:
+    """This rank's shard of ``full`` under placements ``pl``
+    (:func:`shard_range` of every sharded dim).  A view of ``full``."""
+    from torch.distributed.tensor import Shard
+    for d in sorted({p.dim for p in pl if isinstance(p, Shard)}):
+        first, n = shard_range(mesh, pl, d, full.shape[d])
+        full = full.narrow(d, first, n)
+    return full
+
+
+def constrain(x: torch.Tensor, logical: Sequence[Optional[str]],
+              rules: Optional[ShardingRules]) -> torch.Tensor:
+    """Redistribute the DTensor ``x`` to its logical layout under
+    ``rules``.  ``x`` comes back unchanged when it is not a DTensor, when
+    there are no rules, or when the fallback leaves every entry ``None``:
+    an all-None spec would pin the tensor replicated, which the reference
+    skips rather than force an all-gather of a whole activation."""
+    if rules is None:
+        return x
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x
+    spec = rules.spec_for_shape(x.shape, logical)
+    if all(s is None for s in spec):
+        return x
+    return x.redistribute(x.device_mesh, placements(spec, x.device_mesh))
+
+
+def gather_seq(x: torch.Tensor) -> torch.Tensor:
+    """A (B, S, …) DTensor whose sequence is sharded (sequence parallelism
+    between layers) gathered whole along S before a block's products, as
+    Megatron's sequence parallelism does (the product flattens B and S,
+    which DTensor will not do over a sharded S); anything else as it is."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(x, DTensor) or Shard(1) not in x.placements:
+        return x
+    return x.redistribute(x.device_mesh, tuple(
+        Replicate() if p == Shard(1) else p for p in x.placements))
+
+
+# ---------------------------------------------------------------------------
 # Numerics
 # ---------------------------------------------------------------------------
 
@@ -111,8 +278,11 @@ def rotary(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor,
 
 
 def swiglu(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
-           w2: torch.Tensor) -> torch.Tensor:
-    return (F.silu(x @ w1) * (x @ w3)) @ w2
+           w2: torch.Tensor, constrain=None) -> torch.Tensor:
+    """(silu(x·w1) ⊙ x·w3)·w2; ``constrain`` lays out the hidden (the
+    reference's ffn_act site)."""
+    h = F.silu(x @ w1) * (x @ w3)
+    return (h if constrain is None else constrain(h)) @ w2
 
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

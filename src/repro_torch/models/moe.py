@@ -1,8 +1,13 @@
 """Mixture-of-Experts FFN (mixtral-8x22b, qwen3-moe): GShard-style
 token-choice top-k routing with a per-expert capacity, in dispatch groups.
 
-Port of :mod:`repro.models.moe` without its sharding constraints (mesh
-layouts wait for ROADMAP queue 1 item 11).  The routing is the reference's
+Port of :mod:`repro.models.moe`, with the reference's activation
+constraints (experts_act / ffn_act, applied by the ``constrain`` the model
+passes).  The parameters carry the reference's logical axes (EP: experts
+over ``model`` where the count divides, else TP-MoE over the per-expert
+ffn), so the dry run sizes them; running moe on a mesh (the dispatch's
+all-to-all) is ROADMAP queue 1 item 12 and raises here.
+The routing is the reference's
 exactly: choice ranks are processed in order and tokens in sequence order,
 tokens past an expert's capacity are dropped for it, and top-k ties break
 toward the lower expert index, as ``jax.lax.top_k`` breaks them.  The
@@ -26,11 +31,15 @@ def moe_defs(cfg) -> dict:
     ff = cfg.moe_ff or cfg.d_ff
     res = 1.0 / math.sqrt(2.0 * max(cfg.n_layers, 1))
     return {
-        "ln": ParamDef((d,), init="ones"),
-        "router": ParamDef((d, E), dtype=torch.float32, init="scaled"),
-        "w1": ParamDef((E, d, ff), init="scaled"),
-        "w3": ParamDef((E, d, ff), init="scaled"),
-        "w2": ParamDef((E, ff, d), init="scaled", scale=res),
+        "ln": ParamDef((d,), init="ones", logical=("embed",)),
+        "router": ParamDef((d, E), dtype=torch.float32, init="scaled",
+                           logical=("embed", None)),
+        "w1": ParamDef((E, d, ff), init="scaled",
+                       logical=("experts", "embed", "ffn")),
+        "w3": ParamDef((E, d, ff), init="scaled",
+                       logical=("experts", "embed", "ffn")),
+        "w2": ParamDef((E, ff, d), init="scaled", scale=res,
+                       logical=("experts", "ffn", "embed")),
     }
 
 
@@ -102,28 +111,41 @@ def _groups(x: torch.Tensor, cfg, group_size: int) -> Tuple[torch.Tensor, int]:
     return x.reshape(T // g, g, d), g
 
 
-def moe_ffn(p, x: torch.Tensor, cfg, group_size: int = 0
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _no_constraint(x, logical):
+    return x
+
+
+def moe_ffn(p, x: torch.Tensor, cfg, group_size: int = 0,
+            constrain=_no_constraint) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, d) → (B, S, d), aux loss.  Groups of ``group_size`` tokens
     (``cfg.moe_group`` by default) bound the dispatch tensors;
     ``cfg.moe_dispatch`` picks the one-hot (GShard) or the sorted
-    dispatch."""
+    dispatch.  ``constrain(t, logical)`` lays out the expert activations
+    at the reference's sites; a DTensor ``x`` (a mesh) raises."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(x, DTensor):
+        raise NotImplementedError(
+            "moe on a mesh (expert parallelism) is not ported yet: ROADMAP "
+            "queue 1, item 12 (moe (EP) on a mesh)")
     xg, g = _groups(x, cfg, group_size)
     if cfg.moe_dispatch == "sort":
-        y, aux = moe_ffn_sorted(p, xg, cfg)
+        y, aux = moe_ffn_sorted(p, xg, cfg, constrain)
         return y.reshape(x.shape), aux
     logits = (xg.to(p["router"].dtype) @ p["router"]).float()   # (G, g, E)
     dispatch, comb, aux = route_topk(logits, cfg.top_k, moe_capacity(cfg, g))
     dt = x.dtype
     xe = torch.einsum("gsec,gsd->egcd", dispatch.to(dt), xg)
+    xe = constrain(xe, ("experts_act", "batch", None, None))
     h = F.silu(torch.einsum("egcd,edf->egcf", xe, p["w1"])) \
         * torch.einsum("egcd,edf->egcf", xe, p["w3"])
+    h = constrain(h, ("experts_act", "batch", None, "ffn_act"))
     ye = torch.einsum("egcf,efd->egcd", h, p["w2"])
+    ye = constrain(ye, ("experts_act", "batch", None, None))
     y = torch.einsum("egcd,gsec->gsd", ye, comb.to(dt))
     return y.reshape(x.shape), aux
 
 
-def moe_ffn_sorted(p, xg: torch.Tensor, cfg
+def moe_ffn_sorted(p, xg: torch.Tensor, cfg, constrain=_no_constraint
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sort-based dispatch of grouped tokens xg (G, g, d) → (G, g, d), aux.
     The (token, choice) slots, choice-major, are sorted stably by expert;
@@ -159,10 +181,16 @@ def moe_ffn_sorted(p, xg: torch.Tensor, cfg
     gi = torch.arange(G, device=xg.device)[:, None].expand(G, k * g)
     xe = torch.zeros((G, E, C, d), dtype=xg.dtype, device=xg.device)
     xe.index_put_((gi, sec, posc), gath, accumulate=True)
+    # the scatter local, then one all-to-all into the experts' layout
+    xe = constrain(xe, ("batch", None, None, None))
+    xe = constrain(xe, ("batch", "experts_act", None, None))
 
     h = F.silu(torch.einsum("gecd,edf->gecf", xe, p["w1"])) \
         * torch.einsum("gecd,edf->gecf", xe, p["w3"])
+    h = constrain(h, ("batch", "experts_act", None, "ffn_act"))
     ye = torch.einsum("gecf,efd->gecd", h, p["w2"])
+    ye = constrain(ye, ("batch", "experts_act", None, None))
+    ye = constrain(ye, ("batch", None, None, None))     # back to the gather's
 
     y_slots = ye[gi, sec, posc] * (sw * keep).to(ye.dtype)[..., None]
     inv = torch.argsort(order, dim=1)

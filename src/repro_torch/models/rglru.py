@@ -28,17 +28,19 @@ def rglru_defs(cfg) -> dict:
     res = 1.0 / math.sqrt(2.0 * max(cfg.n_layers, 1))
     f32 = torch.float32
     return {
-        "norm": ParamDef((d,), init="ones"),
-        "w_in": ParamDef((d, w), init="scaled"),
-        "w_gate": ParamDef((d, w), init="scaled"),
-        "conv_w": ParamDef((_K, w), init="scaled", scale=0.5),
-        "conv_b": ParamDef((w,), init="zeros"),
-        "w_r": ParamDef((w, w), init="scaled"),
-        "b_r": ParamDef((w,), dtype=f32, init="zeros"),
-        "w_i": ParamDef((w, w), init="scaled"),
-        "b_i": ParamDef((w,), dtype=f32, init="zeros"),
-        "lam": ParamDef((w,), dtype=f32, init="ones"),
-        "w_out": ParamDef((w, d), init="scaled", scale=res),
+        "norm": ParamDef((d,), init="ones", logical=("embed",)),
+        "w_in": ParamDef((d, w), init="scaled", logical=("embed", "lru")),
+        "w_gate": ParamDef((d, w), init="scaled", logical=("embed", "lru")),
+        "conv_w": ParamDef((_K, w), init="scaled", scale=0.5,
+                           logical=(None, "lru")),
+        "conv_b": ParamDef((w,), init="zeros", logical=("lru",)),
+        "w_r": ParamDef((w, w), init="scaled", logical=("lru_in", "lru")),
+        "b_r": ParamDef((w,), dtype=f32, init="zeros", logical=("lru",)),
+        "w_i": ParamDef((w, w), init="scaled", logical=("lru_in", "lru")),
+        "b_i": ParamDef((w,), dtype=f32, init="zeros", logical=("lru",)),
+        "lam": ParamDef((w,), dtype=f32, init="ones", logical=("lru",)),
+        "w_out": ParamDef((w, d), init="scaled", scale=res,
+                          logical=("lru", "embed")),
     }
 
 

@@ -63,16 +63,22 @@ def mamba_defs(cfg) -> dict:
     f32 = torch.float32
     res = 1.0 / math.sqrt(2.0 * max(cfg.n_layers, 1))
     return {
-        "norm": ParamDef((d,), init="ones"),
-        "in_proj": ParamDef((d, 2 * di), init="scaled"),
-        "conv_w": ParamDef((K, di), init="scaled", scale=0.5),
-        "conv_b": ParamDef((di,), init="zeros"),
-        "x_proj": ParamDef((di, dr + 2 * N), init="scaled"),
-        "dt_proj": ParamDef((dr, di), init="scaled"),
-        "dt_bias": ParamDef((di,), dtype=f32, init="zeros"),
-        "A_log": ParamDef((di, N), dtype=f32, init="ones"),
-        "D": ParamDef((di,), dtype=f32, init="ones"),
-        "out_proj": ParamDef((di, d), init="scaled", scale=res),
+        "norm": ParamDef((d,), init="ones", logical=("embed",)),
+        "in_proj": ParamDef((d, 2 * di), init="scaled",
+                            logical=("embed", "inner2")),
+        "conv_w": ParamDef((K, di), init="scaled", scale=0.5,
+                           logical=(None, "inner")),
+        "conv_b": ParamDef((di,), init="zeros", logical=("inner",)),
+        "x_proj": ParamDef((di, dr + 2 * N), init="scaled",
+                           logical=("inner", None)),
+        "dt_proj": ParamDef((dr, di), init="scaled", logical=(None, "inner")),
+        "dt_bias": ParamDef((di,), dtype=f32, init="zeros",
+                            logical=("inner",)),
+        "A_log": ParamDef((di, N), dtype=f32, init="ones",
+                          logical=("inner", None)),
+        "D": ParamDef((di,), dtype=f32, init="ones", logical=("inner",)),
+        "out_proj": ParamDef((di, d), init="scaled", scale=res,
+                             logical=("inner", "embed")),
     }
 
 

@@ -30,6 +30,19 @@ The encoder's and the cross attention are non-causal; the reference has no
 Pallas kernel for them, and they stay plain PyTorch (``_attn_bidir``).
 ``batch`` layouts per family come from ``data.family_batch``.
 
+On a mesh.  ``Model(cfg, rules=...)`` (a ``layers.ShardingRules``; None,
+the default, is off-mesh and changes nothing) runs on DTensor parameters
+and inputs (``launch/sharded.py`` places them) and redistributes its
+activations at the reference's sites (``layers.constrain``): the
+embedded and each layer's output stream on ("batch", "seq_sp", None),
+the queries on ("batch", None, "heads_act", None) and the SwiGLU hidden
+on ("batch", None, "ffn_act").  ``flash_attention`` runs on each rank's
+local heads (``attention.flash_attention``), and a decode step writes the
+new key, value and position into the local shard of a cache that is
+sharded over its batch and slots.  The dense family runs on a mesh; moe
+raises (``moe.moe_ffn``), and the other families have not been run there
+(ROADMAP queue 1).
+
 Training: the parameters track no gradients until a trainer opts in with
 ``model.requires_grad_(True)``, so serving builds no autograd graph.  Where
 a graph is built, ``cfg.remat`` checkpoints one layer (one hybrid unit) of
@@ -48,20 +61,22 @@ import math
 from typing import Dict
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils import checkpoint as ckpt
 
 from ..device import resolve_device
-from ..kernels import ops
-from .attention import attn_decode
+from .attention import attn_decode, flash_attention
 from .config import ModelConfig
-from .layers import (ParamDef, Params, init_leaf, register_params, rms_norm,
-                     rotary, softmax_cross_entropy, swiglu)
+from .layers import (ParamDef, Params, constrain, gather_seq, init_leaf,
+                     register_params, rms_norm, rotary, shard_range,
+                     softmax_cross_entropy, swiglu)
 from .moe import moe_defs, moe_ffn
 from .rglru import RGLRUState, rglru_block, rglru_decode_step, rglru_defs
 from .ssm import MambaState, mamba_block, mamba_decode_step, mamba_defs
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
+SEQ = ("batch", "seq_sp", None)       # the residual stream between layers
 
 # the products "dots" saves: matrix products with no batch dimensions
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
@@ -82,11 +97,15 @@ def _attn_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
     d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.hd
     res = 1.0 / math.sqrt(2.0 * max(cfg.n_layers, 1))
     return {
-        "ln": ParamDef((d,), init="ones"),
-        "wq": ParamDef((d, H, hd), init="scaled", fan_in=d),
-        "wk": ParamDef((d, KV, hd), init="scaled", fan_in=d),
-        "wv": ParamDef((d, KV, hd), init="scaled", fan_in=d),
-        "wo": ParamDef((H, hd, d), init="scaled", scale=res, fan_in=H * hd),
+        "ln": ParamDef((d,), init="ones", logical=("embed",)),
+        "wq": ParamDef((d, H, hd), init="scaled", fan_in=d,
+                       logical=("embed", "heads", None)),
+        "wk": ParamDef((d, KV, hd), init="scaled", fan_in=d,
+                       logical=("embed", "kv", None)),
+        "wv": ParamDef((d, KV, hd), init="scaled", fan_in=d,
+                       logical=("embed", "kv", None)),
+        "wo": ParamDef((H, hd, d), init="scaled", scale=res, fan_in=H * hd,
+                       logical=("heads", None, "embed")),
     }
 
 
@@ -94,10 +113,11 @@ def _mlp_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
     d, ff = cfg.d_model, cfg.d_ff
     res = 1.0 / math.sqrt(2.0 * max(cfg.n_layers, 1))
     return {
-        "ln": ParamDef((d,), init="ones"),
-        "w1": ParamDef((d, ff), init="scaled"),
-        "w3": ParamDef((d, ff), init="scaled"),
-        "w2": ParamDef((ff, d), init="scaled", scale=res),
+        "ln": ParamDef((d,), init="ones", logical=("embed",)),
+        "w1": ParamDef((d, ff), init="scaled", logical=("embed", "ffn")),
+        "w3": ParamDef((d, ff), init="scaled", logical=("embed", "ffn")),
+        "w2": ParamDef((ff, d), init="scaled", scale=res,
+                       logical=("ffn", "embed")),
     }
 
 
@@ -105,19 +125,22 @@ class Model(nn.Module):
     """The model's parameters (uninitialised until :meth:`init` or
     ``load_state_dict``) and its forward functions."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device=None, rules=None):
         super().__init__()
         if cfg.family not in FAMILIES:
             raise ValueError(f"unknown model family {cfg.family!r}")
         self.cfg = cfg
+        self.rules = rules
         device = resolve_device(device)
         d, Vp = cfg.d_model, cfg.padded_vocab
         register_params(self, {
-            "embed": ParamDef((Vp, d), init="normal"),
-            "final_norm": ParamDef((d,), init="ones"),
+            "embed": ParamDef((Vp, d), init="normal",
+                              logical=("vocab", "embed")),
+            "final_norm": ParamDef((d,), init="ones", logical=("embed",)),
             **({} if cfg.tie_embeddings else
-               {"unembed": ParamDef((d, Vp), init="scaled")}),
-            **({"enc_norm": ParamDef((d,), init="ones")}
+               {"unembed": ParamDef((d, Vp), init="scaled",
+                                    logical=("embed", "vocab"))}),
+            **({"enc_norm": ParamDef((d,), init="ones", logical=("embed",))}
                if cfg.family == "encdec" else {})}, device)
 
         def stack(blocks, n):
@@ -155,6 +178,27 @@ class Model(nn.Module):
                 for mod_name, mod in self.named_modules()
                 for k, d in getattr(mod, "defs", {}).items()}
 
+    def stacked_param_defs(self) -> Dict[str, ParamDef]:
+        """The reference's tree of definitions, flattened with dots: the
+        layers of a stack (``layers``, ``units``, ``enc_layers``,
+        ``dec_layers``) as one def each with a leading ``layers`` dim
+        (``layers.attn.wq`` of shape (L, d, H, hd)), the rest by name."""
+        out: Dict[str, ParamDef] = {}
+        counts: Dict[str, int] = {}
+        for name, d in self.param_defs().items():
+            parts = name.split(".")
+            if len(parts) > 2 and parts[1].isdigit():
+                key = ".".join(parts[:1] + parts[2:])
+                counts[key] = counts.get(key, 0) + 1
+                out[key] = d
+            else:
+                out[name] = d
+        return {k: d.stacked(counts[k]) if k in counts else d
+                for k, d in out.items()}
+
+    def _constrain(self, x: torch.Tensor, logical) -> torch.Tensor:
+        return constrain(x, logical, self.rules)
+
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> "Model":
         """Draw every parameter from ``generator`` (on the model's device),
@@ -179,17 +223,18 @@ class Model(nn.Module):
         cfg = self.cfg
         B, S, d = x.shape
         H, KV, hd = cfg.n_heads, cfg.n_kv, cfg.hd
-        h = rms_norm(x, p["ln"])
+        h = gather_seq(rms_norm(x, p["ln"]))
         q = (h @ p["wq"].reshape(d, H * hd)).view(B, S, H, hd)
         k = (h @ p["wk"].reshape(d, KV * hd)).view(B, S, KV, hd)
         v = (h @ p["wv"].reshape(d, KV * hd)).view(B, S, KV, hd)
         q, k = rotary(q, k, positions)
+        q = self._constrain(q, ("batch", None, "heads_act", None))
         if causal:
             # (B, H, S, hd) views of the (B, S, H, hd) projections; the
             # kernel writes its output in q's layout, so the transpose back
             # is free
-            o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                    v.transpose(1, 2), window=window)
+            o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), window=window)
             o = o.transpose(1, 2)
         else:
             o = _attn_bidir(q, k, v)
@@ -210,12 +255,17 @@ class Model(nn.Module):
         return x + o.reshape(B, S, H * hd) @ p["wo"].reshape(H * hd, d)
 
     def _mlp(self, p, x):
-        """The SwiGLU block on (B, S, d) or, in decode, (B, d)."""
-        return x + swiglu(rms_norm(x, p["ln"]), p["w1"], p["w3"], p["w2"])
+        """The SwiGLU block on (B, S, d) or, in decode, (B, d) (whose hidden
+        the reference leaves unconstrained)."""
+        hidden = (lambda t: self._constrain(t, ("batch", None, "ffn_act"))) \
+            if x.dim() == 3 else None
+        return x + swiglu(gather_seq(rms_norm(x, p["ln"])), p["w1"], p["w3"],
+                          p["w2"], hidden)
 
     def _moe(self, p, x):
         """The MoE block on (B, S, d) → (x', aux loss)."""
-        y, aux = moe_ffn(p, rms_norm(x, p["ln"]), self.cfg)
+        y, aux = moe_ffn(p, rms_norm(x, p["ln"]), self.cfg,
+                         constrain=self._constrain)
         return x + y, aux
 
     # ------------------------------------------------------- backbone (seq)
@@ -259,9 +309,13 @@ class Model(nn.Module):
         """Full-sequence forward. x: (B, S, d) embedded → ((B, S, d), the
         f32 sum of the layers' aux losses, 0 but for moe)."""
         cfg = self.cfg
+
+        def seq(x):
+            return self._constrain(x, SEQ)
+
         if cfg.family == "ssm":
             return self._layers(
-                self.layers, lambda p: (lambda x: mamba_block(p, x, cfg),), x)
+                self.layers, lambda p: (lambda x: mamba_block(p, x, cfg), seq), x)
         if cfg.family == "hybrid":
             def unit(u):
                 return (lambda x: rglru_block(u["r0"], x, cfg),
@@ -270,7 +324,7 @@ class Model(nn.Module):
                         lambda x: self._mlp(u["r1_mlp"], x),
                         lambda x: self._attn_seq(u["a"], x, positions,
                                                  cfg.local_window),
-                        lambda x: self._mlp(u["a_mlp"], x))
+                        lambda x: self._mlp(u["a_mlp"], x), seq)
 
             x, aux = self._layers(self.units, unit, x)
             for rec, mlp in self._tails():
@@ -282,7 +336,7 @@ class Model(nn.Module):
             ffn = (lambda x: self._moe(lp["moe"], x)) if cfg.family == "moe" \
                 else (lambda x: self._mlp(lp["mlp"], x))
             return (lambda x: self._attn_seq(lp["attn"], x, positions,
-                                             cfg.window), ffn)
+                                             cfg.window), ffn, seq)
 
         return self._layers(self.layers, layer, x)
 
@@ -317,12 +371,28 @@ class Model(nn.Module):
     def _embed_batch(self, batch):
         """→ (x (B, S, d), positions (B, S)); vlm prepends the patch
         embeddings (B, n_patches, d) to the tokens'."""
-        x = self.embed[batch["tokens"]]
+        x = self._embed(batch["tokens"])
         if self.cfg.family == "vlm":
             x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
         B, S, _ = x.shape
         positions = torch.arange(S, device=x.device).expand(B, S)
-        return x, positions
+        return self._constrain(x, SEQ), positions
+
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The tokens' rows of ``embed``.  A vocab-sharded DTensor table is
+        read by ``F.embedding``, which each rank answers from its rows
+        (the others masked, then one all-reduce of the activations), where
+        indexing would all-gather the whole table at every step."""
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        w = self.embed
+        if not isinstance(w, DTensor):
+            return w[tokens]
+        # FSDP: the table's model dim gathered first (its unshard)
+        w = w.redistribute(w.device_mesh, tuple(
+            Replicate() if p == Shard(1) else p for p in w.placements))
+        x = F.embedding(tokens, w)
+        return x.redistribute(x.device_mesh, tuple(
+            Replicate() if p.is_partial() else p for p in x.placements))
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         if self.cfg.tie_embeddings:
@@ -410,16 +480,15 @@ class Model(nn.Module):
         q, k = rotary(q, k, pos[:, None])
         # an indexed write: the same values as the reference's one-hot blend
         # (which can differ only in the sign of a zero)
-        rows = torch.arange(B, device=x.device)
-        k_cache[rows, slot] = k[:, 0].to(k_cache.dtype)
-        v_cache[rows, slot] = v.to(v_cache.dtype)
+        _write_slots(k_cache, slot, k[:, 0])
+        _write_slots(v_cache, slot, v)
         o = attn_decode(q[:, 0], k_cache, v_cache, kpos, pos, window=window)
         return x + o.reshape(B, H * hd) @ p["wo"].reshape(H * hd, d)
 
     def _moe_dec(self, p, x):
         """The MoE block on a single-token batch (B, d), one dispatch group."""
         y, _ = moe_ffn(p, rms_norm(x, p["ln"])[:, None, :], self.cfg,
-                       group_size=x.shape[0])
+                       group_size=x.shape[0], constrain=self._constrain)
         return x + y[:, 0]
 
     def _cross_dec(self, p, x, xk, xv):
@@ -440,7 +509,7 @@ class Model(nn.Module):
         reference returns a new one)."""
         cfg = self.cfg
         tokens, pos = batch["tokens"], batch["pos"]
-        x = self.embed[tokens]                               # (B, d)
+        x = self._embed(tokens)                              # (B, d)
         if cfg.family == "ssm":
             for i, p in enumerate(self.layers):
                 x, st = mamba_decode_step(
@@ -450,10 +519,9 @@ class Model(nn.Module):
                 cache["conv"][i] = st.conv_tail
             return cache, self._logits(rms_norm(x, self.final_norm))
         Sc = cache["k"].shape[2]
-        rows = torch.arange(x.shape[0], device=x.device)
         if cfg.family == "hybrid":
             slot = (pos % Sc).long()
-            cache["kpos"][rows, slot] = pos.to(torch.int32)
+            _write_slots(cache["kpos"], slot, pos)
             for u, unit in enumerate(self.units):
                 for i, r in enumerate(("r0", "r1")):
                     st = RGLRUState(h=cache["h"][u, i], conv_tail=cache["conv"][u, i])
@@ -474,7 +542,7 @@ class Model(nn.Module):
         # dense / moe / vlm / encdec decoders: ring slots with a window, else
         # the position, held at the last slot past the capacity
         slot = (pos % Sc if cfg.window > 0 else torch.clamp(pos, max=Sc - 1)).long()
-        cache["kpos"][rows, slot] = pos.to(torch.int32)
+        _write_slots(cache["kpos"], slot, pos)
         is_ed = cfg.family == "encdec"
         for i, lp in enumerate(self.dec_layers if is_ed else self.layers):
             x = self._attn_dec(lp["attn"], x, cache["k"][i], cache["v"][i],
@@ -487,6 +555,34 @@ class Model(nn.Module):
             else:
                 x = self._mlp(lp["mlp"], x)
         return cache, self._logits(rms_norm(x, self.final_norm))
+
+
+def _write_slots(buf: torch.Tensor, slot: torch.Tensor,
+                 value: torch.Tensor) -> None:
+    """buf[b, slot[b]] = value[b] for every row b, in place (a cache
+    (B, Sc, …) and its slot of each sequence).  A DTensor cache, sharded
+    over its rows and slots, is written in its local shard: each rank
+    writes the rows it holds whose slot falls in its slots."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(buf, DTensor):
+        rows = torch.arange(buf.shape[0], device=buf.device)
+        buf[rows, slot] = value.to(buf.dtype)
+        return
+    mesh = buf.device_mesh
+    # the rows' placements of the cache for the slot and the value, every
+    # other mesh dim replicated
+    rows_pl = tuple(p if p == Shard(0) else Replicate() for p in buf.placements)
+    slot = slot.redistribute(mesh, rows_pl).to_local()
+    value = value.redistribute(mesh, rows_pl).to_local()
+    local = buf.to_local()
+    first, _ = shard_range(mesh, buf.placements, 1, buf.shape[1])
+    # every local row rewrites one local slot (its own where the slot is
+    # this rank's, else its slot 0 with the value it holds): no host sync
+    mine = (slot >= first) & (slot < first + local.shape[1])
+    at = torch.where(mine, slot - first, 0)
+    rows = torch.arange(local.shape[0], device=local.device)
+    keep = mine.view((-1,) + (1,) * (local.dim() - 2))
+    local[rows, at] = torch.where(keep, value.to(local.dtype), local[rows, at])
 
 
 def _through(fns, x):

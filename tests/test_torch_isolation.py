@@ -62,6 +62,30 @@ with RankPool(2, device="cpu") as ranks:
     ranks.call(make_groups, (0, 1), 0)
     ranks.call(compress_on_rank, (0, 1), None, (64,))
     in_ranks = sorted(set(sum(ranks.call(foreign_modules), [])))
+import numpy as np
+from repro_torch.launch.dryrun import main as dryrun_main
+from repro_torch.launch.pipeline import DecoderLayer, pipeline_rank
+from repro_torch.launch.sharded import serve_rank
+from repro_torch.models import resolve_config
+with tempfile.TemporaryDirectory() as d:
+    assert dryrun_main(["--arch", "h2o-danube-3-4b", "--shape", "decode_32k",
+                        "--out", d]) == 0
+    assert dryrun_main(["--arch", "qwen3-moe-235b-a22b", "--shape", "train_4k",
+                        "--multipod", "--out", d]) == 0
+cfg = resolve_config("smollm-360m-reduced")
+with RankPool(2, device="cpu") as ranks:
+    out = ranks.call(serve_rank, cfg.name, (1, 2), ("data", "model"), None, 0,
+                     None, "float32", np.zeros((2, 8), np.int64),
+                     np.zeros((2, 1), np.int64), 8)
+    assert out[0]["prefill_logits"].shape == (2, cfg.padded_vocab)
+    from repro_torch.models import Model
+    m = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    stack = [{b: dict(lp[b].named_parameters()) for b in ("attn", "mlp")}
+             for lp in m.layers]
+    got = ranks.call(pipeline_rank, DecoderLayer(cfg), stack,
+                     torch.ones((2, 1, 8, cfg.d_model), dtype=m.dtype))
+    assert got[0][0].shape == (2, 1, 8, cfg.d_model)
+    in_ranks += sorted(set(sum(ranks.call(foreign_modules), [])))
 print("RANKS_LEAKED", in_ranks)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LEAKED", bad)
@@ -120,6 +144,22 @@ def test_model_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         assert generate(model, prompts, 2).device.type == "cpu"
         mean, res = adaptive_eval(model, stream, eps=5.0, delta=0.5)
     assert res.stopped and res.state.total.num.device.type == "cpu"
+
+
+def test_mesh_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    """The dry run's ``--execute`` and ``device_mesh`` choose the card
+    unless told otherwise; the abstract dry run needs no device."""
+    from repro_torch.launch.dryrun import main
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.specs import input_specs
+    from repro_torch.models import SHAPES
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--execute", "--arch", "smollm-360m-reduced", "--shape",
+              "prefill_32k"])
+    kwargs, _, _, _ = input_specs("smollm-360m", SHAPES["decode_32k"],
+                                  make_mesh((2, 2), ("data", "model")))
+    assert {t.device.type for t in kwargs["cache"].values()} == {"meta"}
 
 
 def test_ssm_model_defaults_to_cuda_and_raises_without_it(monkeypatch):
