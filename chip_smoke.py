@@ -12,9 +12,10 @@ and the script exits non-zero:
                  ptxas's registers, spills and shared memory of every
                  kernel of the six sources, and the HMMA/HGMMA count in
                  the SASS (``cuobjdump -sass``) of the bf16 attention
-                 forward and of the bf16 backward's dK/dV and dQ kernels;
-                 a missing ptxas report, a spill or a bf16 instance without
-                 tensor-core instructions fails.
+                 forward and of the bf16 and f32 (3xTF32) backward's dK/dV
+                 and dQ kernels; a missing ptxas report, a spill, or an
+                 instance of those without tensor-core instructions (TF32
+                 HMMAs in the f32 backward's) fails.
 3. wrs table   — the 2**24-item alias table of the wrs full-size run
                  (Pareto(1.5) weights, the host's Vose loop, then the card).
 4. kernels     — each kernel against its plain PyTorch version at the main
@@ -212,6 +213,7 @@ sys.path.insert(0, str(SRC))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
+TF32_OPS_PER_S = 495e12     # H100 SXM TF32 tensor cores, dense
 
 FULL_N = 2 ** 20
 FULL_M = 8 * 2 ** 20
@@ -268,7 +270,7 @@ MAMBA_PARAMS = 7_272_665_088
 # phase 13, train: the backward kernels' shapes in phase 4, then the steps
 FLASH_BWD_SHAPES = (  # (name, (B, H, KV, S, hd), window, dtype, timed)
     ("h2o-danube-3-4b train", (1, 32, 8, 4096, 120), 4096, "bfloat16", True),
-    # the f32 body (the CUDA-core ``bw::`` kernels) at the same shape
+    # the f32 body (3xTF32 on the tensor cores, ``tf3::``) at the same shape
     ("h2o-danube-3-4b train f32", (1, 32, 8, 4096, 120), 4096, "float32", True),
     ("recurrentgemma-2b train", (1, 10, 1, 4096, 256), 2048, "bfloat16", True),
     # the training CLI's smollm-360m micro-batch, the train path's most
@@ -321,10 +323,10 @@ KERNEL_NAMES = {  # device kernels of the port's wrappers, by name part
     "flash_attention": ("flash_bf16_kernel", "flash_f32_kernel"),
     "rglru_scan": ("rglru_scan_kernel",),
     "ssm_scan": ("ssm_scan_kernel",),
-    # D, then dK/dV and dQ: the f32 body's and the bf16 tensor-core body's
-    # (with the sum of its dK/dV parts where it splits that grid)
-    "flash_attention_bwd": ("flash_bwd_dot_kernel", "flash_bwd_dkdv_kernel",
-                            "flash_bwd_dq_kernel", "flash_bwd_tc_dkdv_kernel",
+    # D, then dK/dV and dQ: the f32 3xTF32 body's and the bf16 body's (with
+    # the sum of its dK/dV parts where it splits that grid)
+    "flash_attention_bwd": ("flash_bwd_dot_kernel", "flash_bwd_tf3_dkdv_kernel",
+                            "flash_bwd_tf3_dq_kernel", "flash_bwd_tc_dkdv_kernel",
                             "flash_bwd_tc_dq_kernel", "flash_bwd_tc_sum_kernel"),
     # rglru_scan_bwd's and ssm_scan_bwd's: the lane body and the ring body
     "scan_bwd": ("scan_bwd_kernel", "scan_bwd_ring_kernel"),
@@ -391,7 +393,8 @@ def ptxas_report(log: str) -> list:
 
 def sass_mma_counts(lib: Path, nvcc: str) -> dict | None:
     """``HMMA``/``HGMMA`` instructions in the SASS of each kernel of a built
-    library, by ``cuobjdump -sass``; None where the toolkit has none."""
+    library, by ``cuobjdump -sass``, and of them the ``HMMA``s on TF32
+    operands (``HMMA_TF32``); None where the toolkit has none."""
     import re
     import shutil
 
@@ -405,6 +408,7 @@ def sass_mma_counts(lib: Path, nvcc: str) -> dict | None:
     for part in sass.split("Function : ")[1:]:
         label = kernel_label(part.split("\n", 1)[0].strip())
         counts[label] = {"HMMA": len(re.findall(r"\bHMMA\.", part)),
+                         "HMMA_TF32": len(re.findall(r"\bHMMA\.\S*TF32", part)),
                          "HGMMA": len(re.findall(r"\bHGMMA\.", part))}
     return counts
 
@@ -412,9 +416,10 @@ def sass_mma_counts(lib: Path, nvcc: str) -> dict | None:
 def phase_build(torch) -> None:
     """Build every kernel at once; print ptxas's registers, spills and
     shared memory of every source's kernels (from the log kept beside
-    each library, so also when it was built before) and the bf16 attention
-    body's tensor-core instructions in the SASS.  A missing report, a spill
-    or a bf16 body without tensor-core instructions fails."""
+    each library, so also when it was built before) and the attention
+    bodies' tensor-core instructions in the SASS.  A missing report, a
+    spill, or a tensor-core body without them (TF32 ones in the f32
+    backward's) fails."""
     from repro_torch.kernels import build
 
     t0 = time.time()
@@ -433,17 +438,20 @@ def phase_build(torch) -> None:
     emit({"phase": "build", "source": "csrc/flash_attention.cu",
           "sass_tensor_core_ops": mma})
     if mma is not None:
-        # the bf16 forward and the bf16 backward's dK/dV and dQ kernels, at
-        # every padded HD and copy width (the backward's D kernel is a dot
-        # product over hd, bytes only)
-        for body in ("flash_bf16", "flash_bwd_tc_dkdv", "flash_bwd_tc_dq"):
+        # the bf16 forward, the bf16 backward's dK/dV and dQ kernels and the
+        # f32 backward's (3xTF32: TF32 HMMAs), at every padded HD and copy
+        # width (the backward's D kernel is a dot product over hd, bytes only)
+        any_mma, tf32 = ("HMMA", "HGMMA"), ("HMMA_TF32",)
+        for body, keys in (("flash_bf16", any_mma), ("flash_bwd_tc_dkdv", any_mma),
+                           ("flash_bwd_tc_dq", any_mma), ("flash_bwd_tf3_dkdv", tf32),
+                           ("flash_bwd_tf3_dq", tf32)):
             found = {k: c for k, c in mma.items() if k.startswith(body + "_kernel<")}
-            if len(found) != 15 or not all(c["HMMA"] + c["HGMMA"] > 0
+            if len(found) != 15 or not all(sum(c[k] for k in keys) > 0
                                            for c in found.values()):
                 raise AssertionError(f"{body}: not 15 instances (5 head dims "
                                      f"× 3 copy widths), or one without "
-                                     f"tensor-core instructions in its SASS: "
-                                     f"{found}")
+                                     f"tensor-core instructions ({'/'.join(keys)}) "
+                                     f"in its SASS: {found}")
 
 
 class Timer:
@@ -868,16 +876,18 @@ def phase_kernels(torch, timer, check, g, table):
 def kernel_flash_attention_bwd(torch, timer, check, gen):
     """``flash_attention``'s backward kernel against its plain backward at
     ``FLASH_BWD_SHAPES``: h2o-danube-3-4b's, recurrentgemma-2b's and the
-    training CLI's smollm-360m train shapes in bf16 (timed beside the
-    bound, the plain backward and ``torch.autograd.grad`` through
-    ``scaled_dot_product_attention``), a small ragged f32 one, and one of
-    16 key tiles with a window across tile edges in both types; each row
-    reports every gradient's largest error and plain value.  The bound: 5
-    products × 2 × hd × admissible pairs × B × H at the dtype's rate,
+    training CLI's smollm-360m train shapes in bf16 and danube's in f32
+    (timed beside the bound, the plain backward and ``torch.autograd.grad``
+    through ``scaled_dot_product_attention``), a small ragged f32 one, and
+    one of 16 key tiles with a window across tile edges in both types; each
+    row reports every gradient's largest error and plain value.  The bound:
+    5 products × 2 × hd × admissible pairs × B × H at the dtype's rate,
     against the bytes of q, k, v, o, dO, lse (read) and dq, dk, dv
-    (written).  The library call is the fastest of SDPA with the boolean
-    mask and ``enable_gqa`` and, where the mask is plain causal (no window,
-    or one of S or more), SDPA with ``is_causal`` on K and V as given
+    (written); in f32 also the bound of the body's own arithmetic,
+    ``bound_tf32x3_ms``: 3xTF32 runs each product three times at the TF32
+    tensor-core rate.  The library call is the fastest of SDPA with the
+    boolean mask and ``enable_gqa`` and, where the mask is plain causal (no
+    window, or one of S or more), SDPA with ``is_causal`` on K and V as given
     (``enable_gqa``) and on K and V repeated to the query heads inside the
     differentiated graph (the group's sum in its backward)."""
     import torch.nn.functional as F
@@ -931,6 +941,8 @@ def kernel_flash_attention_bwd(torch, timer, check, gen):
                 "plain_ms": timer(lambda: ref.flash_attention_bwd_ref(
                     q, k, v, o, lse, do, window=window), reps=3, warmup=1),
                 "bound_ms": t_bound, "bound_by": by,
+                **({"bound_tf32x3_ms": bound_ms(nbytes, 3 * ops, TF32_OPS_PER_S)[0]}
+                   if dt == torch.float32 else {}),
                 "library_ms": library[fastest],
                 "library": "torch.autograd.grad through F.scaled_dot_product_"
                            f"attention({fastest})",

@@ -122,6 +122,7 @@
 
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -819,16 +820,72 @@ int dispatch(const void* q, const void* k, const void* v, void* o, void* lse_,
 // Bound on the H100: operations, 5 products × 2 × hd × admissible pairs × B
 // × H, at the bf16 tensor-core rate (989 TFLOP/s) in bf16 and the f32 core
 // rate (67 TFLOP/s) in f32: 3.22e11 and 0.326 ms in bf16 at h2o-danube-3-4b's
-// train shape (1, 32, 4096, 120), kv 8, window 4096.
+// train shape (1, 32, 4096, 120), kv 8, window 4096, 4.81 ms in f32; the f32
+// body's own arithmetic, three TF32 products for each, at the TF32 rate
+// (495 TFLOP/s): 1.95 ms.
 //
 // Two bodies, chosen by dtype at the entry point (not a fallback):
 //
-// f32 (namespace bw) — the CUDA cores, with the f32 numerics the gradient
-// checks rely on: each tile (T rows × hd; T = 64, 32 at hd 256) is loaded
-// element by element into padded f32 shared rows (HD + 4 floats), the T×T
-// score tiles are an SGEMM micro-kernel (4×4 or 2×2 a thread from float4s
-// along hd), and the T×hd products R rows × 4·CV columns a thread, as the
-// forward's f32 body.
+// f32 (namespace tf3) — 3xTF32 on the tensor cores.  The first port ran f32
+// on the CUDA cores (register-tiled SGEMM micro-kernels whose score tiles
+// read shared memory for every other FMA, tiles loaded element by element
+// with no overlap, 170 KB of shared memory and one block an SM, key tiles of
+// one kv head before the next): 21.52 ms at danube's shape, slower than its
+// plain version (16.93) and SDPA's f32 backward (10.82); 7 padded products
+// on the CUDA cores are 7.2 ms at their rate alone.  This body has tcb's
+// shape (below): 64 resident rows a block, BC-row tiles through a two-stage
+// cp.async ring (16, 8 or 4 bytes a copy, the widest the views allow; every
+// f32 view allows 4), warps 4 row groups × 2 column halves, the score pair
+// and then the gradient products, P and dS through shared memory, row tiles
+// launched longest first.  What differs:
+//   - every product is three mma.sync.m16n8k8 on TF32 operands
+//     (HMMA.1688.F32.TF32 in the SASS; CUTLASS's "fast f32"): x = big +
+//     small, big = x rounded to TF32 on its bits, small = x − big, which the
+//     tensor cores read truncated to TF32, and a·b = small·big + big·small
+//     + big·big (small·small, 2⁻²² of it, dropped): each term's error is
+//     near 2⁻²⁰ of its size against the f32 FMA's 2⁻²⁴, well inside the
+//     row-by-row check;
+//   - the tensor cores add into their f32 accumulator truncating, so a long
+//     chain of mmas into one register drifts (a first trial that summed a
+//     block's whole dV in one accumulator missed the check's allowance at
+//     danube's shape): the score products keep the cross terms in
+//     accumulators of their own (which also halves the chain of dependent
+//     mmas), and the gradient products sum each pair in fresh accumulators
+//     that are added to the block's in f32;
+//   - the K, V, Q and dO tiles are unpadded f32 rows with XOR-swizzled
+//     16-byte chunks (swz below), so both the row-wise ldmatrix reads and
+//     the transposed 32-bit reads of the gradient products' B fragments are
+//     free of bank conflicts; P and dS are padded f32 rows (BC + 4);
+//   - up to HD 128 the two resident tiles are split once into shared memory
+//     (big in place, small beside), so the score products take their A
+//     fragments split; the streamed tiles and P and dS are split as they
+//     are read (cvt.rna.tf32.f32 compiles to a compare-and-select sequence,
+//     so big is rounded on the bits);
+//   - all HD/8 k-steps and HD/8 gradient column tiles run, the padding's on
+//     zeros (hd 120 as 128, as tcb): branching at hd kept the compiler from
+//     overlapping the k-steps;
+//   - BC = 64 columns up to HD 64, 32 at 128, 16 at 256 (shared memory);
+//   - the dK/dV grid is not split over the group's heads: f32 runs in the
+//     gradient checks and f32 training, and danube's grid has 512 blocks;
+//     a grid with one kv head (recurrentgemma's 64 blocks) leaves half the
+//     SMs idle, which splitting as tcb does is left to later work;
+//   - dK, dV and dQ are stored once in f32, one float a store (any hd and
+//     strides), dK and dQ after the 1/√hd scale.
+//   Shared memory (dynamic), dK/dV: 68,608 bytes at HD 16, 101,376 at 32,
+//   166,912 at 64, 215,552 at 128, 207,104 at 256; dQ: 50,176, 82,944,
+//   148,480, 205,824, 201,728: one block an SM.
+//   Registers (nvcc -Xptxas -v for sm_90a, 256 threads, one block an SM),
+//   dK/dV: 164-172 at HD 16, 176-186 at 32, 184-196 at 64, 221-231 at 128,
+//   254 at 256; dQ: 158-165, 168-182, 185-187, 165-167, 221-225; no spills.
+//   On an H100 SXM at 700 W this body takes 8.50-8.53 ms at danube's train
+//   shape (time_kernels.py; the first port's 21.45-21.66 in the same run),
+//   below SDPA's f32 backward (10.82).  In trials on the card these were
+//   slower and were not kept: cvt.rna for both parts; small rounded to
+//   TF32 on its bits as well; 4 k-steps unrolled at a time up to HD 128;
+//   the resident tiles split as they are read; BC = 64 at HD 128 (without
+//   the resident split, which it leaves no room for; it spilled).  wgmma
+//   (TF32 operands from shared memory, pre-split) and TMA are left to
+//   later work.
 //
 // bf16 (namespace tcb) — the tensor cores.  The first port ran bf16 through
 // the f32 body (P and dS rounded to bf16 as the products' operands): 22.10
@@ -901,155 +958,8 @@ namespace bw {
 
 constexpr int kThreads = 256;
 
-template <int HD>
-struct Cfg {
-  static constexpr int T = HD == 256 ? 32 : 64;   // rows of a query or key tile
-  static constexpr int LD = HD + 4;               // padded f32 row of a tile
-  static constexpr int LDT = T + 4;               // padded row of P / dS
-  static constexpr int SR = T / 16;               // score tile: SR × SR a thread
-  static constexpr int CG = HD / 4 < 32 ? HD / 4 : 32;  // float4 column groups
-  static constexpr int CV = HD / (4 * CG);        // float4s a thread a row
-  static constexpr int R = T * CG / kThreads;     // rows a thread
-  // Q, dO, K, V tiles; two T×T tiles (P and dS); lse and D of T rows
-  static constexpr int kSmemBytes = (4 * T * LD + 2 * T * LDT + 2 * T) * 4;
-  static_assert(R * (kThreads / CG) == T, "rows of the product tiles");
-};
-
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-// T rows of hd floats from rows row0… of a strided tensor into a padded
-// tile of HD columns; rows at or past S and columns at or past hd are 0.
-template <int HD>
-__device__ __forceinline__ void load_tile(float* tile, const float* src,
-                                          long long stride, int row0, int S,
-                                          int hd) {
-  constexpr int T = Cfg<HD>::T, LD = Cfg<HD>::LD;
-  for (int i = threadIdx.x; i < T * HD; i += kThreads) {
-    const int r = i / HD, c = i % HD;
-    const int pos = row0 + r;
-    tile[r * LD + c] = pos < S && c < hd ? src[pos * stride + c] : 0.0f;
-  }
-}
-
-// s[i][j] = A[SR·tr + i] · B[tc + 16·j] over HD: the T×T tile of A·Bᵀ
-template <int HD>
-__device__ __forceinline__ void tile_abt(float (&s)[Cfg<HD>::SR][Cfg<HD>::SR],
-                                         const float* A, const float* B,
-                                         int tr, int tc) {
-  constexpr int SR = Cfg<HD>::SR, LD = Cfg<HD>::LD;
-#pragma unroll
-  for (int i = 0; i < SR; ++i)
-#pragma unroll
-    for (int j = 0; j < SR; ++j) s[i][j] = 0.0f;
-  const float* ar = A + SR * tr * LD;
-  const float* br = B + tc * LD;
-#pragma unroll 4
-  for (int d = 0; d < HD; d += 4) {
-    float4 a[SR], b[SR];
-#pragma unroll
-    for (int i = 0; i < SR; ++i) a[i] = *reinterpret_cast<const float4*>(ar + i * LD + d);
-#pragma unroll
-    for (int j = 0; j < SR; ++j) b[j] = *reinterpret_cast<const float4*>(br + 16 * j * LD + d);
-#pragma unroll
-    for (int i = 0; i < SR; ++i)
-#pragma unroll
-      for (int j = 0; j < SR; ++j) {
-        s[i][j] = fmaf(a[i].x, b[j].x, s[i][j]);
-        s[i][j] = fmaf(a[i].y, b[j].y, s[i][j]);
-        s[i][j] = fmaf(a[i].z, b[j].z, s[i][j]);
-        s[i][j] = fmaf(a[i].w, b[j].w, s[i][j]);
-      }
-  }
-}
-
-// P and dS of one (query tile q0, key tile k0) pair into Ps and dSs: [key][query] with kTrans (the dK/dV pass), else
-// [query][key].  Qs, dOs, Ks, Vs hold the tiles; lse2_s (log2 domain) and
-// D_s the query rows'.
-template <int HD, bool kTrans>
-__device__ __forceinline__ void scores(float* Ps, float* dSs, const float* Qs,
-                                       const float* dOs, const float* Ks,
-                                       const float* Vs, const float* lse2_s,
-                                       const float* D_s, int q0, int k0, int S,
-                                       int window, float scale_log2) {
-  using C = Cfg<HD>;
-  constexpr int SR = C::SR, LDT = C::LDT;
-  const int tr = threadIdx.x / 16, tc = threadIdx.x % 16;
-  float s[SR][SR], dp[SR][SR];
-  tile_abt<HD>(s, Qs, Ks, tr, tc);
-  tile_abt<HD>(dp, dOs, Vs, tr, tc);
-#pragma unroll
-  for (int i = 0; i < SR; ++i) {
-    const int qr = SR * tr + i, qp = q0 + qr;
-#pragma unroll
-    for (int j = 0; j < SR; ++j) {
-      const int kc = tc + 16 * j, kp = k0 + kc;
-      const bool ok = kp <= qp && qp < S && (window <= 0 || kp > qp - window);
-      const float p = ok ? exp2f(s[i][j] * scale_log2 - lse2_s[qr]) : 0.0f;
-      const float ds = p * (dp[i][j] - D_s[qr]);
-      const int at = kTrans ? kc * LDT + qr : qr * LDT + kc;
-      Ps[at] = p;
-      dSs[at] = ds;
-    }
-  }
-}
-
-// acc[i][c] += Σ_j A[rg·R + i][j] · B[j][4·cg + 4·CG·c …] over j < T: the
-// T×HD tile of A·B, A a T×T tile (LDT), B a T×HD tile (LD)
-template <int HD>
-__device__ __forceinline__ void tile_ab(float (&acc)[Cfg<HD>::R][Cfg<HD>::CV][4],
-                                        const float* A, const float* B, int rg,
-                                        int cg) {
-  using C = Cfg<HD>;
-  constexpr int T = C::T, R = C::R, CV = C::CV, CG = C::CG, LD = C::LD, LDT = C::LDT;
-  const float* ar = A + rg * R * LDT;
-  const float* bc = B + 4 * cg;
-#pragma unroll 2
-  for (int j = 0; j < T; j += 4) {
-    float4 a4[R];
-#pragma unroll
-    for (int i = 0; i < R; ++i) a4[i] = *reinterpret_cast<const float4*>(ar + i * LDT + j);
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      float4 b4[CV];
-#pragma unroll
-      for (int c = 0; c < CV; ++c)
-        b4[c] = *reinterpret_cast<const float4*>(bc + (j + jj) * LD + 4 * CG * c);
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        const float a = jj == 0 ? a4[i].x : jj == 1 ? a4[i].y : jj == 2 ? a4[i].z : a4[i].w;
-#pragma unroll
-        for (int c = 0; c < CV; ++c) {
-          acc[i][c][0] = fmaf(a, b4[c].x, acc[i][c][0]);
-          acc[i][c][1] = fmaf(a, b4[c].y, acc[i][c][1]);
-          acc[i][c][2] = fmaf(a, b4[c].z, acc[i][c][2]);
-          acc[i][c][3] = fmaf(a, b4[c].w, acc[i][c][3]);
-        }
-      }
-    }
-  }
-}
-
-// rows row0 + rg·R + i (< S) of acc · mul into a strided tensor, hd columns
-template <int HD>
-__device__ __forceinline__ void store_rows(float* dst, long long stride,
-                                           const float (&acc)[Cfg<HD>::R][Cfg<HD>::CV][4],
-                                           float mul, int row0, int S, int hd,
-                                           int rg, int cg) {
-  using C = Cfg<HD>;
-#pragma unroll
-  for (int i = 0; i < C::R; ++i) {
-    const int row = row0 + rg * C::R + i;
-    if (row >= S) continue;
-#pragma unroll
-    for (int c = 0; c < C::CV; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = 4 * cg + 4 * C::CG * c + e;
-        if (col < hd) dst[row * stride + col] = acc[i][c][e] * mul;
-      }
-  }
-}
 
 struct BwdStrides {                // (b, head, position) strides in elements
   long long q[3], k[3], v[3], o[3], dO[3], dq[3], dk[3], dv[3];
@@ -1077,135 +987,6 @@ flash_bwd_dot_kernel(const E* __restrict__ o, const E* __restrict__ dO,
   if (lane == 0) D[row] = acc;
 }
 
-// dK, dV of one (b, kv head, key tile), summed over the group's query heads
-template <int HD>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, const float* __restrict__ dO,
-                      const float* __restrict__ lse, const float* __restrict__ D,
-                      float* __restrict__ dk, float* __restrict__ dv, int H, int S,
-                      int hd, int group, int window, float scale_log2,
-                      float scale, BwdStrides st) {
-  using C = Cfg<HD>;
-  constexpr int T = C::T, LD = C::LD, LDT = C::LDT, R = C::R, CV = C::CV, CG = C::CG;
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;                 // [T][LD]
-  float* dOs = Qs + T * LD;         // [T][LD]
-  float* Ks = dOs + T * LD;         // [T][LD]
-  float* Vs = Ks + T * LD;          // [T][LD]
-  float* PT = Vs + T * LD;          // [T keys][LDT]
-  float* dST = PT + T * LDT;        // [T keys][LDT]
-  float* lse2_s = dST + T * LDT;    // [T]
-  float* D_s = lse2_s + T;          // [T]
-
-  const int k0 = blockIdx.x * T;    // the first key tiles see the most rows
-  const int hk = blockIdx.y, bi = blockIdx.z;
-  const int k_last = min(k0 + T, S) - 1;
-  const int qt_lo = k0 / T;
-  const int qt_hi = (window > 0 ? min(S - 1, k_last + window - 1) : S - 1) / T;
-  const int rg = threadIdx.x / CG, cg = threadIdx.x % CG;
-
-  load_tile<HD>(Ks, k + bi * st.k[0] + hk * st.k[1], st.k[2], k0, S, hd);
-  load_tile<HD>(Vs, v + bi * st.v[0] + hk * st.v[1], st.v[2], k0, S, hd);
-
-  float acc_k[R][CV][4], acc_v[R][CV][4];
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int c = 0; c < CV; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc_k[i][c][e] = acc_v[i][c][e] = 0.0f;
-
-  for (int g = 0; g < group; ++g) {
-    const int h = hk * group + g;
-    const float* qb = q + bi * st.q[0] + h * st.q[1];
-    const float* db = dO + bi * st.dO[0] + h * st.dO[1];
-    const long long lrow = (static_cast<long long>(bi) * H + h) * S;
-    for (int qt = qt_lo; qt <= qt_hi; ++qt) {
-      const int q0 = qt * T;
-      __syncthreads();  // every thread is done with the last pair's tiles
-      load_tile<HD>(Qs, qb, st.q[2], q0, S, hd);
-      load_tile<HD>(dOs, db, st.dO[2], q0, S, hd);
-      for (int r = threadIdx.x; r < T; r += kThreads) {
-        const bool in = q0 + r < S;
-        lse2_s[r] = in ? lse[lrow + q0 + r] * 1.4426950408889634f : 0.0f;
-        D_s[r] = in ? D[lrow + q0 + r] : 0.0f;
-      }
-      __syncthreads();
-      scores<HD, true>(PT, dST, Qs, dOs, Ks, Vs, lse2_s, D_s, q0, k0, S,
-                          window, scale_log2);
-      __syncthreads();
-      tile_ab<HD>(acc_v, PT, dOs, rg, cg);   // dV += Pᵀ·dO
-      tile_ab<HD>(acc_k, dST, Qs, rg, cg);   // dK += dSᵀ·Q
-    }
-  }
-  store_rows<HD>(dk + bi * st.dk[0] + hk * st.dk[1], st.dk[2], acc_k, scale, k0,
-                 S, hd, rg, cg);
-  store_rows<HD>(dv + bi * st.dv[0] + hk * st.dv[1], st.dv[2], acc_v, 1.0f, k0,
-                 S, hd, rg, cg);
-}
-
-// dQ of one (b, head, query tile)
-template <int HD>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ dO,
-                    const float* __restrict__ lse, const float* __restrict__ D,
-                    float* __restrict__ dq, int H, int S, int hd, int group,
-                    int window, float scale_log2, float scale, BwdStrides st) {
-  using C = Cfg<HD>;
-  constexpr int T = C::T, LD = C::LD, LDT = C::LDT, R = C::R, CV = C::CV, CG = C::CG;
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;                 // [T][LD]
-  float* dOs = Qs + T * LD;         // [T][LD]
-  float* Ks = dOs + T * LD;         // [T][LD]
-  float* Vs = Ks + T * LD;          // [T][LD]
-  float* Ps = Vs + T * LD;          // [T queries][LDT] (unused by dQ)
-  float* dSs = Ps + T * LDT;        // [T queries][LDT]
-  float* lse2_s = dSs + T * LDT;    // [T]
-  float* D_s = lse2_s + T;          // [T]
-
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * T;  // longest rows first
-  const int h = blockIdx.y, bi = blockIdx.z, hk = h / group;
-  const int q_last = min(q0 + T, S) - 1;
-  const int kt_lo = window > 0 ? max(0, q0 - window + 1) / T : 0;
-  const int kt_hi = q_last / T;
-  const int rg = threadIdx.x / CG, cg = threadIdx.x % CG;
-  const long long lrow = (static_cast<long long>(bi) * H + h) * S;
-
-  load_tile<HD>(Qs, q + bi * st.q[0] + h * st.q[1], st.q[2], q0, S, hd);
-  load_tile<HD>(dOs, dO + bi * st.dO[0] + h * st.dO[1], st.dO[2], q0, S, hd);
-  for (int r = threadIdx.x; r < T; r += kThreads) {
-    const bool in = q0 + r < S;
-    lse2_s[r] = in ? lse[lrow + q0 + r] * 1.4426950408889634f : 0.0f;
-    D_s[r] = in ? D[lrow + q0 + r] : 0.0f;
-  }
-  const float* kb = k + bi * st.k[0] + hk * st.k[1];
-  const float* vb = v + bi * st.v[0] + hk * st.v[1];
-
-  float acc[R][CV][4];
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int c = 0; c < CV; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][c][e] = 0.0f;
-
-  for (int kt = kt_lo; kt <= kt_hi; ++kt) {
-    const int k0 = kt * T;
-    __syncthreads();  // every thread is done with the last key tile
-    load_tile<HD>(Ks, kb, st.k[2], k0, S, hd);
-    load_tile<HD>(Vs, vb, st.v[2], k0, S, hd);
-    __syncthreads();
-    scores<HD, false>(Ps, dSs, Qs, dOs, Ks, Vs, lse2_s, D_s, q0, k0, S,
-                         window, scale_log2);
-    __syncthreads();
-    tile_ab<HD>(acc, dSs, Ks, rg, cg);       // dQ += dS·K
-  }
-  store_rows<HD>(dq + bi * st.dq[0] + h * st.dq[1], st.dq[2], acc, scale, q0, S,
-                 hd, rg, cg);
-}
-
 // D = rowsum(dO ∘ O) for the B·H·S rows, either body's first launch
 template <typename E>
 int launch_dot(const void* o, const void* dO, void* D, int B, int H, int S,
@@ -1215,38 +996,6 @@ int launch_dot(const void* o, const void* dO, void* D, int B, int H, int S,
                             kThreads, 0, stream>>>(
       static_cast<const E*>(o), static_cast<const E*>(dO), static_cast<float*>(D),
       H, S, hd, rows, st);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int HD>
-int launch_bwd(const void* q, const void* k, const void* v, const void* o,
-               const void* lse, const void* dO, void* dq, void* dk, void* dv,
-               void* D, int B, int H, int KV, int S, int hd, int window,
-               const BwdStrides& st, cudaStream_t stream) {
-  constexpr int bytes = Cfg<HD>::kSmemBytes, T = Cfg<HD>::T;
-  const float sl2 = scale_log2(hd);
-  const float scale = 1.0f / sqrtf(static_cast<float>(hd));
-  cudaError_t err = static_cast<cudaError_t>(launch_dot<float>(o, dO, D, B, H, S, hd, st, stream));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  auto dkdv = flash_bwd_dkdv_kernel<HD>;
-  err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int tiles = (S + T - 1) / T;
-  dkdv<<<dim3(tiles, KV, B), kThreads, bytes, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(dO), static_cast<const float*>(lse),
-      static_cast<const float*>(D), static_cast<float*>(dk), static_cast<float*>(dv), H, S,
-      hd, H / KV, window, sl2, scale, st);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  auto dqk = flash_bwd_dq_kernel<HD>;
-  err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dqk<<<dim3(tiles, H, B), kThreads, bytes, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(dO), static_cast<const float*>(lse),
-      static_cast<const float*>(D), static_cast<float*>(dq), H, S, hd, H / KV, window,
-      sl2, scale, st);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1800,8 +1549,617 @@ int scratch_floats(int B, int H, int KV, int S, int hd, int window, long long* f
 
 }  // namespace tcb
 
-// The backward of either dtype: bf16 on the tensor-core body, f32 on the
-// CUDA-core body, each instantiated for the smallest padded HD ≥ hd.
+// ----------------------------------------- backward, f32 3xTF32 tensor cores
+
+namespace tf3 {
+
+constexpr int kThreads = 256;  // 8 warps: 4 row groups of 16 × 2 column halves
+constexpr int kRows = 64;      // rows of a block: keys (dK/dV) or queries (dQ)
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int HD>
+struct Cfg {
+  // columns of a pair's tile: what shared memory holds beside the 64 rows
+  static constexpr int BC = HD == 256 ? 16 : HD == 128 ? 32 : 64;
+  static constexpr int LDP = BC + 4;  // padded f32 row of P or dS
+  static constexpr int NJ = BC / 16;  // 8-column mma tiles of a warp's scores
+  static constexpr int NI = HD / 16;  // 8-column mma tiles of a warp's gradient
+  // k-steps of the score products unrolled together: all of them up to
+  // HD 128, 8 of the 32 at HD 256 (16 spill there)
+  static constexpr int KI = HD == 256 ? 8 : HD / 8;
+  // the two resident tiles split once into shared memory (big, small): at
+  // HD 256 their small parts would not fit
+  static constexpr bool kPre = HD <= 128;
+  static constexpr int kResident = (kPre ? 4 : 2) * kRows * HD;  // floats
+  // K, V (and their small parts); two stages of Q and dO; Pᵀ and dSᵀ; two
+  // stages of lse and D
+  static constexpr int kDkdvSmem = (kResident + 4 * BC * HD + 2 * kRows * LDP + 4 * BC) * 4;
+  // Q, dO (and their small parts); two stages of K and V; dS
+  static constexpr int kDqSmem = (kResident + 4 * BC * HD + kRows * LDP) * 4;
+};
+
+// The K, V, Q and dO tiles are f32 rows of HD floats, unpadded, with their
+// 16-byte chunks swizzled: logical chunk c of row r lies at chunk c ^ swz(r).
+// Two reads meet these tiles: row-wise fragments (ldmatrix, 8 rows × one
+// chunk, and a[g][t]) and the transposed B fragments of the gradient
+// products (B[k = t][n = g]: 4 rows × 2 chunks).  A padded row (HD + 4)
+// serves the first without conflicts (banks 4g + t) and the second 2-way
+// conflicted (banks 4t + g); this swizzle serves both: swz takes 8 distinct
+// values over 8 consecutive rows (the row-wise reads land in 8 distinct
+// 4-bank groups), and over rows t and t + 4 of a k-step it is 2t and 2t + 1,
+// so chunks c0, c0 + 1 (c0 even) of 4 rows fill 8 distinct groups.  At
+// HD 16 a row is 4 chunks (two rows a bank line) and swz takes the values
+// that keep both properties within 4.
+template <int HD>
+__device__ __forceinline__ int swz(int r) {
+  if constexpr (HD == 16)
+    return 2 * ((r >> 1) & 1) + ((r >> 2) & 1);
+  else
+    return 2 * (r & 3) + ((r >> 2) & 1);
+}
+
+// The float offset of element (r, c) of a swizzled tile
+template <int HD>
+__device__ __forceinline__ int at(int r, int c) {
+  return r * HD + (((c >> 2) ^ swz<HD>(r)) << 2) + (c & 3);
+}
+
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
+}
+
+// x rounded to TF32 (10 mantissa bits), to nearest with ties away from zero,
+// on its bits (cvt.rna.tf32.f32 compiles to a compare-and-select sequence
+// for NaN and infinity, which dominated the split's instructions)
+__device__ __forceinline__ uint32_t tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x (f32 bits) = big + small: big = tf32(x), small = x − big exactly (an f32
+// of at most 13 significant bits below big's last), passed as it is: the
+// tensor cores read the top 19 bits of a TF32 operand, which truncates
+// small to TF32 (an error below 2⁻²¹ of x)
+template <int N>
+__device__ __forceinline__ void split(const uint32_t (&x)[N], uint32_t (&big)[N],
+                                      uint32_t (&small)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const float f = __uint_as_float(x[i]);
+    big[i] = tf32(f);
+    small[i] = __float_as_uint(f - __uint_as_float(big[i]));
+  }
+}
+
+// The two resident 64-row tiles (adjacent, 2·64·HD floats) split in place:
+// big where they lie, small 2·64·HD floats further on
+template <int HD>
+__device__ __forceinline__ void presplit(float* tiles, int tid) {
+  float4* big = reinterpret_cast<float4*>(tiles);
+  float4* small = reinterpret_cast<float4*>(tiles + 2 * kRows * HD);
+  for (int i = tid; i < 2 * kRows * HD / 4; i += kThreads) {
+    const float4 f = big[i];
+    const float4 b = make_float4(__uint_as_float(tf32(f.x)), __uint_as_float(tf32(f.y)),
+                                 __uint_as_float(tf32(f.z)), __uint_as_float(tf32(f.w)));
+    big[i] = b;
+    small[i] = make_float4(f.x - b.x, f.y - b.y, f.z - b.z, f.w - b.w);
+  }
+}
+
+// d += a·b for a 16×8 TF32 A (row), an 8×8 TF32 B (col), f32 D
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a·b in 3xTF32: small·big, big·small, then big·big (small·small dropped)
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ab)[4],
+                                     const uint32_t (&as)[4], uint32_t bb0,
+                                     uint32_t bb1, uint32_t bs0, uint32_t bs1) {
+  mma_tf32(d, as, bb0, bb1);
+  mma_tf32(d, ab, bs0, bs1);
+  mma_tf32(d, ab, bb0, bb1);
+}
+
+// a·b in 3xTF32: the cross terms small·big and big·small into e, big·big
+// into d (small·small dropped).  Two accumulators halve the chain of
+// dependent mmas, and keep the cross terms, 2⁻¹¹ of the product, from being
+// truncated against its size: the tensor cores add into an f32 accumulator
+// rounding toward zero, so a long chain into one accumulator drifts.
+__device__ __forceinline__ void mma3(float (&d)[4], float (&e)[4], const uint32_t (&ab)[4],
+                                     const uint32_t (&as)[4], uint32_t bb0,
+                                     uint32_t bb1, uint32_t bs0, uint32_t bs1) {
+  mma_tf32(e, as, bb0, bb1);
+  mma_tf32(e, ab, bs0, bs1);
+  mma_tf32(d, ab, bb0, bb1);
+}
+
+// This lane's shared-memory offsets (floats) into a block's tiles.  The
+// chunk of k-step ks (2·ks + h) has its low three bits in 2·(ks mod 4) + h
+// and the rest in ks / 4, and the swizzle only touches the low three, so a
+// k-step's offset is one of four per lane plus (ks / 4)·32.
+template <int HD>
+struct Lane {
+  int a[4];       // A fragments (ldmatrix) of the warp's 16 rows of a row tile
+  int b[4];       // B fragments (ldmatrix) of its BC/2 rows of a column tile
+  int t0[4], t1[4];  // transposed B: depth rows t, t + 4; column tile i: [i mod 4] + (i / 4)·32
+  int p;          // A fragments (ldmatrix) of a [64][LDP] P or dS tile
+
+  __device__ __forceinline__ Lane(int rw, int cw, int lane) {
+    const int g = lane / 4, t = lane % 4;
+    // ldmatrix: lane L gives a row of matrix L / 8
+    const int ar = rw * 16 + (lane & 7) + ((lane >> 3) & 1) * 8, ah = lane >> 4;
+    const int br = cw * (Cfg<HD>::BC / 2) + (lane & 7) + (lane >> 4) * 8, bh = (lane >> 3) & 1;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      a[e] = ar * HD + (((2 * e + ah) ^ swz<HD>(ar)) << 2);
+      b[e] = br * HD + (((2 * e + bh) ^ swz<HD>(br)) << 2);
+      const int c = cw * (HD / 8) + 2 * e + (g >> 2);  // the column's chunk
+      t0[e] = t * HD + ((c ^ swz<HD>(t)) << 2) + (g & 3);
+      t1[e] = (t + 4) * HD + ((c ^ swz<HD>(t + 4)) << 2) + (g & 3);
+    }
+    p = ar * Cfg<HD>::LDP + ah * 4;
+  }
+};
+
+// ROWS rows of hd floats from rows row0… of a strided tensor into a
+// swizzled tile of HD columns, by cp.async of kBytes a copy; rows at or past
+// S and columns at or past hd are zero-filled.  A thread copies one column
+// of kBytes, every kStep-th row: its column, first row and pointer are
+// computed once.
+template <int HD, int ROWS, int kBytes>
+__device__ __forceinline__ void load_tile(float* tile, const float* src,
+                                          long long stride, int row0, int S,
+                                          int hd, int tid) {
+  constexpr int kElems = kBytes / 4;           // floats a copy
+  constexpr int kChunks = HD / kElems;         // copies a row (a power of 2 ≤ 256)
+  constexpr int kStep = kThreads / kChunks;    // rows a pass of the block
+  static_assert(kThreads % kChunks == 0, "whole rows a pass");
+  const int r0 = tid / kChunks, c = (tid % kChunks) * kElems;
+  const bool col_in = c < hd;
+  const float* p = src + static_cast<long long>(row0 + r0) * stride + c;
+#pragma unroll(kBytes == 16 ? 16 : 4)
+  for (int it = 0; it < (ROWS + kStep - 1) / kStep; ++it) {
+    const int r = r0 + it * kStep;
+    if (ROWS % kStep == 0 || r < ROWS) {
+      const bool in = col_in && row0 + r < S;
+      tc::cp_async<kBytes>(smem_u32(tile + at<HD>(r, c)),
+                           in ? p + static_cast<long long>(it) * kStep * stride : src, in);
+    }
+  }
+}
+
+// x = R1·C1ᵀ and y = R2·C2ᵀ on this warp's 16 rows and BC/2 columns of a
+// pair's 64 × BC score tiles, in 3xTF32, in f32.  R1, R2: the resident
+// [64][HD] row tiles, their small parts 2·64·HD floats on where kPre;
+// C1, C2: [BC][HD] column tiles.  All HD/8 k-steps run, the padding's on
+// zeros (a branch at the padding would keep the compiler from moving a
+// k-step's loads ahead of the last one's mmas), unrolled KI at a time.
+template <int HD>
+__device__ __forceinline__ void tile_scores(float (&x)[Cfg<HD>::NJ][4],
+                                            float (&y)[Cfg<HD>::NJ][4],
+                                            const float* R1, const float* R2,
+                                            const float* C1, const float* C2,
+                                            const Lane<HD>& ln) {
+  constexpr int NJ = Cfg<HD>::NJ, KI = Cfg<HD>::KI;
+  constexpr int kSmall = 2 * kRows * HD;
+  static_assert(KI % 4 == 0 || KI == HD / 8, "k-steps a group: whole lane offsets");
+  float xs[NJ][4], ys[NJ][4];  // the cross terms
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[j][e] = y[j][e] = xs[j][e] = ys[j][e] = 0.0f;
+#pragma unroll 1
+  for (int kq = 0; kq < HD / 8 / KI; ++kq) {
+#pragma unroll
+    for (int e = 0; e < KI; ++e) {
+      const int kc = (kq * (KI / 4) + e / 4) * 32;  // k-step kq·KI + e
+      const int ka = ln.a[e % 4] + kc, kb = ln.b[e % 4] + kc;
+      uint32_t a1b[4], a1s[4], a2b[4], a2s[4];
+      if constexpr (Cfg<HD>::kPre) {
+        tc::ldmatrix_x4(a1b, smem_u32(R1 + ka));
+        tc::ldmatrix_x4(a1s, smem_u32(R1 + kSmall + ka));
+        tc::ldmatrix_x4(a2b, smem_u32(R2 + ka));
+        tc::ldmatrix_x4(a2s, smem_u32(R2 + kSmall + ka));
+      } else {
+        uint32_t a[4];
+        tc::ldmatrix_x4(a, smem_u32(R1 + ka));
+        split(a, a1b, a1s);
+        tc::ldmatrix_x4(a, smem_u32(R2 + ka));
+        split(a, a2b, a2s);
+      }
+      if constexpr (NJ == 1) {
+        uint32_t b[2], bb[2], bs[2];
+        ldmatrix_x2(b, smem_u32(C1 + kb));
+        split(b, bb, bs);
+        mma3(x[0], xs[0], a1b, a1s, bb[0], bb[1], bs[0], bs[1]);
+        ldmatrix_x2(b, smem_u32(C2 + kb));
+        split(b, bb, bs);
+        mma3(y[0], ys[0], a2b, a2s, bb[0], bb[1], bs[0], bs[1]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < NJ; j += 2) {
+          uint32_t b[4], bb[4], bs[4];
+          tc::ldmatrix_x4(b, smem_u32(C1 + kb + j * 8 * HD));
+          split(b, bb, bs);
+          mma3(x[j], xs[j], a1b, a1s, bb[0], bb[1], bs[0], bs[1]);
+          mma3(x[j + 1], xs[j + 1], a1b, a1s, bb[2], bb[3], bs[2], bs[3]);
+          tc::ldmatrix_x4(b, smem_u32(C2 + kb + j * 8 * HD));
+          split(b, bb, bs);
+          mma3(y[j], ys[j], a2b, a2s, bb[0], bb[1], bs[0], bs[1]);
+          mma3(y[j + 1], ys[j + 1], a2b, a2s, bb[2], bb[3], bs[2], bs[3]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      x[j][e] += xs[j][e];
+      y[j][e] += ys[j][e];
+    }
+}
+
+// This warp's 16 × BC/2 part of a score tile, in f32, into the shared
+// [64][LDP] tile P (row-major, as the accumulators lie)
+template <int HD>
+__device__ __forceinline__ void store_scores(float* P, const float (&x)[Cfg<HD>::NJ][4],
+                                             int rw, int cw, int lane) {
+  using C = Cfg<HD>;
+  float* row = P + (rw * 16 + lane / 4) * C::LDP + cw * (C::BC / 2) + 2 * (lane % 4);
+#pragma unroll
+  for (int j = 0; j < C::NJ; ++j) {
+    *reinterpret_cast<float2*>(row + j * 8) = make_float2(x[j][0], x[j][1]);
+    *reinterpret_cast<float2*>(row + 8 * C::LDP + j * 8) = make_float2(x[j][2], x[j][3]);
+  }
+}
+
+// acc += A·B on this warp's 16 rows and HD/2 columns, 3xTF32: A the shared
+// [64][LDP] P or dS tile (ldmatrix, split once for all its k-steps), B a
+// [BC][HD] column tile whose rows are the product's depth (transposed
+// 32-bit loads).  The pair's product is summed in fresh accumulators, up to
+// eight column tiles at a time, and added to acc in f32 (round to nearest):
+// a block's sum runs over hundreds of pairs, too long a chain for the
+// tensor cores' truncating accumulation.  The padding's columns run on zeros.
+template <int HD>
+__device__ __forceinline__ void tile_product(float (&acc)[Cfg<HD>::NI][4],
+                                             const float* A, const float* B,
+                                             const Lane<HD>& ln) {
+  using C = Cfg<HD>;
+  constexpr int KS = C::BC / 8, NG = C::NI < 8 ? C::NI : 8;
+  uint32_t ab[KS][4], as[KS][4];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    uint32_t a[4];
+    tc::ldmatrix_x4(a, smem_u32(A + ln.p + ks * 8));
+    split(a, ab[ks], as[ks]);
+  }
+#pragma unroll
+  for (int i0 = 0; i0 < C::NI; i0 += NG) {
+    float t[NG][4];
+#pragma unroll
+    for (int i = 0; i < NG; ++i) t[i][0] = t[i][1] = t[i][2] = t[i][3] = 0.0f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      const float* Bk = B + ks * 8 * HD + (i0 / 4) * 32;
+#pragma unroll
+      for (int i = 0; i < NG; ++i) {
+        const int off = ln.t0[i % 4] + (i / 4) * 32, off1 = ln.t1[i % 4] + (i / 4) * 32;
+        const uint32_t b[2] = {__float_as_uint(Bk[off]), __float_as_uint(Bk[off1])};
+        uint32_t bb[2], bs[2];
+        split(b, bb, bs);
+        mma3(t[i], ab[ks], as[ks], bb[0], bb[1], bs[0], bs[1]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < NG; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i0 + i][e] += t[i][e];
+  }
+}
+
+// rows r0 and r0 + 8 (< S) of this warp's HD/2 gradient columns (< hd),
+// times mul, in f32 (any hd and strides: one float a store)
+template <int HD>
+__device__ __forceinline__ void store_grad(float* dst, long long stride,
+                                           const float (&acc)[Cfg<HD>::NI][4],
+                                           float mul, int r0, int S, int hd,
+                                           int cw, int lane) {
+#pragma unroll
+  for (int i = 0; i < Cfg<HD>::NI; ++i) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = r0 + (e >= 2 ? 8 : 0);
+      const int col = cw * (HD / 2) + i * 8 + 2 * (lane % 4) + (e & 1);
+      if (row < S && col < hd) dst[row * stride + col] = acc[i][e] * mul;
+    }
+  }
+}
+
+// dK, dV of one (b, kv head, 64-key tile), summed over the group's query
+// heads and the query tiles of BC rows that see the key tile
+template <int HD, int kBytes>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_tf3_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, const float* __restrict__ dO,
+                          const float* __restrict__ lse, const float* __restrict__ D,
+                          float* __restrict__ dk, float* __restrict__ dv, int H, int S,
+                          int hd, int group, int window, float scale_log2, float scale,
+                          bw::BwdStrides st) {
+  using C = Cfg<HD>;
+  constexpr int BC = C::BC, NJ = C::NJ, NI = C::NI;
+  extern __shared__ __align__(16) float smem[];
+  float* Ks = smem;                  // [64][HD]
+  float* Vs = Ks + kRows * HD;       // [64][HD]; then their small parts (kPre)
+  float* Qs = Ks + C::kResident;     // [2][BC][HD]
+  float* dOs = Qs + 2 * BC * HD;     // [2][BC][HD]
+  float* PT = dOs + 2 * BC * HD;     // [64 keys][LDP]: Pᵀ
+  float* dST = PT + kRows * C::LDP;  // [64 keys][LDP]: dSᵀ
+  float* lse_s = dST + kRows * C::LDP;  // [2][BC]
+  float* D_s = lse_s + 2 * BC;          // [2][BC]
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int rw = warp % 4, cw = warp / 4;
+  // key tiles ascending, each across every kv head before the next
+  const long long lin = static_cast<long long>(blockIdx.y) * gridDim.x + blockIdx.x;
+  const int k0 = static_cast<int>(lin / gridDim.y) * kRows;
+  const int hk = static_cast<int>(lin % gridDim.y), bi = blockIdx.z;
+  const int k_last = min(k0 + kRows, S) - 1;
+  const int qt_lo = k0 / BC;
+  const int qt_hi = (window > 0 ? min(S - 1, k_last + window - 1) : S - 1) / BC;
+  const int nq = qt_hi - qt_lo + 1, pairs = group * nq;
+  const Lane<HD> ln(rw, cw, lane);
+
+  // pair p: query head hk·G + p / nq, query tile qt_lo + p % nq, with its
+  // lse and D rows, into ring stage `stage`
+  auto load_pair = [&](int p, int stage) {
+    const int h = hk * group + p / nq, q0 = (qt_lo + p % nq) * BC;
+    load_tile<HD, BC, kBytes>(Qs + stage * BC * HD, q + bi * st.q[0] + h * st.q[1],
+                              st.q[2], q0, S, hd, tid);
+    load_tile<HD, BC, kBytes>(dOs + stage * BC * HD, dO + bi * st.dO[0] + h * st.dO[1],
+                              st.dO[2], q0, S, hd, tid);
+    if (tid < 2 * BC) {
+      const int r = tid % BC, pos = q0 + r;
+      const bool in = pos < S;
+      const float* src = (tid < BC ? lse : D) +
+                         (in ? (static_cast<long long>(bi) * H + h) * S + pos : 0);
+      tc::cp_async<4>(smem_u32((tid < BC ? lse_s : D_s) + stage * BC + r), src, in);
+    }
+  };
+
+  load_tile<HD, kRows, kBytes>(Ks, k + bi * st.k[0] + hk * st.k[1], st.k[2], k0, S, hd, tid);
+  load_tile<HD, kRows, kBytes>(Vs, v + bi * st.v[0] + hk * st.v[1], st.v[2], k0, S, hd, tid);
+  load_pair(0, 0);
+  cp_async_commit();
+  if constexpr (C::kPre) {
+    cp_async_wait_all();
+    __syncthreads();
+    presplit<HD>(Ks, tid);  // published by the loop's first barrier
+  }
+
+  float acc_k[NI][4], acc_v[NI][4];
+#pragma unroll
+  for (int i = 0; i < NI; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[i][e] = acc_v[i][e] = 0.0f;
+  const int kr = k0 + rw * 16 + lane / 4;  // this thread's keys kr, kr + 8
+
+  for (int p = 0; p < pairs; ++p) {
+    const int stage = p & 1;
+    cp_async_wait_all();
+    __syncthreads();  // pair p is in; every warp is done with pair p − 1
+    if (p + 1 < pairs) load_pair(p + 1, stage ^ 1);
+    cp_async_commit();
+    const float* Qc = Qs + stage * BC * HD;
+    const float* dOc = dOs + stage * BC * HD;
+    const float* lse_c = lse_s + stage * BC;
+    const float* D_c = D_s + stage * BC;
+    const int q0 = (qt_lo + p % nq) * BC;
+
+    float x[NJ][4], y[NJ][4];
+    tile_scores<HD>(x, y, Ks, Vs, Qc, dOc, ln);  // Sᵀ = K·Qᵀ, dPᵀ = V·dOᵀ
+
+    // Pᵀ and dSᵀ in f32: lse and D by the accumulator's column, the query;
+    // masked only on tiles that cross the diagonal, the window's edge or S
+    const bool inside = k0 + kRows - 1 <= q0 && q0 + BC <= S &&
+                        (window <= 0 || k0 > q0 + BC - 1 - window);
+    auto probs = [&](auto masked) {
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int c = cw * (BC / 2) + j * 8 + 2 * (lane % 4);
+        const float2 l2 = *reinterpret_cast<const float2*>(lse_c + c);
+        const float2 d2 = *reinterpret_cast<const float2*>(D_c + c);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kp = kr + (e >= 2 ? 8 : 0), qp = q0 + c + (e & 1);
+          const bool ok = !decltype(masked)::value || (kp <= qp && qp < S && (window <= 0 || kp > qp - window));
+          const float lq = ((e & 1) ? l2.y : l2.x) * kLog2e;
+          const float pr = ok ? exp2f(x[j][e] * scale_log2 - lq) : 0.0f;
+          x[j][e] = pr;
+          y[j][e] = pr * (y[j][e] - ((e & 1) ? d2.y : d2.x));
+        }
+      }
+    };
+    if (inside)
+      probs(std::false_type{});
+    else
+      probs(std::true_type{});
+    store_scores<HD>(PT, x, rw, cw, lane);
+    store_scores<HD>(dST, y, rw, cw, lane);
+    __syncthreads();  // Pᵀ and dSᵀ are whole
+    tile_product<HD>(acc_v, PT, dOc, ln);   // dV += Pᵀ·dO
+    tile_product<HD>(acc_k, dST, Qc, ln);   // dK += dSᵀ·Q
+  }
+  store_grad<HD>(dk + bi * st.dk[0] + hk * st.dk[1], st.dk[2], acc_k, scale, kr, S, hd,
+                 cw, lane);
+  store_grad<HD>(dv + bi * st.dv[0] + hk * st.dv[1], st.dv[2], acc_v, 1.0f, kr, S, hd,
+                 cw, lane);
+}
+
+// dQ of one (b, head, 64-query tile), over the key tiles of BC keys it sees
+template <int HD, int kBytes>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_tf3_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const float* __restrict__ dO,
+                        const float* __restrict__ lse, const float* __restrict__ D,
+                        float* __restrict__ dq, int H, int S, int hd, int group,
+                        int window, float scale_log2, float scale, bw::BwdStrides st) {
+  using C = Cfg<HD>;
+  constexpr int BC = C::BC, NJ = C::NJ, NI = C::NI;
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;                  // [64][HD]
+  float* dOs = Qs + kRows * HD;      // [64][HD]; then their small parts (kPre)
+  float* Ks = Qs + C::kResident;     // [2][BC][HD]
+  float* Vs = Ks + 2 * BC * HD;      // [2][BC][HD]
+  float* dSs = Vs + 2 * BC * HD;     // [64 queries][LDP]
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int rw = warp % 4, cw = warp / 4;
+  // query tiles descending (the last see the most keys), each across every
+  // head before the next
+  const long long lin = static_cast<long long>(blockIdx.y) * gridDim.x + blockIdx.x;
+  const int q0 = (static_cast<int>(gridDim.x) - 1 - static_cast<int>(lin / gridDim.y)) * kRows;
+  const int h = static_cast<int>(lin % gridDim.y), bi = blockIdx.z, hk = h / group;
+  const int q_last = min(q0 + kRows, S) - 1;
+  const int kt_lo = window > 0 ? max(0, q0 - window + 1) / BC : 0;
+  const int kt_hi = q_last / BC;
+  const float* kb = k + bi * st.k[0] + hk * st.k[1];
+  const float* vb = v + bi * st.v[0] + hk * st.v[1];
+  const Lane<HD> ln(rw, cw, lane);
+
+  load_tile<HD, kRows, kBytes>(Qs, q + bi * st.q[0] + h * st.q[1], st.q[2], q0, S, hd, tid);
+  load_tile<HD, kRows, kBytes>(dOs, dO + bi * st.dO[0] + h * st.dO[1], st.dO[2], q0, S, hd,
+                               tid);
+  load_tile<HD, BC, kBytes>(Ks, kb, st.k[2], kt_lo * BC, S, hd, tid);
+  load_tile<HD, BC, kBytes>(Vs, vb, st.v[2], kt_lo * BC, S, hd, tid);
+  cp_async_commit();
+  if constexpr (C::kPre) {
+    cp_async_wait_all();
+    __syncthreads();
+    presplit<HD>(Qs, tid);  // published by the loop's first barrier
+  }
+
+  // this thread's rows r0, r0 + 8: lse (log2 domain) and D in registers
+  const int r0 = q0 + rw * 16 + lane / 4, r1 = r0 + 8;
+  const long long lrow = (static_cast<long long>(bi) * H + h) * S;
+  const float l0 = r0 < S ? lse[lrow + r0] * kLog2e : 0.0f;
+  const float l1 = r1 < S ? lse[lrow + r1] * kLog2e : 0.0f;
+  const float d0 = r0 < S ? D[lrow + r0] : 0.0f;
+  const float d1 = r1 < S ? D[lrow + r1] : 0.0f;
+
+  float acc[NI][4];
+#pragma unroll
+  for (int i = 0; i < NI; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.0f;
+
+  for (int kt = kt_lo; kt <= kt_hi; ++kt) {
+    const int stage = (kt - kt_lo) & 1;
+    cp_async_wait_all();
+    __syncthreads();  // tile kt is in; every warp is done with kt − 1
+    if (kt < kt_hi) {
+      const int next = (stage ^ 1) * BC * HD;
+      load_tile<HD, BC, kBytes>(Ks + next, kb, st.k[2], (kt + 1) * BC, S, hd, tid);
+      load_tile<HD, BC, kBytes>(Vs + next, vb, st.v[2], (kt + 1) * BC, S, hd, tid);
+    }
+    cp_async_commit();
+    const float* Kc = Ks + stage * BC * HD;
+    const float* Vc = Vs + stage * BC * HD;
+
+    float x[NJ][4], y[NJ][4];
+    tile_scores<HD>(x, y, Qs, dOs, Kc, Vc, ln);  // S = Q·Kᵀ, dP = dO·Vᵀ
+
+    const int k0 = kt * BC;
+    const bool inside = k0 + BC - 1 <= q0 && q0 + kRows <= S &&
+                        (window <= 0 || k0 > q0 + kRows - 1 - window);
+    auto grads = [&](auto masked) {
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qp = e < 2 ? r0 : r1;
+          const int kp = k0 + cw * (BC / 2) + j * 8 + 2 * (lane % 4) + (e & 1);
+          const bool ok = !decltype(masked)::value || (kp <= qp && qp < S && (window <= 0 || kp > qp - window));
+          const float pr = ok ? exp2f(x[j][e] * scale_log2 - (e < 2 ? l0 : l1)) : 0.0f;
+          y[j][e] = pr * (y[j][e] - (e < 2 ? d0 : d1));
+        }
+      }
+    };
+    if (inside)
+      grads(std::false_type{});
+    else
+      grads(std::true_type{});
+    store_scores<HD>(dSs, y, rw, cw, lane);
+    __syncthreads();  // dS is whole
+    tile_product<HD>(acc, dSs, Kc, ln);  // dQ += dS·K
+  }
+  store_grad<HD>(dq + bi * st.dq[0] + h * st.dq[1], st.dq[2], acc, scale, r0, S, hd, cw,
+                 lane);
+}
+
+template <int HD, int kBytes>
+int launch_bwd(const void* q, const void* k, const void* v, const void* o,
+               const void* lse, const void* dO, void* dq, void* dk, void* dv,
+               void* D, int B, int H, int KV, int S, int hd, int window,
+               const bw::BwdStrides& st, cudaStream_t stream) {
+  using C = Cfg<HD>;
+  const float sl2 = scale_log2(hd);
+  const float scale = 1.0f / sqrtf(static_cast<float>(hd));
+  cudaError_t err = static_cast<cudaError_t>(
+      bw::launch_dot<float>(o, dO, D, B, H, S, hd, st, stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = (S + kRows - 1) / kRows;
+  auto dkdv = flash_bwd_tf3_dkdv_kernel<HD, kBytes>;
+  err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             C::kDkdvSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dkdv<<<dim3(tiles, KV, B), kThreads, C::kDkdvSmem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dO),
+      static_cast<const float*>(lse), static_cast<const float*>(D),
+      static_cast<float*>(dk), static_cast<float*>(dv), H, S, hd, H / KV, window, sl2,
+      scale, st);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto dqk = flash_bwd_tf3_dq_kernel<HD, kBytes>;
+  err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kDqSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dqk<<<dim3(tiles, H, B), kThreads, C::kDqSmem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dO),
+      static_cast<const float*>(lse), static_cast<const float*>(D),
+      static_cast<float*>(dq), H, S, hd, H / KV, window, sl2, scale, st);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// cp.async copies of 16, 8 or 4 bytes, the widest that q, k, v and dO allow
+// (a choice by layout, not a fallback); every f32 view allows 4.
+template <int HD>
+int launch_widths(const void* q, const void* k, const void* v, const void* o,
+                  const void* lse, const void* dO, void* dq, void* dk, void* dv,
+                  void* D, int B, int H, int KV, int S, int hd, int window,
+                  const bw::BwdStrides& st, cudaStream_t stream) {
+  Strides loads;  // q, k, v, and dO in the place of o
+  for (int i = 0; i < 3; ++i) {
+    loads.q[i] = st.q[i];
+    loads.k[i] = st.k[i];
+    loads.v[i] = st.v[i];
+    loads.o[i] = st.dO[i];
+  }
+  switch (copy_bytes(q, k, v, dO, loads, hd, 4, 16)) {
+    case 16: return launch_bwd<HD, 16>(q, k, v, o, lse, dO, dq, dk, dv, D, B, H, KV, S, hd, window, st, stream);
+    case 8: return launch_bwd<HD, 8>(q, k, v, o, lse, dO, dq, dk, dv, D, B, H, KV, S, hd, window, st, stream);
+    default: return launch_bwd<HD, 4>(q, k, v, o, lse, dO, dq, dk, dv, D, B, H, KV, S, hd, window, st, stream);
+  }
+}
+
+}  // namespace tf3
+
+// The backward of either dtype: bf16 on the bf16 tensor-core body, f32 on
+// the 3xTF32 one, each instantiated for the smallest padded HD ≥ hd.
 template <bool kBf16, int HD>
 int launch_bwd_body(const void* q, const void* k, const void* v, const void* o,
                const void* lse, const void* dO, void* dq, void* dk, void* dv,
@@ -1810,7 +2168,7 @@ int launch_bwd_body(const void* q, const void* k, const void* v, const void* o,
   if constexpr (kBf16)
     return tcb::launch_widths<HD>(q, k, v, o, lse, dO, dq, dk, dv, D, B, H, KV, S, hd, window, st, stream);
   else
-    return bw::launch_bwd<HD>(q, k, v, o, lse, dO, dq, dk, dv, D, B, H, KV, S, hd, window, st, stream);
+    return tf3::launch_widths<HD>(q, k, v, o, lse, dO, dq, dk, dv, D, B, H, KV, S, hd, window, st, stream);
 }
 
 template <bool kBf16>

@@ -31,8 +31,12 @@ P and dS rounded to bf16 as the products' operands; where the dK/dV grid
 has too few blocks for the card, each GQA group's heads are split and
 their f32 partial sums added in order, in scratch whose size
 ``flash_attention_bwd_bf16_scratch`` gives);
-``flash_attention_bwd_f32`` runs on the CUDA cores in f32.  It has a launch
-counter of its own, ``bwd_launches``.
+``flash_attention_bwd_f32`` runs all seven products on the tensor cores too,
+as 3xTF32 (each f32 operand split into two TF32 parts, three ``mma.sync``
+TF32 products a tile, f32 accumulation: f32-grade, as the gradient checks
+need), with the same two-stage ``cp.async`` ring (16, 8 or 4 bytes a copy,
+the widest the views allow; every f32 view allows 4), P and dS kept in f32.
+It has a launch counter of its own, ``bwd_launches``.
 
 Replaces :func:`repro.kernels.flash_attention.flash_attention`; the
 reference has no Pallas backward (XLA differentiates its attention).  Its plain
@@ -148,7 +152,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     stride is odd (the bf16 body copies 4 bytes at the least).  In bf16, q,
     k and v must allow 4-byte copies as in the forward (an even hd, even
     strides, 4-byte aligned), since dq, dk and dv take their layout; the
-    f32 body loads element by element and needs no alignment."""
+    f32 body copies 16, 8 or 4 bytes, the widest that q, k, v and do allow,
+    and every f32 view allows 4, so it takes any layout with a contiguous
+    head dimension."""
     global bwd_launches
     _check_inputs(q, k, v, window)
     B, H, S, hd = q.shape

@@ -24,7 +24,8 @@ backward, ``rglru_scan`` and the scans' backward, ``alias_draw``,
   logsumexp, q, k, v and dO as the model's views) at the train step's
   shapes: h2o-danube-3-4b's (1, 32, 4096, 120) kv 8 window 4096,
   recurrentgemma-2b's (1, 10, 4096, 256) kv 1 window 2048 and the training
-  CLI's smollm-360m (4, 15, 512, 64) kv 5;
+  CLI's smollm-360m (4, 15, 512, 64) kv 5; and in f32 (the 3xTF32 body) at
+  danube's shape;
 - the scans' shared backward kernel: ``rglru_scan_bwd`` at (1, 4096, 2560)
   and ``ssm_scan_bwd`` at (1, 2048, 8192, 16), the train steps' shapes;
 - ``alias_draw`` on a 2²⁴-bucket table (the wrs path's size; random valid
@@ -186,15 +187,17 @@ def time_flash_bwd(out, flush, gen):
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_bwd)
 
-    for name, (B, H, KV, S, hd), window in (
-            ("flash_bwd_danube", (1, 32, 8, 4096, 120), 4096),
-            ("flash_bwd_rg", (1, 10, 1, 4096, 256), 2048),
-            ("flash_bwd_smollm_cli", (4, 15, 5, 512, 64), 0)):
+    for name, (B, H, KV, S, hd), window, dtype in (
+            ("flash_bwd_danube", (1, 32, 8, 4096, 120), 4096, torch.bfloat16),
+            ("flash_bwd_danube_f32", (1, 32, 8, 4096, 120), 4096, torch.float32),
+            ("flash_bwd_rg", (1, 10, 1, 4096, 256), 2048, torch.bfloat16),
+            ("flash_bwd_smollm_cli", (4, 15, 5, 512, 64), 0, torch.bfloat16)):
         q, k, v, do = [torch.randn((B, S, n, hd), generator=gen, device="cuda")
-                       .to(torch.bfloat16).transpose(1, 2) for n in (H, KV, KV, H)]
+                       .to(dtype).transpose(1, 2) for n in (H, KV, KV, H)]
         o, lse = flash_attention(q, k, v, window=window, return_lse=True)
         call = lambda: flash_attention_bwd(q, k, v, o, lse, do, window=window)  # noqa: E731
         out[name] = {"q": list(q.shape), "kv": list(k.shape), "window": window,
+                     "dtype": str(dtype).removeprefix("torch."),
                      "ms": event_ms(call, flush, reps=10), "loop_us": loop_us(call)}
         del q, k, v, do, o, lse
 

@@ -649,6 +649,59 @@ def test_flash_attention_bwd_bf16_refuses_unaligned_views(cuda_device):
         flash_mod.flash_attention_bwd(bad, k, v, o, lse, do)
 
 
+
+def _flash_bwd_f32_inputs(device, b, s, h, kv, hd, window, seed):
+    q, k, v = _flash_views(device, b, s, h, kv, hd, torch.float32, seed=seed)
+    o, lse = flash_mod.flash_attention(q, k, v, window=window, return_lse=True)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    do = torch.randn((b, s, h, hd), generator=gen, device=device).transpose(1, 2)
+    return q, k, v, o, lse, do
+
+
+@pytest.mark.parametrize("hd,s,group,window", [(120, 300, 8, 150), (256, 200, 1, 70),
+                                               (64, 130, 3, 0), (16, 100, 2, 40),
+                                               (17, 90, 2, 0)])
+def test_flash_attention_bwd_f32_is_deterministic_on_card(cuda_device, hd, s,
+                                                          group, window):
+    """The f32 body (3xTF32 on the tensor cores) has no atomics either: two
+    calls on the same inputs give the same bits."""
+    args = _flash_bwd_f32_inputs(cuda_device, 2, s, 2 * group, 2, hd, window, hd + s)
+    first = flash_mod.flash_attention_bwd(*args, window=window)
+    second = flash_mod.flash_attention_bwd(*args, window=window)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("layout", ["odd position stride", "offset of 1"])
+@pytest.mark.parametrize("hd", [64, 120])
+def test_flash_attention_bwd_f32_takes_a_do_it_copies_4_bytes_at_a_time(
+        cuda_device, hd, layout):
+    """An f32 dO whose layout allows only 4-byte copies (an odd position
+    stride, or a storage offset of one element) is taken as it lies, with
+    no copy: the gradients equal those from a contiguous dO (16-byte
+    copies) bit for bit, and pass the row-by-row check."""
+    b, s, h = 2, 150, 8
+    q, k, v, o, lse, do = _flash_bwd_f32_inputs(cuda_device, b, s, h, 2, hd, 0, hd)
+    if layout == "odd position stride":
+        buf = torch.zeros((b, h, s, hd + 1), device=cuda_device)
+        buf[..., :hd] = do
+        odd = buf[..., :hd]
+    else:
+        flat = torch.empty(do.numel() + 1, device=cuda_device)
+        flat[1:] = do.transpose(1, 2).reshape(-1)
+        odd = flat[1:].view(b, s, h, hd).transpose(1, 2)
+    assert torch.equal(odd, do) and odd.stride(-1) == 1
+    assert odd.data_ptr() % 8 or any(x % 2 for x in odd.stride()[:3])
+    before = flash_mod.bwd_launches
+    got = flash_mod.flash_attention_bwd(q, k, v, o, lse, odd, window=0)
+    exp = flash_mod.flash_attention_bwd(q, k, v, o, lse, do.contiguous(), window=0)
+    torch.cuda.synchronize()
+    assert flash_mod.bwd_launches == before + 2
+    assert all(torch.equal(g, e) for g, e in zip(got, exp))
+    res = ref.flash_attention_bwd_check(q, k, v, o, lse, odd, got, window=0,
+                                        tol=FLASH_BWD_TOL[torch.float32])
+    assert all(r["worst"] <= 1.0 for r in res.values()), res
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_forward_without_lse_writes_none(cuda_device, dtype):
     q, k, v = _flash_views(cuda_device, 1, 70, 4, 2, 64, dtype, seed=3)

@@ -6,6 +6,9 @@ same numpy inputs:
   120, with and without a window, and ``ref.scan_bwd_ref`` against the
   reference's ``linear_scan`` (its custom VJP); both also against
   ``torch.autograd`` through the plain forwards;
+- an emulation of the card's f32 attention backward arithmetic (3xTF32:
+  each product as three products of TF32 parts) against ``jax.vjp`` and
+  against the card's row-by-row check;
 - ``ops``' autograd on CPU tensors (the plain backwards), and
   ``cfg.remat`` "full" and "dots" giving "none"'s gradients;
 - serving builds no graph: the parameters track no gradients until a
@@ -122,6 +125,112 @@ def test_ops_differentiate_cpu_tensors_through_the_plain_backwards():
     with torch.no_grad():
         assert ops.rglru_scan(al[..., 0], bl[..., 0]).grad_fn is None
 
+
+
+# ------------------------------------------------ 3xTF32, emulated on the CPU
+# The card's f32 backward (csrc/flash_attention.cu, namespace tf3) runs its
+# five products on the tensor cores as 3xTF32: each f32 operand x is split
+# into big = tf32(x), rounded to nearest, and small = x − big, which the
+# tensor cores read truncated to TF32, and a product is small·big +
+# big·small + big·big in f32 (small·small, ~2⁻²² of it, is dropped).  A
+# plain emulation of that arithmetic, held to the reference's gradients at
+# the file's tolerance and to the card's check at its tolerance, before any
+# card time: a test aid, not a plain version of a kernel.
+
+
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits) to nearest, ties away from
+    zero, on the int32 view: ``cvt.rna.tf32.f32``."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_truncated(x):
+    """x cut to TF32 toward zero: the top 19 bits, as the tensor cores read
+    an operand that is not TF32."""
+    return (x.view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b (batched) as three f32 products of TF32 operands; each product
+    of two TF32 values is exact in f32."""
+    a_big, b_big = _tf32(a), _tf32(b)
+    a_small, b_small = _tf32_truncated(a - a_big), _tf32_truncated(b - b_big)
+    return a_small @ b_big + a_big @ b_small + a_big @ b_big
+
+
+def _flash_bwd_3xtf32(q, k, v, o, lse, do, window):
+    """``ref.flash_attention_bwd_ref``'s recurrences with its five products
+    (S = Q·Kᵀ, dP = dO·Vᵀ, dV = Pᵀ·dO, dK = dSᵀ·Q, dQ = dS·K) in 3xTF32,
+    P and dS kept in f32."""
+    B, H, S, hd = q.shape
+    KV = k.shape[1]
+    G = H // KV
+    scale = 1.0 / np.sqrt(hd)
+    qg, dog = (t.reshape(B, KV, G, S, hd) for t in (q, do))
+    kg, vg = k[:, :, None], v[:, :, None]
+    D = (dog * o.reshape(B, KV, G, S, hd)).sum(-1, keepdim=True)
+    pos = torch.arange(S)
+    mask = pos[None, :] <= pos[:, None]
+    if window > 0:
+        mask &= pos[None, :] > pos[:, None] - window
+    s = _mm_3xtf32(qg, kg.transpose(-1, -2)) * scale
+    p = torch.where(mask, torch.exp(s - lse.reshape(B, KV, G, S, 1)), 0.0)
+    ds = p * (_mm_3xtf32(dog, vg.transpose(-1, -2)) - D)
+    dv = _mm_3xtf32(p.transpose(-1, -2), dog).sum(2)
+    dk = _mm_3xtf32(ds.transpose(-1, -2), qg).sum(2) * scale
+    dq = _mm_3xtf32(ds, kg) * scale
+    return dq.reshape(B, H, S, hd), dk, dv
+
+
+def test_tf32_rounds_to_nearest_ties_away():
+    one = 1.0 + 2.0 ** -10                    # a TF32 value
+    x = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11), 1.0 + 3 * 2.0 ** -12,
+                      1.0 + 2.0 ** -12, one, 0.0, 2.0 - 2.0 ** -12],
+                     dtype=torch.float32)
+    exp = [one, -one, one, 1.0, one, 0.0, 2.0]
+    assert _tf32(x).tolist() == exp
+    assert _tf32_truncated(x).tolist() == [1.0, -1.0, 1.0, 1.0, one, 0.0,
+                                           2.0 - 2.0 ** -10]
+    third = torch.tensor([1.0 / 3.0])
+    big = _tf32(third)
+    assert (big.view(torch.int32) & 0x1FFF).item() == 0
+    # small = x − big is exact, and its truncation keeps x to 2⁻²¹
+    assert abs(float(big + _tf32_truncated(third - big)) - 1.0 / 3.0) <= 2.0 ** -21 / 3
+
+
+@pytest.mark.parametrize("window", [0, 24])
+@pytest.mark.parametrize("hd", [16, 20, 120])
+def test_flash_attention_bwd_3xtf32_matches_jax_vjp(hd, window):
+    """The emulated 3xTF32 backward against ``jax.vjp`` of the reference
+    attention, at the plain backward's cases and tolerance."""
+    s = 70
+    q, k, v, do = _attn_inputs(hd, s, hd + window)
+    _, vjp = jax.vjp(lambda q, k, v: jax_flash_ref(q, k, v, window=window),
+                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    exp = vjp(jnp.asarray(do))
+    qt, kt, vt, dot = (torch.from_numpy(a) for a in (q, k, v, do))
+    o, lse = ref.flash_attention_ref(qt, kt, vt, window=window, return_lse=True)
+    got = _flash_bwd_3xtf32(qt, kt, vt, o, lse, dot, window)
+    for g, e in zip(got, exp):
+        assert _rel(g.numpy(), e) <= TOL
+
+
+@pytest.mark.parametrize("s,group,window", [(1, 1, 0), (100, 4, 40),
+                                            (300, 8, 150), (300, 1, 0)])
+@pytest.mark.parametrize("hd", [16, 20, 32, 64, 120, 128, 256])
+def test_flash_attention_bwd_3xtf32_passes_the_card_check(hd, s, group, window):
+    """The emulated 3xTF32 backward held row by row by
+    ``ref.flash_attention_bwd_check`` at the f32 tolerance the card's
+    kernel is held to (1e-4), at the card test's shapes (b 2, kv 2)."""
+    rng = np.random.default_rng(hd * s + group)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((2, n, s, hd))
+                                    .astype(np.float32))
+                   for n in (2 * group, 2, 2, 2 * group))
+    o, lse = ref.flash_attention_ref(q, k, v, window=window, return_lse=True)
+    got = _flash_bwd_3xtf32(q, k, v, o, lse, do, window)
+    res = ref.flash_attention_bwd_check(q, k, v, o, lse, do, got, window=window,
+                                        tol=1e-4)
+    assert all(r["worst"] <= 1.0 for r in res.values()), res
 
 def _grads(model, batch):
     params = dict(model.named_parameters())

@@ -34,6 +34,7 @@ def test_the_sources_have_the_six_kernels_files_and_their_kernels():
         "alias_draw.cu", "bfs_frontier.cu", "flash_attention.cu",
         "frame_accum.cu", "rglru_scan.cu", "ssm_scan.cu"}
     assert {"flash_bwd_tc_dkdv_kernel", "flash_bwd_tc_dq_kernel",
+            "flash_bwd_tf3_dkdv_kernel", "flash_bwd_tf3_dq_kernel",
             "scan_bwd_ring_kernel", "flash_bf16_kernel"} <= set(kernels)
 
 
@@ -62,3 +63,15 @@ def test_kernel_label_reads_the_new_kernels_mangled_names():
     assert chip_smoke.kernel_label(
         "_ZN12_GLOBAL__N_120scan_bwd_ring_kernelILi4EEEvPKfS2_S2_PfS3_ii"
     ) == "scan_bwd_ring_kernel<4>"
+
+
+def test_kernel_label_reads_the_3xtf32_kernels_mangled_names():
+    """The f32 backward's kernels, whose namespace and names hold digits."""
+    assert chip_smoke.kernel_label(
+        "_ZN12_GLOBAL__N_13tf325flash_bwd_tf3_dkdv_kernelILi128ELi16EEEvPKfS3_S3_"
+        "S3_S3_S3_PfS4_iiiiiffNS_2bw10BwdStridesE"
+    ) == "flash_bwd_tf3_dkdv_kernel<128, 16>"
+    assert chip_smoke.kernel_label(
+        "_ZN12_GLOBAL__N_13tf323flash_bwd_tf3_dq_kernelILi256ELi4EEEvPKfS3_S3_"
+        "S3_S3_S3_PfiiiiiffNS_2bw10BwdStridesE"
+    ) == "flash_bwd_tf3_dq_kernel<256, 4>"
