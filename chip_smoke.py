@@ -153,28 +153,37 @@ and the script exits non-zero:
                  recurrentgemma-2b at full size and falcon-mamba-7b at full
                  width (4 of 64 layers), 3 steps each (the first cold);
                  the training CLI
-                 (``launch/train.py``'s ``main``) on smollm-360m: 20 steps,
-                 a run preempted at 5 and resumed with the same losses and
+                 (``launch/train.py``'s ``main``) on smollm-360m: 10 steps,
+                 a run preempted at 3 and resumed with the same losses and
                  final checkpoint, and an ``--adaptive`` run.
 14. zoo-mesh   — the model zoo on a mesh (``launch/sharded.py``,
                  ``launch/pipeline.py``): h2o-danube-3-4b at full width and
                  depth (seed 0, bf16) in this process — prefill B = 2,
-                 S = 4096, 8 decode steps from an empty cache at
-                 positions 2047 … 2054 (across the model ranks' halves
-                 of the slots), its 24
+                 S = 4096, 4 decode steps from an empty cache at
+                 positions 2047 … 2050 (across the model ranks' halves
+                 of the slots), the same cut to 12 blocks, its 24
                  blocks over 4 micro-batches of (1, 2048) in a loop —, then
-                 4 gloo ranks sharing the card: the same prefill and decode
-                 steps on the (data 2, model 2) mesh, the weights drawn
-                 shard by shard from seed 0, under the default flags (a
-                 warm-up prefill, then the timed one and 8 decode steps)
-                 and fsdp + seq_parallel (one prefill, 2 decode steps),
-                 each logit within the bf16 gate of the one-process
-                 run's; ``flash_attention`` on each rank's
-                 local heads (1, 16, 4096, 120) kv 4, every call held
-                 against its plain version; the GPipe pipeline over 4
-                 stages of 6 blocks, bit-equal to the loop
-                 (``torch.equal``, else the phase fails).  Wall per step, weight bytes and peak memory
-                 per rank, the collectives by kind (``analysis.comms``).
+                 one pool of 4 gloo ranks sharing the card: the same
+                 prefill and decode steps on the (data 2, model 2) mesh,
+                 the weights drawn shard by shard from seed 0, under the
+                 default flags (a warm-up prefill, then the timed one and
+                 4 decode steps) and fsdp + seq_parallel (cut to 12
+                 blocks: one prefill, 2 decode steps), each logit within
+                 the bf16 gate of the one-process run's;
+                 ``flash_attention`` on each rank's local heads
+                 (1, 16, 4096, 120) kv 4, every call held against its
+                 plain version; the GPipe pipeline over 4 stages of 6
+                 blocks, bit-equal to the loop (``torch.equal``, else the
+                 phase fails); then on the same ranks qwen3-moe-235b-a22b
+                 (2 layers), recurrentgemma-2b (5), falcon-mamba-7b (4),
+                 internvl2-76b (2) and seamless-m4t-large-v2 (4 + 4) at
+                 full width under their full configs' default flags, each
+                 against the same prefill and 2 decode steps in this
+                 process, within the bf16 gate, every kernel call on the
+                 ranks (``rglru_scan`` and ``ssm_scan`` too) held against
+                 its plain version.  Wall per step, weight bytes and peak
+                 memory per rank, the collectives by kind
+                 (``analysis.comms``), moe's dropped share.
 15. kernels    — every kernel (the three backward kernels too) with its
                  launches on the eleven paths (phases 5–6, 7, 8, 9, 9a and
                  9b — this process's and its worker processes' —, 10, 11,
@@ -296,7 +305,9 @@ MAMBA_TRAIN_LAYERS = 4       # 64 → 4: its AdamW state at full depth is ~87 GB
 MAMBA_TRAIN_PARAMS = 953_929_728
 CLI_ARGS = ("--arch", "smollm-360m", "--batch", "8", "--seq", "512",
             "--micro", "2", "--log-every", "1")
-CLI_STEPS, CLI_CKPT_EVERY, CLI_PREEMPT = 20, 10, 5
+# 10 steps, a checkpoint every 5, preempted at 3: cut from 20, 10 and 5 to
+# keep the script inside its time limit once phase 14 ran every family
+CLI_STEPS, CLI_CKPT_EVERY, CLI_PREEMPT = 10, 5, 3
 
 
 def emit(obj) -> None:
@@ -654,10 +665,15 @@ class PlainCheck:
         self.calls[name] += 1
 
     def compare_rglru(self, a, b, got):
+        """The plain version on the host: its loop launches some 17
+        kernels a step, which on the card is launch-bound (seconds a call
+        at the prefill's shapes, the more so in ranks that share the
+        card); the f64 arithmetic that emulates the FMA gives the same
+        bits there."""
         from repro_torch.kernels import ref
         torch = self.torch
-        exp = ref.rglru_scan_ref(a, b)
-        torch.cuda.synchronize()
+        exp = ref.rglru_scan_ref(a.cpu(), b.cpu())
+        got = got.cpu()
         if not torch.equal(got, exp):
             raise AssertionError(f"rglru_scan differs from its plain version "
                                  f"at {tuple(a.shape)}: "
@@ -2671,30 +2687,35 @@ def phase_serve(torch, model, path, prefill_shape, evaluate=True):
 @contextlib.contextmanager
 def moe_drops(torch):
     """Count, while the block runs, the (token, choice) pairs that each
-    expert's capacity dropped, summed over the moe layers' routing calls:
-    yields a dict that gets ``chosen`` and ``dropped`` (E,) lists and the
-    calls."""
+    expert's capacity dropped, summed over the one-hot dispatch's routing
+    calls (``moe._topk_slots``; on a mesh, each rank's own groups or a
+    straddling group whole): yields a dict that gets ``chosen`` and
+    ``dropped`` (E,) lists, the calls, and ``by_group`` {group size:
+    [choices, dropped]}."""
     from repro_torch.models import moe
 
-    route = moe.route_topk
-    out = {"calls": 0}
+    slots = moe._topk_slots
+    out = {"calls": 0, "by_group": {}}
 
     def counted(logits, k, capacity):
-        dispatch, combine, aux = route(logits, k, capacity)
-        _, _, topi, _ = moe._route(logits, k)
+        res = slots(logits, k, capacity)
+        topi = moe._route(logits, k)[2]
         E = logits.shape[-1]
         chosen = torch.bincount(topi.flatten(), minlength=E)
-        dropped = chosen - dispatch.sum((0, 1, 3)).long()
+        dropped = chosen - res[0].sum((0, 1, 3)).long()
         for key, val in (("chosen", chosen), ("dropped", dropped)):
             out[key] = out[key] + val if key in out else val
+        by = out["by_group"].setdefault(int(logits.shape[1]), [0, 0])
+        by[0] += int(chosen.sum())
+        by[1] += int(dropped.sum())
         out["calls"] += 1
-        return dispatch, combine, aux
+        return res
 
-    moe.route_topk = counted
+    moe._topk_slots = counted
     try:
         yield out
     finally:
-        moe.route_topk = route
+        moe._topk_slots = slots
         for key in ("chosen", "dropped"):
             if key in out:
                 out[key] = out[key].tolist()
@@ -2793,16 +2814,38 @@ def phase_families(torch):
 # phase 14: the model zoo on a mesh of 4 gloo ranks sharing the card
 ZOO_MESH, ZOO_AXES = (2, 2), ("data", "model")
 ZOO_PREFILL = (2, 4096)     # B, S: the batch over "data", the heads over "model"
-ZOO_DECODE = 8              # decode steps from an empty cache of S slots,
+ZOO_DECODE = 4              # decode steps from an empty cache of S slots,
 ZOO_DECODE_START = 2047     # at positions 2047 …: across the model ranks'
                             # halves of the slots (2048 each), both flags
-# (name, policy flags, decode steps, warm-up prefill): fsdp + sp gathers
-# every layer's weights over "data" at every step, so it decodes 2 steps
-ZOO_FLAGS = (("default", None, ZOO_DECODE, True),
-             ("fsdp+sp", {"fsdp": True, "seq_parallel": True}, 2, False))
+# (name, policy flags, decode steps, warm-up prefill, depth or None for all
+# 24 blocks): fsdp + sp sends every layer's weights and activations through
+# the host at every step, so it runs danube cut to 12 blocks (a model of its
+# own, seed 0) and decodes 2 steps;
+# the default decodes 4 (8 before the other families joined the phase)
+ZOO_FLAGS = (("default", None, ZOO_DECODE, True, None),
+             ("fsdp+sp", {"fsdp": True, "seq_parallel": True}, 2, False, 12))
 PIPE_STAGES = 4
 PIPE_MICRO = (4, 1, 2048)   # M micro-batches of (1, 2048)
 ZOO_TIMEOUT_S = 900.0
+
+
+# phase 14's other families on one RankPool of 4 gloo ranks sharing the
+# card, after danube: (arch, config overrides (a depth cut, every width
+# kept), prefill (B, S)), each under the full config's default flags
+# (passed explicitly: a depth cut lowers param_count, which would flip
+# them), the shards drawn from seed 0 in bf16, one prefill and
+# ZOO_FAMILY_DECODE decode steps from ZOO_FAMILY_START of an empty cache of
+# S slots (2048 slots, or recurrentgemma's 2048 ring slots: positions 1023
+# and 1024 lie in both model ranks' halves)
+ZOO_FAMILIES = (
+    ("qwen3-moe-235b-a22b", {"n_layers": 2}, (2, 2048)),     # 4 groups of 512 a rank
+    ("recurrentgemma-2b", {"n_layers": 5}, (2, 4096)),       # 1 unit + 2 tails
+    ("falcon-mamba-7b", {"n_layers": 4}, (2, 4096)),
+    ("internvl2-76b", {"n_layers": 2}, (2, 2048)),           # 256 patches + 1792 tokens
+    ("seamless-m4t-large-v2", {"n_layers": 4, "enc_layers": 4}, (2, 2048)),  # 512 frames
+)
+ZOO_FAMILY_DECODE = 2
+ZOO_FAMILY_START = 1023
 
 
 def zoo_inputs():
@@ -2840,10 +2883,11 @@ def zoo_mesh_rank(group, prompts, dec, out_dir):
 
     out = {}
     with probed(group, every=True) as (report, check):
-        for name, flags, steps, warm in ZOO_FLAGS:
+        for name, flags, steps, warm, layers in ZOO_FLAGS:
             out[name] = serve_rank(group, DANUBE_ARCH, ZOO_MESH, ZOO_AXES, flags,
                                    0, None, None, prompts, dec[:, :steps],
-                                   ZOO_PREFILL[1], warm, ZOO_DECODE_START)
+                                   ZOO_PREFILL[1], warm, ZOO_DECODE_START,
+                                   layers and {"n_layers": layers})
             torch.cuda.empty_cache()
         cfg = resolve_config(DANUBE_ARCH)
         L, S, sid = cfg.n_layers, PIPE_STAGES, group.rank
@@ -2870,6 +2914,7 @@ def zoo_mesh_rank(group, prompts, dec, out_dir):
             np.save(Path(out_dir) / "pipeline.npy",
                     y.view(torch.int16).cpu().numpy())
         del model, x, y
+    torch.cuda.empty_cache()
     return out, report
 
 
@@ -2877,49 +2922,57 @@ def phase_zoo_mesh(torch, rank_reports):
     """Phase 14: the model zoo on a mesh (``launch/sharded.py``,
     ``launch/pipeline.py``).  h2o-danube-3-4b at full width and depth in
     one process (seed 0): prefill ``ZOO_PREFILL``, ``ZOO_DECODE`` decode
-    steps from ``ZOO_DECODE_START``, and its 24 blocks over
-    ``PIPE_MICRO`` in a loop; then 4 gloo ranks sharing the card
-    (``zoo_mesh_rank``): the same prefill and
-    decode steps sharded on the (data 2, model 2) mesh under each of
-    ``ZOO_FLAGS``, each logit within the bf16 gate of phases 10–12
-    (``SERVE_GATES``) of the one-process run's; and the GPipe
-    pipeline over 4 stages, bit-equal to the loop (``torch.equal``).
-    The ranks' reports (launches, comparisons, calls by shape) go to
-    ``rank_reports``."""
-    import math
-    import tempfile
-
-    import numpy as np
+    steps from ``ZOO_DECODE_START`` (and the same cut to 12 blocks, fsdp
+    + sp's depth), and its 24 blocks over ``PIPE_MICRO`` in
+    a loop; then one ``RankPool`` of 4 gloo ranks sharing the card: the
+    same prefill and decode steps sharded on the (data 2, model 2) mesh
+    under each of ``ZOO_FLAGS`` (``zoo_mesh_rank``), each logit within the
+    bf16 gate of phases 10–12 (``SERVE_GATES``) of the one-process run's;
+    the GPipe pipeline over 4 stages, bit-equal to the loop
+    (``torch.equal``); and on the same ranks the other five families
+    (``zoo_families``).  The ranks' reports (launches, comparisons, calls
+    by shape) go to ``rank_reports``."""
+    import dataclasses
 
     from repro_torch.launch.pipeline import DecoderLayer
-    from repro_torch.launch.spawn import spawn_workers
+    from repro_torch.launch.spawn import RankPool
+    from repro_torch.models import Model
 
     path = "zoo-mesh"
     prompts, dec = zoo_inputs()
     model = serve_model(torch, DANUBE_ARCH, path, DANUBE_PARAMS)
     cfg = model.cfg
     B, S = ZOO_PREFILL
+    single, single_wall = {}, {}
     with torch.inference_mode():
         toks = torch.as_tensor(prompts, device="cuda")
         model.prefill({"tokens": toks})                   # warm-up
-        torch.cuda.synchronize()
-        t0 = time.time()
-        single = {"prefill": model.prefill({"tokens": toks}).float()}
-        torch.cuda.synchronize()
-        single_wall = {"prefill": time.time() - t0, "decode": []}
-        cache = model.init_cache(B, S)
-        steps = []
-        for t in range(ZOO_DECODE):
-            t0 = time.time()
-            cache, lg = model.decode_step(cache, {
-                "tokens": torch.as_tensor(dec[:, t], device="cuda"),
-                "pos": torch.full((B,), ZOO_DECODE_START + t, dtype=torch.int32,
-                                  device="cuda")})
-            steps.append(lg.float())
+        for _, _, steps, _, layers in ZOO_FLAGS:
+            # a depth cut is a model of its own: the residual projections'
+            # init scale depends on the depth
+            cut = model if layers is None else Model(
+                dataclasses.replace(cfg, n_layers=layers), device="cuda").init(
+                    torch.Generator(device="cuda").manual_seed(0))
             torch.cuda.synchronize()
-            single_wall["decode"].append(time.time() - t0)
-        single["decode"] = torch.stack(steps)
-        del cache, steps
+            t0 = time.time()
+            logits = {"prefill": cut.prefill({"tokens": toks}).float()}
+            torch.cuda.synchronize()
+            wall = {"prefill": time.time() - t0, "decode": []}
+            cache = cut.init_cache(B, S)
+            lgs = []
+            for t in range(steps):
+                t0 = time.time()
+                cache, lg = cut.decode_step(cache, {
+                    "tokens": torch.as_tensor(dec[:, t], device="cuda"),
+                    "pos": torch.full((B,), ZOO_DECODE_START + t,
+                                      dtype=torch.int32, device="cuda")})
+                lgs.append(lg.float())
+                torch.cuda.synchronize()
+                wall["decode"].append(time.time() - t0)
+            logits["decode"] = torch.stack(lgs)
+            single[layers] = {k: v.cpu().numpy() for k, v in logits.items()}
+            single_wall[layers] = wall
+            del cache, lgs, cut
         layer = DecoderLayer(cfg)
         x = pipe_input(torch, cfg.d_model, "cuda")
         t0 = time.time()
@@ -2931,20 +2984,49 @@ def phase_zoo_mesh(torch, rank_reports):
             loop.append(y)
         loop = torch.stack(loop)
         torch.cuda.synchronize()
-        single_wall["pipeline_loop"] = time.time() - t0
-        single = {k: v.cpu().numpy() for k, v in single.items()}
+        pipeline_loop_s = time.time() - t0
         loop = loop.cpu()
     del model, x
     torch.cuda.empty_cache()
     emit({"phase": path, "step": "one process", "arch": cfg.name,
           "prefill": [B, S], "decode_steps": ZOO_DECODE,
-          "decode_start": ZOO_DECODE_START, "wall_s": single_wall})
+          "decode_start": ZOO_DECODE_START,
+          "wall_s": {f"{layers or cfg.n_layers} blocks": w
+                     for layers, w in single_wall.items()},
+          "pipeline_loop_s": pipeline_loop_s})
 
+    t0 = time.time()
+    pool = RankPool(4, backend="gloo", device="cuda", timeout=ZOO_TIMEOUT_S)
+    spawn_s = time.time() - t0
+    try:
+        failed = zoo_danube_ranks(torch, pool, prompts, dec, single,
+                                  single_wall, loop, pipeline_loop_s,
+                                  rank_reports)
+        failed += zoo_families(torch, pool, rank_reports)
+    finally:
+        pool.close()
+    emit({"phase": path, "step": "rank pool", "ranks": 4,
+          "spawn_s": spawn_s})
+    if failed:
+        raise AssertionError("zoo-mesh: " + "; ".join(failed))
+
+
+def zoo_danube_ranks(torch, pool, prompts, dec, single, single_wall, loop,
+                     pipeline_loop_s, rank_reports) -> list:
+    """Phase 14's danube runs on the pool's ranks (``zoo_mesh_rank``)
+    against the one-process ``single`` logits (by depth) and the pipeline
+    against the ``loop``; emits their lines → the failed gates."""
+    import math
+    import tempfile
+
+    import numpy as np
+
+    path = "zoo-mesh"
+    B, S = ZOO_PREFILL
     with tempfile.TemporaryDirectory(prefix="chip_smoke_zoo_") as tmp:
         t0 = time.time()
-        out = spawn_workers(zoo_mesh_rank, 4, backend="gloo", device="cuda",
-                            args=(prompts, dec, tmp), timeout=ZOO_TIMEOUT_S)
-        spawn_wall = time.time() - t0
+        out = pool.call(zoo_mesh_rank, prompts, dec, tmp)
+        ranks_s = time.time() - t0
         piped = torch.from_numpy(np.load(Path(tmp) / "pipeline.npy")).view(
             torch.bfloat16)
     rank_reports += [report for _, report in out]
@@ -2952,17 +3034,17 @@ def phase_zoo_mesh(torch, rank_reports):
     flash_by_rank = [rep["by_shape"].get("flash_attention", {})
                      for _, rep in out]
     failed = []
-    for name, flags, steps, warm in ZOO_FLAGS:
+    for name, flags, steps, warm, layers in ZOO_FLAGS:
         r0 = ranks[0][name]
-        errs = {}
-        for key, got in (("prefill", r0["prefill_logits"]),
-                         ("decode", r0["decode_logits"])):
-            exp = single[key][:steps] if key == "decode" else single[key]
-            errs[key] = float(np.abs(got - exp).max()) / float(np.abs(exp).max())
+        exp = single[layers]
+        errs = {key: float(np.abs(r0[f"{key}_logits"] - exp[key]).max())
+                / float(np.abs(exp[key]).max()) for key in exp}
         agree = float((r0["prefill_logits"].argmax(-1)
-                       == single["prefill"].argmax(-1)).mean())
-        emit({"phase": path, "step": "sharded serving", "arch": cfg.name,
+                       == exp["prefill"].argmax(-1)).mean())
+        emit({"phase": path, "step": "sharded serving", "arch": DANUBE_ARCH,
               "mesh": dict(zip(ZOO_AXES, ZOO_MESH)), "flags": name,
+              "blocks": layers or "all",
+              "depth_cut": layers and f"{layers} blocks (the time limit)",
               "processes": "4 gloo ranks on one card, not a multi-GPU number",
               "prefill": [B, S], "decode_steps": steps,
               "decode_start": ZOO_DECODE_START, "warm_prefill": warm,
@@ -2970,8 +3052,7 @@ def phase_zoo_mesh(torch, rank_reports):
               "prefill_argmax_agree": agree,
               "prefill_wall_s": [r[name]["prefill"]["wall_s"] for r in ranks],
               "decode_wall_s": [r[name]["decode"]["wall_s"] for r in ranks],
-              "one_process_wall_s": {k: single_wall[k]
-                                     for k in ("prefill", "decode")},
+              "one_process_wall_s": single_wall[layers],
               "weight_bytes": [r[name]["weight_bytes"] for r in ranks],
               "peak_mem_bytes": [r[name].get("peak_mem_bytes") for r in ranks],
               "host_staged_messages": [r[name]["host_staged_messages"]
@@ -2987,11 +3068,11 @@ def phase_zoo_mesh(torch, rank_reports):
     equal = torch.equal(piped, loop)
     diff = float((piped.float() - loop.float()).abs().max())
     rel = diff / float(loop.float().abs().max())
-    emit({"phase": path, "step": "pipeline", "arch": cfg.name,
+    emit({"phase": path, "step": "pipeline", "arch": DANUBE_ARCH,
           "stages": PIPE_STAGES, "micro_batches": list(PIPE_MICRO),
-          "layers": cfg.n_layers, "equal": equal, "max_abs_diff": diff,
+          "equal": equal, "max_abs_diff": diff,
           "rel_diff": rel, "ranks": [r["pipeline"] for r in ranks],
-          "loop_wall_s": single_wall["pipeline_loop"], "spawn_and_run_s": spawn_wall,
+          "loop_wall_s": pipeline_loop_s, "danube_ranks_s": ranks_s,
           "flash_attention_calls_by_rank": flash_by_rank,
           "flash_attention_compared_by_rank": [rep["compared"]["flash_attention"]
                                                for _, rep in out],
@@ -3006,8 +3087,134 @@ def phase_zoo_mesh(torch, rank_reports):
                       f"({rel} of its scale)")
     if any(not f for f in flash_by_rank):
         failed.append(f"a rank launched no flash_attention: {flash_by_rank}")
-    if failed:
-        raise AssertionError("zoo-mesh: " + "; ".join(failed))
+    return failed
+
+
+def zoo_family_rank(group, arch, overrides, flags, batch, dec, capacity, start):
+    """One of phase 14's pool ranks: ``serve_rank`` of one family on the
+    (2, 2) mesh, every kernel call held against its plain version
+    (``probed``) and the one-hot dispatch's dropped tokens counted
+    (``moe_drops``) → (serve_rank's result, the probe's report)."""
+    import torch
+
+    from repro_torch.launch.sharded import serve_rank
+
+    with probed(group, every=True) as (report, _), moe_drops(torch) as drops:
+        out = serve_rank(group, arch, ZOO_MESH, ZOO_AXES, flags, 0, None, None,
+                         batch, dec, capacity, False, start, overrides)
+    out["moe_routing"] = drops["by_group"]
+    torch.cuda.empty_cache()
+    return out, report
+
+
+def zoo_families(torch, pool, rank_reports) -> list:
+    """Phase 14's moe, hybrid, ssm, vlm and encdec families
+    (``ZOO_FAMILIES``): each at full width, cut in depth, first in this
+    process (seed 0, bf16: one prefill of ``data.family_batch``'s layout
+    and the decode steps), then sharded on (data 2, model 2) on one
+    ``RankPool`` of 4 gloo ranks sharing the card, the one danube's runs
+    used (``zoo_family_rank``).  Each family's line: the relative error
+    of the ranks' logits against this process's (gated at
+    ``SERVE_GATES``' bf16 0.15), the argmax agreement, the walls, the
+    weight bytes and peak memory a rank, the collectives by kind, and for
+    moe the dropped share on the mesh and in one process.  → the failed
+    gates."""
+    import dataclasses
+    import math
+
+    import numpy as np
+
+    from repro_torch.data import family_batch
+    from repro_torch.launch.sharding import default_flags
+    from repro_torch.models import Model, resolve_config
+
+    path, failed = "zoo-mesh", []
+    for arch, over, (B, S) in ZOO_FAMILIES:
+        t_family = time.time()
+        full = resolve_config(arch)
+        flags = dataclasses.asdict(default_flags(full))
+        cfg = dataclasses.replace(full, **over)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        model = Model(cfg, device="cuda").init(gen)
+        gen.manual_seed(14)
+        batch = family_batch(cfg, B, S, gen)
+        dec = torch.randint(0, cfg.vocab, (B, ZOO_FAMILY_DECODE),
+                            generator=gen, device="cuda")
+        single, walls = {}, {"decode": []}
+        with torch.inference_mode(), moe_drops(torch) as drops:
+            torch.cuda.synchronize()
+            t1 = time.time()
+            single["prefill"] = model.prefill(batch).float()
+            torch.cuda.synchronize()
+            walls["prefill"] = time.time() - t1
+            cache = model.init_cache(B, S)
+            steps = []
+            for t in range(ZOO_FAMILY_DECODE):
+                t1 = time.time()
+                cache, lg = model.decode_step(cache, {
+                    "tokens": dec[:, t],
+                    "pos": torch.full((B,), ZOO_FAMILY_START + t,
+                                      dtype=torch.int32, device="cuda")})
+                steps.append(lg.float())
+                torch.cuda.synchronize()
+                walls["decode"].append(time.time() - t1)
+            single["decode"] = torch.stack(steps)
+        single = {k: v.cpu().numpy() for k, v in single.items()}
+        params = sum(p.numel() for p in model.parameters())
+        del model, cache, steps, lg
+        torch.cuda.empty_cache()
+        host = {k: v.float().cpu().numpy() if v.is_floating_point()
+                else v.cpu().numpy() for k, v in batch.items()}
+        out = pool.call(zoo_family_rank, arch, over, flags, host,
+                        dec.cpu().numpy(), S, ZOO_FAMILY_START)
+        rank_reports += [report for _, report in out]
+        ranks = [r for r, _ in out]
+        r0 = ranks[0]
+        errs = {k: float(np.abs(r0[f"{k}_logits"] - single[k]).max())
+                / float(np.abs(single[k]).max()) for k in single}
+        line = {
+            "phase": path, "step": "family on a mesh", "arch": cfg.name,
+            "family": cfg.family, "overrides": over, "params": params,
+            "flags": flags, "mesh": dict(zip(ZOO_AXES, ZOO_MESH)),
+            "processes": "4 gloo ranks on one card, not a multi-GPU number",
+            "inputs": {k: list(v.shape) for k, v in batch.items()},
+            "decode_steps": ZOO_FAMILY_DECODE,
+            "decode_start": ZOO_FAMILY_START, "warm_prefill": False,
+            "rel_err": errs, "gate_rel": SERVE_GATES["bf16"],
+            "argmax_agree": {k: float((r0[f"{k}_logits"].argmax(-1)
+                                       == single[k].argmax(-1)).mean())
+                             for k in single},
+            "prefill_wall_s": [r["prefill"]["wall_s"] for r in ranks],
+            "decode_wall_s": [r["decode"]["wall_s"] for r in ranks],
+            "one_process_wall_s": walls,
+            "weight_bytes": [r["weight_bytes"] for r in ranks],
+            "peak_mem_bytes": [r.get("peak_mem_bytes") for r in ranks],
+            "host_staged_messages": [r["host_staged_messages"] for r in ranks],
+            "collectives_prefill": [r["prefill"]["collectives"] for r in ranks],
+            "collectives_decode_step_0": [r["decode"]["collectives"][0]
+                                          for r in ranks],
+            "kernel_calls_by_rank": [
+                {k: sum(v.values()) for k, v in rep["by_shape"].items()}
+                for _, rep in out],
+            "family_s": time.time() - t_family}
+        if cfg.family == "moe":
+            g = min(cfg.moe_group, B * S)
+            mesh = [sum(r["moe_routing"].get(g, [0, 0])[i] for r in ranks)
+                    for i in (0, 1)]
+            one = drops["by_group"].get(g, [0, 0])
+            line["moe"] = {
+                "experts": cfg.n_experts, "experts_a_rank":
+                cfg.n_experts // ZOO_MESH[1], "group": g,
+                "prefill_dropped_share": {
+                    "mesh": mesh[1] / max(mesh[0], 1),
+                    "one_process": one[1] / max(one[0], 1)},
+                "routing_by_group_rank0": r0["moe_routing"]}
+        emit(line)
+        if not all(math.isfinite(e) and e <= SERVE_GATES["bf16"]
+                   for e in errs.values()):
+            failed.append(f"{cfg.name}: {errs}")
+    return failed
 
 
 GEMM_PARTS = ("gemm", "nvjet", "xmma", "cutlass")
@@ -3202,6 +3409,8 @@ def train_cli(torch):
     micro = re.findall(r"micro=(\d+) rel_sem=(\S+)", adaptive)
     emit({"phase": "train", "step": "cli", "args": list(CLI_ARGS),
           "steps": CLI_STEPS, "ckpt_every": CLI_CKPT_EVERY,
+          "cut": "20 steps, a checkpoint every 10, preempted at 5 → "
+                 "10, 5, 3 (the time limit)",
           "preempt_at": CLI_PREEMPT, "wall_s": {"full": w_full, "preempted": w_pre,
                                                  "resumed": w_res, "adaptive": w_ad},
           "losses_full": l_full, "losses_resumed": l_res,
@@ -3417,7 +3626,8 @@ def main() -> int:
     zoo_ranks = []
     by_path["zoo-mesh"] = drive("zoo-mesh",
                                 lambda: phase_zoo_mesh(torch, zoo_ranks),
-                                ("flash_attention",), every=True,
+                                ("flash_attention", "rglru_scan", "ssm_scan"),
+                                every=True,
                                 ranks=zoo_ranks)
 
     meta = {

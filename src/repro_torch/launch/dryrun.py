@@ -21,13 +21,15 @@ counts are closed forms, not a compiler's count of each scan body once, so
 no layer differencing is needed.
 
 ``--execute`` runs one serving cell's sharded step for real instead
-(``launch.sharded.serve_rank``: weights and tokens from seed 0, a prefill
-cell's prompts prefilled after one untimed warm-up, a decode cell's one
+(``launch.sharded.serve_rank``: weights and inputs from seed 0, a prefill
+cell's batch, in ``data.family_batch``'s layout with vlm's patches or
+encdec's frames, prefilled after one untimed warm-up, a decode cell's one
 step at its last slot) on W = mesh-size gloo ranks started by
 ``launch.spawn.spawn_workers``: on the card by default, or with
 ``--device cpu``; it adds the wall time of the step, each rank's weight
 bytes and peak memory, and the collectives by kind
-(``analysis.comms``).  Dense family only.
+(``analysis.comms``).  Every family of the zoo runs; a train cell is
+refused (sharded training is ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ import json
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 OUT = Path("dryrun_out")
 SEED = 0               # --execute: weights and tokens
@@ -103,20 +106,28 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, opt: bool = False,
     return rec
 
 
-def execute(arch: str, shape_name: str, mesh: str, device=None) -> dict:
+def execute(arch: str, shape_name: str, mesh: str, device=None,
+            overrides: Optional[dict] = None) -> dict:
     """One cell's sharded serving step run on W ranks (see the
     docstring): a prefill cell prefills its (batch, seq) prompts, a decode
-    cell decodes one step at the last of its seq slots."""
+    cell decodes one step at the last of its seq slots.  ``overrides``
+    replaces fields of the config (a depth cut), under the policy of the
+    config as registered (a cut would lower ``param_count`` and flip
+    ``default_flags``)."""
     import numpy as np
     import torch
 
+    from ..data import family_batch
     from ..device import resolve_device
     from ..models import SHAPES, cell_is_applicable, resolve_config
     from .sharded import serve_rank
+    from .sharding import default_flags
     from .spawn import spawn_workers
 
     dev = resolve_device(device)               # raises without a card
-    cfg, shape = resolve_config(arch), SHAPES[shape_name]
+    cfg = resolve_config(arch)
+    flags = dataclasses.asdict(default_flags(cfg))
+    cfg, shape = dataclasses.replace(cfg, **(overrides or {})), SHAPES[shape_name]
     ok, why = cell_is_applicable(cfg, shape)
     if not ok:
         raise ValueError(f"{arch} × {shape_name}: {why}")
@@ -127,14 +138,17 @@ def execute(arch: str, shape_name: str, mesh: str, device=None) -> dict:
     axes = ("data", "model") if len(dims) == 2 else ("pod", "data", "model")
     world = int(np.prod(dims))
     B, S = shape.global_batch, shape.seq_len
-    rng = np.random.default_rng(SEED)
-    prompts, dec, start = rng.integers(0, cfg.vocab, (B, S)), None, 0
     if shape.kind == "decode":
+        rng = np.random.default_rng(SEED)
         prompts, dec, start = None, rng.integers(0, cfg.vocab, (B, 1)), S - 1
+    else:
+        batch = family_batch(cfg, B, S, torch.Generator().manual_seed(SEED))
+        prompts, dec, start = {k: (v.float() if v.is_floating_point() else v)
+                               .numpy() for k, v in batch.items()}, None, 0
     t0 = time.time()
     ranks = spawn_workers(serve_rank, world, backend="gloo", device=dev.type,
-                          args=(arch, dims, axes, None, SEED, None, None,
-                                prompts, dec, S, True, start),
+                          args=(arch, dims, axes, flags, SEED, None, None,
+                                prompts, dec, S, True, start, overrides),
                           timeout=TIMEOUT_S)
     rec = {"arch": arch, "shape": shape_name, "mesh": mesh, "world": world,
            "backend": "gloo", "device": dev.type,

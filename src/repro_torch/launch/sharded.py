@@ -23,8 +23,14 @@ its dry run lowers with ``in_shardings`` (``launch/dryrun.py``).
   of the cache, which is sharded over batch (data axes) and slots
   (``model``, flash-decoding); its attention over the slots reduces with
   all-reduces.
-- Dense family only: moe raises in ``models.moe``, and the other families
-  are ROADMAP queue 1 items 12–14.
+- Every family of the zoo: moe routes each rank's dispatch groups through
+  ``local_map`` (a group that straddles the data ranks whole) and runs the
+  expert products on each rank's shards, EP or TP-MoE as the rules lay
+  out the experts (``models.moe``); the ssm and hybrid scans run on each
+  rank's batch rows and channels (``models.ssm.linear_scan``); vlm's
+  patches and encdec's frames are batch entries placed as
+  ``launch.specs`` says, and the encoder's and the cross attention run on
+  each rank's heads.
 
 :func:`serve_rank` is one rank of a sharded serving run (spawned by
 ``launch.spawn.spawn_workers`` or a ``RankPool``): build, prefill, decode,
@@ -33,6 +39,7 @@ and report.
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import time
 from typing import Callable, Dict, Optional, Sequence
@@ -43,9 +50,10 @@ from torch import nn
 
 from ..models import Model, resolve_config
 from ..models.layers import ShardingRules, init_leaf, local_chunk, placements
+from ..models.transformer import FAMILIES
 from .specs import _cache_logical, batch_shardings, batch_struct
 
-SHARDED_FAMILIES = ("dense",)
+SHARDED_FAMILIES = FAMILIES
 
 
 def distribute(full: torch.Tensor, mesh, pl: Sequence) -> torch.Tensor:
@@ -54,14 +62,6 @@ def distribute(full: torch.Tensor, mesh, pl: Sequence) -> torch.Tensor:
     from torch.distributed.tensor import DTensor
     local = local_chunk(full, mesh, pl).clone()
     return DTensor.from_local(local, mesh, tuple(pl), run_check=False)
-
-
-def _check_family(cfg) -> None:
-    if cfg.family not in SHARDED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family does not run on a mesh yet "
-            f"(ROADMAP queue 1, items 12–14: moe, hybrid and ssm, vlm and "
-            f"encdec); sharded serving runs {SHARDED_FAMILIES}")
 
 
 def _device(mesh) -> torch.device:
@@ -123,7 +123,8 @@ def place_batch(model: Model, mesh, batch: Dict[str, torch.Tensor],
     as ``launch.specs`` lays out the step's batch."""
     from ..models.config import ShapeConfig
     B = batch["tokens"].shape[0]
-    S = 1 if kind == "decode" else batch["tokens"].shape[-1]
+    S = 1 if kind == "decode" else batch["tokens"].shape[-1] + (
+        model.cfg.n_patches if model.cfg.family == "vlm" else 0)
     shape = ShapeConfig("run", S, B, kind)
     lay = batch_shardings(model.cfg, shape, mesh, model.rules,
                           batch_struct(model.cfg, shape))
@@ -177,7 +178,6 @@ def sharded_step(model: Model, kind: str) -> Callable:
     from .steps import step_for
     if kind not in ("prefill", "decode"):
         raise ValueError(f"sharded_step serves 'prefill' or 'decode', not {kind!r}")
-    _check_family(model.cfg)
     return on_mesh(step_for(model, kind))
 
 
@@ -188,15 +188,20 @@ def _full(x) -> np.ndarray:
 
 def serve_rank(group, arch: str, mesh_shape, axes, flags=None, seed=0,
                tree=None, dtype=None, prompts=None, decode_tokens=None,
-               capacity: int = 0, warm: bool = False, start: int = 0) -> dict:
+               capacity: int = 0, warm: bool = False, start: int = 0,
+               overrides: Optional[dict] = None) -> dict:
     """One rank of a sharded serving run over the current process group:
-    ``arch`` (a registered or ``-reduced`` config) on the mesh
-    ``mesh_shape``/``axes`` with the policy ``flags`` (default: the
-    config's), weights from ``seed`` (or the reference tree ``tree`` of
-    numpy arrays, every rank holding all of it), cast to ``dtype``; one
-    prefill of ``prompts`` (B, S) and one decode step per column of
-    ``decode_tokens`` (B, T) at positions ``start`` … ``start`` + T − 1
-    on an empty cache of ``capacity`` slots.  With ``warm``, the prefill runs once untimed
+    ``arch`` (a registered or ``-reduced`` config, with the fields of
+    ``overrides`` replaced: a depth cut, a dispatch, an expert count) on
+    the mesh ``mesh_shape``/``axes`` with the policy ``flags`` (default:
+    the config's, so pass them where a cut would change
+    ``default_flags``), weights from ``seed`` (or the reference tree
+    ``tree`` of numpy arrays, every rank holding all of it), cast to
+    ``dtype``; one prefill of ``prompts`` (tokens (B, S), or a
+    ``data.family_batch`` dict of numpy arrays: tokens with vlm's patches or
+    encdec's frames) and one decode step per column of ``decode_tokens``
+    (B, T) at positions ``start`` … ``start`` + T − 1 on an empty cache of
+    ``capacity`` slots.  With ``warm``, the prefill runs once untimed
     first.  → rank 0: the last logits of the prefill and every decode
     step's logits (numpy, f32); every rank: its wall per step, weight
     bytes, peak memory (on the card), collectives by kind a step, and the
@@ -208,7 +213,8 @@ def serve_rank(group, arch: str, mesh_shape, axes, flags=None, seed=0,
     from .sharding import PolicyFlags, build_rules
 
     cfg = resolve_config(arch)
-    _check_family(cfg)
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
     # DTensor logs a warning at every redistribution of a value partial over
     # both mesh dims (FSDP's contractions), one line a call on every rank
     logging.getLogger("torch.distributed.tensor._redistribute").setLevel(
@@ -242,8 +248,10 @@ def serve_rank(group, arch: str, mesh_shape, axes, flags=None, seed=0,
         return res, coll, time.perf_counter() - t0
 
     if prompts is not None:
-        prompts = torch.as_tensor(prompts).to(dev)
-        batch = place_batch(model, mesh, {"tokens": prompts}, "prefill")
+        if not isinstance(prompts, dict):
+            prompts = {"tokens": prompts}
+        batch = place_batch(model, mesh, {
+            k: torch.as_tensor(v).to(dev) for k, v in prompts.items()}, "prefill")
         prefill = sharded_step(model, "prefill")
         if warm:
             prefill(batch)
@@ -297,3 +305,32 @@ def gathered_params_rank(group, arch: str, mesh_shape, axes, seed: int) -> dict:
                         mesh, seed=seed)
     full = {k: _full(p) for k, p in model.named_parameters()}
     return full if group.rank == 0 else {}
+
+
+def routing_rank(group, logits, k: int, capacity: int, mesh_shape, axes,
+                 dim: int) -> dict:
+    """A rank entry: f32 router logits (G, g, E), every rank holding them
+    whole, split over the mesh's data axes along ``dim`` (0: each rank its
+    groups; 1: each group over its tokens, as a decode step's), routed on
+    the mesh by ``models.moe.route_topk`` and ``route_sorted`` → rank 0:
+    the dispatch, combine and sorted slots gathered whole (numpy) and both
+    aux losses; the other ranks {}."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from ..models import moe
+    from .mesh import device_mesh, make_mesh
+    mesh = device_mesh(make_mesh(mesh_shape, axes), device=group.device)
+    pl = tuple(Replicate() if a == "model" else Shard(dim) for a in axes)
+    lg = distribute(torch.as_tensor(logits).to(group.device), mesh, pl)
+
+    def route():
+        dispatch, combine, aux = moe.route_topk(lg, k, capacity)
+        slots, aux_sorted = moe.route_sorted(lg, k, capacity)
+        return ({"dispatch": dispatch, "combine": combine,
+                 **slots._asdict()}, {"aux": aux, "aux_sorted": aux_sorted})
+
+    tensors, auxes = on_mesh(route)()
+    out = {name: on_mesh(t.full_tensor)().cpu().numpy()
+           for name, t in tensors.items()}
+    out.update({name: float(a) for name, a in auxes.items()})
+    return out if group.rank == 0 else {}

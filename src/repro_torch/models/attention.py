@@ -8,8 +8,8 @@ is their mask helper ``_causal_mask`` (the kernel and its plain version
 apply the same mask themselves).
 
 On a mesh, :func:`flash_attention` runs the kernel on each rank's local
-batch rows and heads (``local_map``): the kernel's wrapper sees plain local
-tensors, never a DTensor.
+batch rows and heads (``local_map``, :func:`local_heads`): the kernel's
+wrapper sees plain local tensors, never a DTensor.
 """
 
 from __future__ import annotations
@@ -48,38 +48,48 @@ def _whole_heads(q: torch.Tensor) -> torch.Tensor:
 
 
 def _local_flash(q, k, v, window: int):
-    """Causal attention on DTensors, each rank over its local batch rows
-    and heads.  q keeps a batch (dim 0) or head (dim 1) sharding and is
-    replicated on every other mesh dim (a sequence-sharded or partial q is
-    gathered first); k and v take q's batch sharding and keep their head
-    sharding where q's heads are sharded on the same mesh dim.  Where the
-    fallback replicates k/v while q's heads are sharded (danube-reduced's
-    2 kv heads on a 4-way axis, qwen3-moe's 4 on 16), the local call
-    slices the kv heads its q heads read: q head h reads kv head
-    h // (H/KV), so the local GQA groups stay whole.  A rank whose heads
-    straddle two groups raises (:func:`_kv_block`)."""
+    """Causal attention on DTensors (B, H, S, hd), the kernel on each
+    rank's batch rows and heads (:func:`local_heads`)."""
+    return local_heads(
+        lambda ql, kl, vl: ops.flash_attention(ql, kl, vl, window=window),
+        q, k, v, 1)
+
+
+def local_heads(fn, q, k, v, head: int):
+    """``fn(q, k, v)`` on DTensors, each rank over its local batch rows
+    (dim 0) and heads (dim ``head``), ``fn`` getting plain local tensors.
+    q keeps a batch or head sharding and is replicated on every other mesh
+    dim (a sequence-sharded or partial q is gathered first); k and v take
+    q's batch sharding and keep their head sharding where q's heads are
+    sharded on the same mesh dim.  Where the fallback replicates k/v while
+    q's heads are sharded (danube-reduced's 2 kv heads on a 4-way axis,
+    qwen3-moe's 4 on 16, recurrentgemma's 1), the local call slices the kv
+    heads its q heads read: q head h reads kv head h // (H/KV), so the
+    local GQA groups stay whole.  A rank whose heads straddle two groups
+    raises (:func:`_kv_block`)."""
     from torch.distributed.tensor import Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
     mesh = q.device_mesh
-    q_pl = tuple(p if p in (Shard(0), Shard(1)) else Replicate()
+    q_pl = tuple(p if p in (Shard(0), Shard(head)) else Replicate()
                  for p in q.placements)
     kv_pl = tuple(Shard(0) if qp == Shard(0) else
-                  (Shard(1) if qp == Shard(1) and kp == Shard(1) else Replicate())
+                  (Shard(head) if qp == Shard(head) and kp == Shard(head)
+                   else Replicate())
                   for qp, kp in zip(q_pl, k.placements))
     q = q.redistribute(mesh, q_pl)
     k = k.redistribute(mesh, kv_pl)
     v = v.redistribute(mesh, kv_pl)
-    first, n = shard_range(mesh, q_pl, 1, q.shape[1])      # this rank's q heads
-    lo, count = _kv_block(q.shape[1], k.shape[1], first, n)
-    kv_first, kv_n = shard_range(mesh, kv_pl, 1, k.shape[1])
+    first, n = shard_range(mesh, q_pl, head, q.shape[head])   # its q heads
+    lo, count = _kv_block(q.shape[head], k.shape[head], first, n)
+    kv_first, kv_n = shard_range(mesh, kv_pl, head, k.shape[head])
     lo -= kv_first                  # the kv heads it reads, in its local k/v
     whole = (lo, count) == (0, kv_n)
 
     def local(ql, kl, vl):
         if not whole:
-            kl, vl = kl[:, lo:lo + count], vl[:, lo:lo + count]
-        return ops.flash_attention(ql, kl, vl, window=window)
+            kl, vl = kl.narrow(head, lo, count), vl.narrow(head, lo, count)
+        return fn(ql, kl, vl)
 
     return local_map(local, out_placements=list(q_pl),
                      in_placements=(q_pl, kv_pl, kv_pl),

@@ -63,8 +63,9 @@ def _trunc_normal(shape, generator: torch.Generator) -> torch.Tensor:
     """Standard normal truncated to [−2, 2], f32, by the inverse CDF."""
     lo, hi = (0.5 * (1.0 + math.erf(x / math.sqrt(2.0))) for x in (-2.0, 2.0))
     u = torch.rand(shape, generator=generator, device=generator.device)
-    x = torch.erfinv(2.0 * (lo + u * (hi - lo)) - 1.0) * math.sqrt(2.0)
-    return x.clamp_(-2.0, 2.0)
+    # in place: one f32 buffer at a time (a leaf of 10⁹ values is 4 GB)
+    return (u.mul_(hi - lo).add_(lo).mul_(2.0).sub_(1.0).erfinv_()
+            .mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0))
 
 
 def init_leaf(d: ParamDef, generator: torch.Generator) -> torch.Tensor:
@@ -79,9 +80,9 @@ def init_leaf(d: ParamDef, generator: torch.Generator) -> torch.Tensor:
     if d.init == "scaled":
         fan_in = d.fan_in or (d.shape[-2] if len(d.shape) >= 2 else d.shape[-1])
         std = d.scale / math.sqrt(max(fan_in, 1))
-        return (_trunc_normal(d.shape, generator) * std).to(d.dtype)
-    return (torch.randn(d.shape, generator=generator, device=dev)
-            * (d.scale * 0.02)).to(d.dtype)
+        return _trunc_normal(d.shape, generator).mul_(std).to(d.dtype)
+    return torch.randn(d.shape, generator=generator, device=dev).mul_(
+        d.scale * 0.02).to(d.dtype)
 
 
 def register_params(module: nn.Module, defs: Dict[str, ParamDef],
@@ -245,6 +246,18 @@ def gather_seq(x: torch.Tensor) -> torch.Tensor:
         return x
     return x.redistribute(x.device_mesh, tuple(
         Replicate() if p == Shard(1) else p for p in x.placements))
+
+
+def whole(x: torch.Tensor, dims: Sequence[int] = ()) -> torch.Tensor:
+    """A DTensor with the dims ``dims`` whole on every rank and its partial
+    sums reduced (a product that contracted a split dim: one all-reduce);
+    anything else as it is."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(x, DTensor):
+        return x
+    pl = tuple(Replicate() if p.is_partial() or any(p == Shard(d) for d in dims)
+               else p for p in x.placements)
+    return x if pl == tuple(x.placements) else x.redistribute(x.device_mesh, pl)
 
 
 # ---------------------------------------------------------------------------

@@ -16,7 +16,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .layers import ParamDef, rms_norm
+from .layers import ParamDef, gather_seq, rms_norm, whole
 from .ssm import causal_conv1d, linear_scan
 
 _C = 8.0
@@ -58,8 +58,12 @@ def rglru_init_state(cfg, batch: int, dtype=torch.bfloat16,
 
 
 def _gates(p, u: torch.Tensor):
-    r = torch.sigmoid((u @ p["w_r"]).float() + p["b_r"])
-    i = torch.sigmoid((u @ p["w_i"]).float() + p["b_i"])
+    """The gates of u (…, W) through the square weights (``lru_in`` whole,
+    ``lru`` split): on a mesh u's channels are gathered for the products,
+    whose outputs are split as ``lru``."""
+    uw = whole(u, (u.dim() - 1,))
+    r = torch.sigmoid((uw @ p["w_r"]).float() + p["b_r"])
+    i = torch.sigmoid((uw @ p["w_i"]).float() + p["b_i"])
     log_a = -_C * F.softplus(p["lam"]) * r
     a = torch.exp(log_a)
     gate_in = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
@@ -70,15 +74,18 @@ def rglru_block(p, x: torch.Tensor, cfg,
                 state: Optional[RGLRUState] = None,
                 return_state: bool = False):
     """Full-sequence recurrent block. x: (B, S, d) → (B, S, d), and the
-    state after the last position with ``return_state``."""
-    h_in = rms_norm(x, p["norm"])
-    u_raw = h_in @ p["w_in"]                                 # (B, S, W)
-    gate = F.gelu(h_in @ p["w_gate"], approximate="tanh")
+    state after the last position with ``return_state``.  On a mesh the
+    scan and the convolution run on each rank's lanes (``ssm``), and under
+    FSDP the projections' ``embed`` dim is gathered first, so the batch
+    rows stay split."""
+    h_in = gather_seq(rms_norm(x, p["norm"]))
+    u_raw = h_in @ whole(p["w_in"], (0,))                    # (B, S, W)
+    gate = F.gelu(h_in @ whole(p["w_gate"], (0,)), approximate="tanh")
     tail = state.conv_tail if state is not None else None
     u = causal_conv1d(u_raw, p["conv_w"], p["conv_b"], tail)
     a, b = _gates(p, u)                                      # (B, S, W) f32
     hs = linear_scan(a, b, h0=state.h if state is not None else None)
-    out = (hs.to(x.dtype) * gate) @ p["w_out"]
+    out = (hs.to(x.dtype) * gate) @ whole(p["w_out"], (1,))
     if not return_state:
         return x + out
     if tail is None:
@@ -92,13 +99,13 @@ def rglru_decode_step(p, x: torch.Tensor, state: RGLRUState, cfg
                       ) -> Tuple[torch.Tensor, RGLRUState]:
     """One-token step. x: (B, d)."""
     h_in = rms_norm(x, p["norm"])
-    u_raw = h_in @ p["w_in"]                                 # (B, W)
-    gate = F.gelu(h_in @ p["w_gate"], approximate="tanh")
+    u_raw = h_in @ whole(p["w_in"], (0,))                    # (B, W)
+    gate = F.gelu(h_in @ whole(p["w_gate"], (0,)), approximate="tanh")
     window = torch.cat([state.conv_tail, u_raw[:, None, :]], dim=1)
     u = torch.sum(window.float() * p["conv_w"].float()[None], dim=1) \
         + p["conv_b"].float()
     u = u.to(x.dtype)
     a, b = _gates(p, u)
     h = a * state.h + b
-    out = (h.to(x.dtype) * gate) @ p["w_out"]
+    out = (h.to(x.dtype) * gate) @ whole(p["w_out"], (1,))
     return x + out, RGLRUState(h=h, conv_tail=window[:, 1:, :])

@@ -37,11 +37,15 @@ activations at the reference's sites (``layers.constrain``): the
 embedded and each layer's output stream on ("batch", "seq_sp", None),
 the queries on ("batch", None, "heads_act", None) and the SwiGLU hidden
 on ("batch", None, "ffn_act").  ``flash_attention`` runs on each rank's
-local heads (``attention.flash_attention``), and a decode step writes the
-new key, value and position into the local shard of a cache that is
-sharded over its batch and slots.  The dense family runs on a mesh; moe
-raises (``moe.moe_ffn``), and the other families have not been run there
-(ROADMAP queue 1).
+local heads (``attention.flash_attention``), as do the encoder's and the
+cross attention (``_attn_bidir``), and a decode step writes the new key,
+value and position into the local shard of a cache that is sharded over
+its batch and slots, and the ssm and hybrid states into theirs
+(``_put``); the encdec decoder's cross attention over the slot-sharded
+``cross_k``/``cross_v`` reduces over the ranks as the self-attention's
+does (``attention.attn_decode``).  Every family runs on a mesh: moe
+routes on each rank's groups (``moe.moe_ffn``), and the scans run on each
+rank's channels (``ssm.linear_scan``).
 
 Training: the parameters track no gradients until a trainer opts in with
 ``model.requires_grad_(True)``, so serving builds no autograd graph.  Where
@@ -66,7 +70,7 @@ from torch import nn
 from torch.utils import checkpoint as ckpt
 
 from ..device import resolve_device
-from .attention import attn_decode, flash_attention
+from .attention import attn_decode, flash_attention, local_heads
 from .config import ModelConfig
 from .layers import (ParamDef, Params, constrain, gather_seq, init_leaf,
                      register_params, rms_norm, rotary, shard_range,
@@ -247,7 +251,8 @@ class Model(nn.Module):
         B, S, d = x.shape
         Sm = mem.shape[1]
         H, KV, hd = cfg.n_heads, cfg.n_kv, cfg.hd
-        h = rms_norm(x, p["ln"])
+        h = gather_seq(rms_norm(x, p["ln"]))
+        mem = gather_seq(mem)
         q = (h @ p["wq"].reshape(d, H * hd)).view(B, S, H, hd)
         k = (mem @ p["wk"].reshape(d, KV * hd)).view(B, Sm, KV, hd)
         v = (mem @ p["wv"].reshape(d, KV * hd)).view(B, Sm, KV, hd)
@@ -264,7 +269,7 @@ class Model(nn.Module):
 
     def _moe(self, p, x):
         """The MoE block on (B, S, d) → (x', aux loss)."""
-        y, aux = moe_ffn(p, rms_norm(x, p["ln"]), self.cfg,
+        y, aux = moe_ffn(p, gather_seq(rms_norm(x, p["ln"])), self.cfg,
                          constrain=self._constrain)
         return x + y, aux
 
@@ -515,8 +520,8 @@ class Model(nn.Module):
                 x, st = mamba_decode_step(
                     p, x, MambaState(h=cache["h"][i], conv_tail=cache["conv"][i]),
                     cfg)
-                cache["h"][i] = st.h
-                cache["conv"][i] = st.conv_tail
+                _put(cache["h"], (i,), st.h)
+                _put(cache["conv"], (i,), st.conv_tail)
             return cache, self._logits(rms_norm(x, self.final_norm))
         Sc = cache["k"].shape[2]
         if cfg.family == "hybrid":
@@ -527,8 +532,8 @@ class Model(nn.Module):
                     st = RGLRUState(h=cache["h"][u, i], conv_tail=cache["conv"][u, i])
                     x, st = rglru_decode_step(unit[r], x, st, cfg)
                     x = self._mlp(unit[f"{r}_mlp"], x)
-                    cache["h"][u, i] = st.h
-                    cache["conv"][u, i] = st.conv_tail
+                    _put(cache["h"], (u, i), st.h)
+                    _put(cache["conv"], (u, i), st.conv_tail)
                 x = self._attn_dec(unit["a"], x, cache["k"][u], cache["v"][u],
                                    cache["kpos"], pos, slot, cfg.local_window)
                 x = self._mlp(unit["a_mlp"], x)
@@ -536,8 +541,8 @@ class Model(nn.Module):
                 st = RGLRUState(h=cache["tail_h"][i], conv_tail=cache["tail_conv"][i])
                 x, st = rglru_decode_step(rec, x, st, cfg)
                 x = self._mlp(mlp, x)
-                cache["tail_h"][i] = st.h
-                cache["tail_conv"][i] = st.conv_tail
+                _put(cache["tail_h"], (i,), st.h)
+                _put(cache["tail_conv"], (i,), st.conv_tail)
             return cache, self._logits(rms_norm(x, self.final_norm))
         # dense / moe / vlm / encdec decoders: ring slots with a window, else
         # the position, held at the last slot past the capacity
@@ -585,6 +590,23 @@ def _write_slots(buf: torch.Tensor, slot: torch.Tensor,
     local[rows, at] = torch.where(keep, value.to(local.dtype), local[rows, at])
 
 
+def _put(buf: torch.Tensor, at: tuple, value: torch.Tensor) -> None:
+    """buf[at] = value in place, ``at`` leading indices of unsplit dims (a
+    layer, a unit): a DTensor state (the ssm and hybrid caches, split over
+    their batch rows and channels) is written in its local shard, the
+    value laid out as buf[at] first."""
+    from torch.distributed.tensor import DTensor, Shard
+    if not isinstance(buf, DTensor):
+        buf[at] = value
+        return
+    n = len(at)
+    pl = tuple(Shard(p.dim - n) if isinstance(p, Shard) else p
+               for p in buf.placements)
+    if any(isinstance(p, Shard) and p.dim < 0 for p in pl):
+        raise ValueError(f"_put: {buf.placements} split an indexed dim")
+    buf.to_local()[at] = value.redistribute(buf.device_mesh, pl).to_local()
+
+
 def _through(fns, x):
     """One checkpointed layer: x through ``fns`` in turn → (x, aux sum)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -600,7 +622,11 @@ def _attn_bidir(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tens
     """Non-causal GQA attention (the encoder's and the cross attention):
     q (B, Sq, H, hd), k and v (B, Sk, KV, hd) → (B, Sq, H, hd).  Scores and
     softmax in f32, the probabilities cast to q's dtype for the product with
-    v, as the reference's unchunked ``_attn_bidir``."""
+    v, as the reference's unchunked ``_attn_bidir``.  On DTensors, on each
+    rank's batch rows and heads (``attention.local_heads``)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(q, DTensor):
+        return local_heads(_attn_bidir, q, k, v, 2)
     B, Sq, H, hd = q.shape
     KV = k.shape[2]
     qg = q.reshape(B, Sq, KV, H // KV, hd)

@@ -515,6 +515,52 @@ def test_reduced_family_prefill_agrees_with_decode_on_card(cuda_device, arch,
                          / on_cpu.abs().max()) <= 1e-5
 
 
+# ------------------------------------------------ the families on a mesh
+
+
+@pytest.mark.parametrize("arch,start", [("mixtral-8x22b-reduced", 19),
+                                        ("recurrentgemma-2b-reduced", 15)])
+def test_reduced_family_on_two_gloo_ranks_on_card(cuda_device, arch, start):
+    """A reduced moe model (mixtral-8x22b: EP, its 4 experts over the model
+    axis, one dispatch group routed whole) and a reduced hybrid one
+    (recurrentgemma-2b: ``rglru_scan`` and local attention on each rank's
+    channels and heads) on the (1, 2) mesh of 2 gloo ranks sharing the
+    card, in f32: the prefill and 2 decode steps (into both ranks' halves
+    of the slots) within 1e-4 of one process's on the same weights (seed
+    0 on the card), and the same greedy tokens."""
+    from repro_torch.launch.sharded import serve_rank
+    from repro_torch.launch.spawn import spawn_workers
+    from repro_torch.models import Model, resolve_config
+    cfg = resolve_config(arch)
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab, (2, 40))
+    dec = rng.integers(0, cfg.vocab, (2, 2))
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    model = Model(cfg, device=cuda_device).init(gen).float()
+    with torch.inference_mode():
+        full = model.prefill({"tokens": torch.as_tensor(prompts, device=cuda_device)})
+        cache = model.init_cache(2, 40)
+        steps = []
+        for t in range(3):
+            cache, lg = model.decode_step(cache, {
+                "tokens": torch.as_tensor(dec[:, min(t, 1)], device=cuda_device),
+                "pos": torch.full((2,), start + t, dtype=torch.int32,
+                                  device=cuda_device)})
+            steps.append(lg.float().cpu().numpy())
+    ranks = spawn_workers(serve_rank, 2, backend="gloo", device="cuda",
+                          args=(arch, (1, 2), ("data", "model"), None, 0, None,
+                                "float32", prompts, dec, 40, False, start),
+                          timeout=600)
+    got = ranks[0]
+    exp = full.float().cpu().numpy()
+    assert np.abs(got["prefill_logits"] - exp).max() <= 1e-4 * np.abs(exp).max()
+    exp = np.stack(steps[:2])
+    assert np.abs(got["decode_logits"] - exp).max() <= 1e-4 * np.abs(exp).max()
+    for r in ranks:
+        np.testing.assert_array_equal(r["decode"]["next_tokens"],
+                                      steps[2].argmax(-1))
+
+
 # ------------------------------------------------ the backward kernels
 
 
