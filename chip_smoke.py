@@ -180,20 +180,40 @@ and the script exits non-zero:
                  full width under their full configs' default flags, each
                  against the same prefill and 2 decode steps in this
                  process, within the bf16 gate, every kernel call on the
-                 ranks (``rglru_scan`` and ``ssm_scan`` too) held against
-                 its plain version.  Wall per step, weight bytes and peak
+                 ranks held against its plain version (recurrentgemma's
+                 and falcon-mamba's each new kernel, shape and type:
+                 ``ZOO_SCAN_ONCE``).  Wall per step, weight bytes and peak
                  memory per rank, the collectives by kind
-                 (``analysis.comms``), moe's dropped share.
-15. kernels    — every kernel (the three backward kernels too) with its
-                 launches on the eleven paths (phases 5–6, 7, 8, 9, 9a and
-                 9b — this process's and its worker processes' —, 10, 11,
-                 12, 13 and 14), each counted from 0 just before its path;
+                 (``analysis.comms``), moe's dropped share.  The pool of
+                 4 ranks is spawned once for phases 14 and 15.
+15. train-mesh — sharded training of the dense family
+                 (``launch/sharded.py`` ``train_rank``, AdamW on
+                 DTensors, ZeRO-1): h2o-danube-3-4b at full width cut to
+                 4 of 24 layers (remat "full", bf16, seed 0), 2 steps of
+                 (n_micro 2, mb 2, S 2048) in this process, then on the
+                 (data 2, model 2) mesh of phase 14's ranks under its
+                 default policy; each step's loss within 1e-2 and grad
+                 norm within 5e-2 (relative) of this process's, each
+                 leaf's ``mu`` after step 1 within 0.15 of its largest
+                 magnitude; the train state saved after step 1 and
+                 restored onto one process ``torch.equal`` to the leaves
+                 gathered from the mesh; every ``flash_attention`` and
+                 ``flash_attention_bwd`` call on the ranks held against
+                 its plain version.  A rank's step wall, weight, gradient
+                 and optimizer-state bytes, peak memory, collectives by
+                 kind (forward, backward, optimizer) and host-staged
+                 messages.
+16. kernels    — every kernel (the three backward kernels too) with its
+                 launches on the twelve paths (phases 5–6, 7, 8, 9, 9a
+                 and 9b — this process's and its worker processes' —, 10,
+                 11, 12, 13, 14 and 15), each counted from 0 just before
+                 its path;
                  each path's line also splits its kernel calls by shape (the
                  kernels line repeats ``flash_attention``'s on the
                  families path).
 
-While phases 5–14 run, in this process and in the worker processes of 9a,
-9b and 14, the kernels behind ``kernels.ops`` (forward and backward) are
+While phases 5–15 run, in this process and in the worker processes of 9a,
+9b, 14 and 15, the kernels behind ``kernels.ops`` (forward and backward) are
 wrapped so that their calls are held against the plain versions on the
 same tensors:
 every call on the conformance path, and elsewhere each call whose kernel,
@@ -305,9 +325,12 @@ MAMBA_TRAIN_LAYERS = 4       # 64 → 4: its AdamW state at full depth is ~87 GB
 MAMBA_TRAIN_PARAMS = 953_929_728
 CLI_ARGS = ("--arch", "smollm-360m", "--batch", "8", "--seq", "512",
             "--micro", "2", "--log-every", "1")
-# 10 steps, a checkpoint every 5, preempted at 3: cut from 20, 10 and 5 to
-# keep the script inside its time limit once phase 14 ran every family
-CLI_STEPS, CLI_CKPT_EVERY, CLI_PREEMPT = 10, 5, 3
+# 10 steps, preempted at 3: cut from 20 and 5 to keep the script inside its
+# time limit once phase 14 ran every family; once phase 15 joined, no
+# periodic checkpoint (every 5 before): a run saves at its preemption and
+# at its end only (4.1 GB of train state, ~10 s a save on the card's host;
+# at every 10 the periodic save at step 10 repeated the final one)
+CLI_STEPS, CLI_CKPT_EVERY, CLI_PREEMPT = 10, 20, 3
 
 
 def emit(obj) -> None:
@@ -2846,6 +2869,11 @@ ZOO_FAMILIES = (
 )
 ZOO_FAMILY_DECODE = 2
 ZOO_FAMILY_START = 1023
+# the families whose scan kernels the ranks hold against their plain
+# versions once per (kernel, shape, type), not at every call: the scans'
+# plain versions are launch-bound loops that led the phase's time (28.9 s
+# of recurrentgemma's and 42.9 s of falcon-mamba's families on the card)
+ZOO_SCAN_ONCE = ("hybrid", "ssm")
 
 
 def zoo_inputs():
@@ -2918,7 +2946,7 @@ def zoo_mesh_rank(group, prompts, dec, out_dir):
     return out, report
 
 
-def phase_zoo_mesh(torch, rank_reports):
+def phase_zoo_mesh(torch, pool, rank_reports):
     """Phase 14: the model zoo on a mesh (``launch/sharded.py``,
     ``launch/pipeline.py``).  h2o-danube-3-4b at full width and depth in
     one process (seed 0): prefill ``ZOO_PREFILL``, ``ZOO_DECODE`` decode
@@ -2930,12 +2958,12 @@ def phase_zoo_mesh(torch, rank_reports):
     bf16 gate of phases 10–12 (``SERVE_GATES``) of the one-process run's;
     the GPipe pipeline over 4 stages, bit-equal to the loop
     (``torch.equal``); and on the same ranks the other five families
-    (``zoo_families``).  The ranks' reports (launches, comparisons, calls
-    by shape) go to ``rank_reports``."""
+    (``zoo_families``).  ``pool`` is the ``RankPool`` of 4 gloo ranks on
+    the card that phases 14 and 15 share.  The ranks' reports (launches,
+    comparisons, calls by shape) go to ``rank_reports``."""
     import dataclasses
 
     from repro_torch.launch.pipeline import DecoderLayer
-    from repro_torch.launch.spawn import RankPool
     from repro_torch.models import Model
 
     path = "zoo-mesh"
@@ -2995,18 +3023,9 @@ def phase_zoo_mesh(torch, rank_reports):
                      for layers, w in single_wall.items()},
           "pipeline_loop_s": pipeline_loop_s})
 
-    t0 = time.time()
-    pool = RankPool(4, backend="gloo", device="cuda", timeout=ZOO_TIMEOUT_S)
-    spawn_s = time.time() - t0
-    try:
-        failed = zoo_danube_ranks(torch, pool, prompts, dec, single,
-                                  single_wall, loop, pipeline_loop_s,
-                                  rank_reports)
-        failed += zoo_families(torch, pool, rank_reports)
-    finally:
-        pool.close()
-    emit({"phase": path, "step": "rank pool", "ranks": 4,
-          "spawn_s": spawn_s})
+    failed = zoo_danube_ranks(torch, pool, prompts, dec, single, single_wall,
+                              loop, pipeline_loop_s, rank_reports)
+    failed += zoo_families(torch, pool, rank_reports)
     if failed:
         raise AssertionError("zoo-mesh: " + "; ".join(failed))
 
@@ -3090,16 +3109,18 @@ def zoo_danube_ranks(torch, pool, prompts, dec, single, single_wall, loop,
     return failed
 
 
-def zoo_family_rank(group, arch, overrides, flags, batch, dec, capacity, start):
+def zoo_family_rank(group, arch, overrides, flags, batch, dec, capacity, start,
+                    every):
     """One of phase 14's pool ranks: ``serve_rank`` of one family on the
-    (2, 2) mesh, every kernel call held against its plain version
-    (``probed``) and the one-hot dispatch's dropped tokens counted
+    (2, 2) mesh, its kernel calls held against their plain versions
+    (``probed``: every call, or with ``every`` False each new kernel,
+    shape and type) and the one-hot dispatch's dropped tokens counted
     (``moe_drops``) → (serve_rank's result, the probe's report)."""
     import torch
 
     from repro_torch.launch.sharded import serve_rank
 
-    with probed(group, every=True) as (report, _), moe_drops(torch) as drops:
+    with probed(group, every=every) as (report, _), moe_drops(torch) as drops:
         out = serve_rank(group, arch, ZOO_MESH, ZOO_AXES, flags, 0, None, None,
                          batch, dec, capacity, False, start, overrides)
     out["moe_routing"] = drops["by_group"]
@@ -3166,8 +3187,9 @@ def zoo_families(torch, pool, rank_reports) -> list:
         torch.cuda.empty_cache()
         host = {k: v.float().cpu().numpy() if v.is_floating_point()
                 else v.cpu().numpy() for k, v in batch.items()}
+        every = cfg.family not in ZOO_SCAN_ONCE
         out = pool.call(zoo_family_rank, arch, over, flags, host,
-                        dec.cpu().numpy(), S, ZOO_FAMILY_START)
+                        dec.cpu().numpy(), S, ZOO_FAMILY_START, every)
         rank_reports += [report for _, report in out]
         ranks = [r for r, _ in out]
         r0 = ranks[0]
@@ -3181,6 +3203,7 @@ def zoo_families(torch, pool, rank_reports) -> list:
             "inputs": {k: list(v.shape) for k, v in batch.items()},
             "decode_steps": ZOO_FAMILY_DECODE,
             "decode_start": ZOO_FAMILY_START, "warm_prefill": False,
+            "every_call_compared": every,
             "rel_err": errs, "gate_rel": SERVE_GATES["bf16"],
             "argmax_agree": {k: float((r0[f"{k}_logits"].argmax(-1)
                                        == single[k].argmax(-1)).mean())
@@ -3215,6 +3238,161 @@ def zoo_families(torch, pool, rank_reports) -> list:
                    for e in errs.values()):
             failed.append(f"{cfg.name}: {errs}")
     return failed
+
+
+# phase 15: sharded training of the dense family on phase 14's RankPool
+TRAIN_MESH_OVERRIDES = {"n_layers": 4, "remat": "full"}   # 24 → 4 layers:
+# four ranks of all 24 would hold ~24 GB each of weights, gradients, f32
+# accumulators and ZeRO-1 moments beside the one-process reference
+TRAIN_MESH_LAYOUT = (2, 2, 2048)    # n_micro, mb, S: one row a data rank
+TRAIN_MESH_STEPS = 2
+TRAIN_MESH_GATES = {"loss": 1e-2, "grad_norm": 5e-2, "mu": 0.15}  # relative
+
+
+def train_mesh_batches():
+    """The steps' batches, (n_micro, mb, S) tokens and their next tokens
+    as labels, from seed 22 (numpy), the same on every process."""
+    import numpy as np
+
+    from repro_torch.models import resolve_config
+    vocab = resolve_config(DANUBE_ARCH).vocab
+    rng = np.random.default_rng(22)
+    n, mb, S = TRAIN_MESH_LAYOUT
+    out = []
+    for _ in range(TRAIN_MESH_STEPS):
+        t = rng.integers(0, vocab, (n, mb, S + 1)).astype(np.int32)
+        out.append({"tokens": t[..., :-1].copy(), "labels": t[..., 1:].copy()})
+    return out
+
+
+def train_mesh_rank(group, batches, flags, ckpt_dir):
+    """One of phase 15's pool ranks: ``train_rank`` of h2o-danube-3-4b cut
+    to ``TRAIN_MESH_OVERRIDES`` on the (2, 2) mesh (shards drawn from seed
+    0, bf16), one step a batch, the train state saved to ``ckpt_dir``
+    after step 1 and restored onto the first rank's process against the
+    leaves gathered from the mesh; every kernel call held against its
+    plain version (``probed``) → (train_rank's result, the report)."""
+    import torch
+
+    from repro_torch.launch.sharded import train_rank
+
+    with probed(group, every=True) as (report, _):
+        out = train_rank(group, DANUBE_ARCH, ZOO_MESH, ZOO_AXES, batches, flags,
+                         0, None, None, TRAIN_MESH_OVERRIDES, (), ckpt_dir,
+                         None, True)
+    torch.cuda.empty_cache()
+    return out, report
+
+
+def phase_train_mesh(torch, pool, rank_reports):
+    """Phase 15: sharded training of the dense family
+    (``launch/sharded.py`` ``train_rank``, ``optim/adamw.py`` on
+    DTensors, ``checkpoint/manager.py``).  h2o-danube-3-4b at full width
+    cut to 4 layers (remat "full", bf16, seed 0): ``TRAIN_MESH_STEPS``
+    steps of ``make_train_step`` on ``TRAIN_MESH_LAYOUT`` in this process,
+    then the same steps on the (data 2, model 2) mesh of phase 14's 4 gloo
+    ranks under danube's default policy (TP + DP, ZeRO-1), every
+    ``flash_attention`` and ``flash_attention_bwd`` call on the ranks held
+    against its plain version.  Gates (``TRAIN_MESH_GATES``): each step's
+    loss and grad norm relative to this process's, and each leaf's ``mu``
+    after step 1 (read from the mesh's checkpoint) within 0.15 of its
+    largest magnitude; the checkpoint restored onto one process
+    ``torch.equal`` to the leaves gathered from the mesh."""
+    import dataclasses
+    import math
+    import tempfile
+
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.launch.sharding import default_flags
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import Model, resolve_config
+    from repro_torch.optim import adamw_init
+
+    path = "train-mesh"
+    full = resolve_config(DANUBE_ARCH)
+    cfg = dataclasses.replace(full, **TRAIN_MESH_OVERRIDES)
+    flags = dataclasses.asdict(default_flags(full))
+    batches = train_mesh_batches()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    model = Model(cfg, device="cuda").init(gen).requires_grad_(True)
+    n_params = sum(p.numel() for p in model.parameters())
+    step = make_train_step(model)
+    opt = adamw_init(dict(model.named_parameters()))
+    single, single_wall = [], []
+    for i, b in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        opt, m = step(opt, {k: torch.as_tensor(v, device="cuda")
+                            for k, v in b.items()})
+        torch.cuda.synchronize()
+        single_wall.append(time.time() - t0)
+        single.append((float(m["loss"]), float(m["grad_norm"])))
+        if i == 0:
+            mu1 = {k: v.to("cpu", copy=True) for k, v in opt.mu.items()}
+    single_peak = torch.cuda.max_memory_allocated()
+    del model, step, opt, m
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_mesh_") as tmp:
+        t0 = time.time()
+        out = pool.call(train_mesh_rank, batches, flags, tmp)
+        ranks_s = time.time() - t0
+        t0 = time.time()
+        # the first rank's restore check has read every chunk against its CRC
+        saved, _ = load_checkpoint({"opt": {"mu": mu1}}, tmp, 1, device="cpu",
+                                   verify_crc=False)
+        read_s = time.time() - t0
+    rank_reports += [report for _, report in out]
+    ranks = [r for r, _ in out]
+    r0 = ranks[0]
+    rel = {"loss": [abs(s["loss"] - e[0]) / abs(e[0])
+                    for s, e in zip(r0["steps"], single)],
+           "grad_norm": [abs(s["grad_norm"] - e[1]) / abs(e[1])
+                         for s, e in zip(r0["steps"], single)]}
+    mu_err = {k: float((saved["opt"]["mu"][k] - v).abs().max())
+              / max(float(v.abs().max()), 1e-30) for k, v in mu1.items()}
+    worst = max(mu_err, key=mu_err.get)
+    restore = r0.get("restore_equal") or {}
+    emit({"phase": path, "step": "sharded train", "arch": cfg.name,
+          "overrides": TRAIN_MESH_OVERRIDES, "params": n_params,
+          "flags": flags, "mesh": dict(zip(ZOO_AXES, ZOO_MESH)),
+          "layout": list(TRAIN_MESH_LAYOUT), "steps": TRAIN_MESH_STEPS,
+          "tokens_a_step": math.prod(TRAIN_MESH_LAYOUT),
+          "processes": "4 gloo ranks on one card, not a multi-GPU number",
+          "loss": [s["loss"] for s in r0["steps"]],
+          "grad_norm": [s["grad_norm"] for s in r0["steps"]],
+          "one_process": {"loss": [e[0] for e in single],
+                          "grad_norm": [e[1] for e in single],
+                          "wall_s": single_wall, "peak_mem_bytes": single_peak},
+          "rel_err": rel, "mu_rel_err_worst": mu_err[worst],
+          "mu_worst_leaf": worst, "gates": TRAIN_MESH_GATES,
+          "restore_onto_one_process": restore,
+          "step_wall_s": [[s["wall_s"] for s in r["steps"]] for r in ranks],
+          "weight_bytes": [r["weight_bytes"] for r in ranks],
+          "grad_bytes": [r["grad_bytes"] for r in ranks],
+          "opt_state_bytes": [r["opt_state_bytes"] for r in ranks],
+          "peak_mem_bytes": [r.get("peak_mem_bytes") for r in ranks],
+          "host_staged_messages": [r["host_staged_messages"] for r in ranks],
+          "collectives_step_2": [r["steps"][-1]["collectives"] for r in ranks],
+          "flash_calls_by_rank": [
+              {k: sum(v.values()) for k, v in rep["by_shape"].items()}
+              for _, rep in out],
+          "plain_compare_s_by_rank": [rep["compare_s"] for _, rep in out],
+          "rank_build_s": [r["build_s"] for r in ranks],
+          "save_s": [r["save_s"] for r in ranks],
+          "restore_check_s": [r["restore_check_s"] for r in ranks],
+          "ranks_s": ranks_s, "checkpoint_mu_read_s": read_s})
+    failed = [f"{k} {v}" for k, v in rel.items()
+              if not all(math.isfinite(e) and e <= TRAIN_MESH_GATES[k]
+                         for e in v)]
+    if not (mu_err[worst] <= TRAIN_MESH_GATES["mu"]):
+        failed.append(f"mu {worst} {mu_err[worst]}")
+    if not restore.get("equal"):
+        failed.append(f"the restore onto one process differs: {restore}")
+    if failed:
+        raise AssertionError("train-mesh: " + "; ".join(failed))
 
 
 GEMM_PARTS = ("gemm", "nvjet", "xmma", "cutlass")
@@ -3362,7 +3540,8 @@ def train_steps(torch, model, name, layout, steps):
 def train_cli(torch):
     """``launch/train.py``'s ``main`` on the card: ``CLI_STEPS`` steps of
     smollm-360m (B 8, S 512, 2 micro-batches) with a checkpoint every
-    ``CLI_CKPT_EVERY``; the same preempted at ``CLI_PREEMPT`` and resumed,
+    ``CLI_CKPT_EVERY`` (past the run's end: only the final one); the same
+    preempted (and checkpointed) at ``CLI_PREEMPT`` and resumed,
     whose losses from there on and final checkpoint (parameters, moments,
     step: the chunks' CRCs) must equal the uninterrupted run's; one
     ``--adaptive`` run with up to 4 micro-batches a step."""
@@ -3410,7 +3589,7 @@ def train_cli(torch):
     emit({"phase": "train", "step": "cli", "args": list(CLI_ARGS),
           "steps": CLI_STEPS, "ckpt_every": CLI_CKPT_EVERY,
           "cut": "20 steps, a checkpoint every 10, preempted at 5 → "
-                 "10, 5, 3 (the time limit)",
+                 "10, none but the final one, 3 (the time limit)",
           "preempt_at": CLI_PREEMPT, "wall_s": {"full": w_full, "preempted": w_pre,
                                                  "resumed": w_res, "adaptive": w_ad},
           "losses_full": l_full, "losses_resumed": l_res,
@@ -3623,12 +3802,25 @@ def main() -> int:
     emit({"phase": "train", "flash_attention_bwd_checks":
           check.flash_bwd_rows[checked_before:]})
     torch.cuda.empty_cache()
-    zoo_ranks = []
-    by_path["zoo-mesh"] = drive("zoo-mesh",
-                                lambda: phase_zoo_mesh(torch, zoo_ranks),
-                                ("flash_attention", "rglru_scan", "ssm_scan"),
-                                every=True,
-                                ranks=zoo_ranks)
+    from repro_torch.launch.spawn import RankPool
+    t0 = time.time()
+    pool = RankPool(4, backend="gloo", device="cuda", timeout=ZOO_TIMEOUT_S)
+    emit({"phase": "rank pool", "ranks": 4, "backend": "gloo",
+          "spawn_s": time.time() - t0, "paths": ["zoo-mesh", "train-mesh"]})
+    try:
+        zoo_ranks = []
+        by_path["zoo-mesh"] = drive(
+            "zoo-mesh", lambda: phase_zoo_mesh(torch, pool, zoo_ranks),
+            ("flash_attention", "rglru_scan", "ssm_scan"), every=True,
+            ranks=zoo_ranks)
+        torch.cuda.empty_cache()
+        train_ranks = []
+        by_path["train-mesh"] = drive(
+            "train-mesh", lambda: phase_train_mesh(torch, pool, train_ranks),
+            ("flash_attention", "flash_attention_bwd"), every=True,
+            ranks=train_ranks)
+    finally:
+        pool.close()
 
     meta = {
         "frame_accum": ("src/repro_torch/kernels/csrc/frame_accum.cu",

@@ -12,7 +12,8 @@ counts an all-gather by its ``-start`` operand.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Tuple
+import contextlib
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -46,15 +47,36 @@ def _nbytes(a) -> int:
     return 0
 
 
-def collective_bytes(run: Callable[[], Any]) -> Tuple[Any, Dict[str, int]]:
+class Phases:
+    """The part of a step that runs, for :func:`collective_bytes`: the
+    step marks its parts with ``with phases("backward"): …``.  A plain
+    attribute, so that the autograd engine's device thread sees it too."""
+
+    def __init__(self, default: str = "other"):
+        self.current = default
+
+    @contextlib.contextmanager
+    def __call__(self, name: str):
+        prev, self.current = self.current, name
+        try:
+            yield
+        finally:
+            self.current = prev
+
+
+def collective_bytes(run: Callable[[], Any], phases: Optional[Phases] = None
+                     ) -> Tuple[Any, Dict[str, Any]]:
     """Run ``run()`` and count the collectives it issues on this rank →
     (its result, {"total": bytes, "count": n, kind: bytes, …}), the kinds
     named as the reference's (``all-reduce``, ``all-gather``,
-    ``reduce-scatter``, ``all-to-all``, ``broadcast``)."""
+    ``reduce-scatter``, ``all-to-all``, ``broadcast``).  With ``phases``
+    (which ``run`` switches), the same counts by phase under
+    ``"by_phase"`` as well."""
     from torch.distributed.tensor import DTensor
     from torch.distributed.tensor.debug import CommDebugMode
 
-    out: Dict[str, int] = {"total": 0, "count": 0}
+    out: Dict[str, Any] = {"total": 0, "count": 0}
+    by_phase: Dict[str, Dict[str, int]] = {}
 
     class _Bytes(CommDebugMode):
         # CommDebugMode lets DTensor desugar first (it returns
@@ -68,9 +90,13 @@ def collective_bytes(run: Callable[[], Any]) -> Tuple[Any, Dict[str, int]]:
                            if isinstance(a, (torch.Tensor, list, tuple))]
                 i = 1 if name in _OUTPUT_FIRST and len(tensors) > 1 else 0
                 n = _nbytes(tensors[i]) if tensors else 0
-                out[_KINDS[name]] = out.get(_KINDS[name], 0) + n
-                out["total"] += n
-                out["count"] += 1
+                counts = [out] if phases is None else [
+                    out, by_phase.setdefault(phases.current,
+                                             {"total": 0, "count": 0})]
+                for c in counts:
+                    c[_KINDS[name]] = c.get(_KINDS[name], 0) + n
+                    c["total"] += n
+                    c["count"] += 1
             return super().__torch_dispatch__(func, types, args, kwargs)
 
     with _Bytes() as comm:
@@ -80,4 +106,6 @@ def collective_bytes(run: Callable[[], Any]) -> Tuple[Any, Dict[str, int]]:
         raise AssertionError(f"collective_bytes: CommDebugMode counted "
                              f"{counted} collectives, the byte count "
                              f"{out['count']}")
+    if phases is not None:
+        out["by_phase"] = by_phase
     return result, out

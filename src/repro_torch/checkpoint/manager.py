@@ -21,6 +21,15 @@ with ``"bfloat16"`` in the manifest, as the reference stores an
 ``CheckpointManager`` keeps the last k steps and can write on a worker
 thread: ``save`` copies the tree to host memory first, so the caller may
 go on changing its tensors while the disk is written.
+
+A sharded tree (DTensor leaves on a mesh of ranks, ``launch.sharded``) is
+saved by every rank of the mesh together: one leaf at a time is gathered
+whole into the mesh's first rank's host memory (:func:`gather_to_first`),
+which writes the checkpoint, in the same format, synchronously; a barrier
+ends the save, so that every rank may read it at once.  ``load_checkpoint`` and
+``restore_latest`` take the layouts of any mesh (``mesh`` and a tree of
+placements, as the reference takes ``shardings``): each rank reads every
+leaf and keeps its own shard.
 """
 
 from __future__ import annotations
@@ -150,9 +159,12 @@ def save_checkpoint(tree: PyTree, directory: "str | Path", step: int, *,
             lo, hi = int(bounds[i]), int(bounds[i + 1])
             part = arr[lo:hi] if arr.ndim else arr
             fn = f"{safe}.{i}.npy"
-            with open(tmp / fn, "wb") as f:
-                np.save(f, part)
-            crc = zlib.crc32((tmp / fn).read_bytes())
+            buf = io.BytesIO()     # the file's bytes, checksummed in memory
+            np.save(buf, part)
+            data = buf.getbuffer()
+            (tmp / fn).write_bytes(data)
+            crc = zlib.crc32(data)
+            del data, buf
             chunk_recs.append({"start": lo, "stop": hi, "file": fn,
                                "crc32": crc})
         manifest["leaves"][name] = {
@@ -167,20 +179,72 @@ def save_checkpoint(tree: PyTree, directory: "str | Path", step: int, *,
     return final
 
 
+def _layouts(tree_like: PyTree, placements: PyTree) -> Dict[str, Any]:
+    """The node of ``placements`` at each leaf of ``tree_like``, by leaf
+    name: ``placements`` has ``tree_like``'s structure down to its leaves,
+    where it holds a sequence of DTensor placements (or None)."""
+    out: Dict[str, Any] = {}
+
+    def child(node, name):
+        if node is None:
+            return None
+        if isinstance(node, dict):
+            return next(v for k, v in node.items() if str(k) == name)
+        if isinstance(node, (list, tuple)) and not _is_namedtuple(node):
+            return node[int(name)]
+        return getattr(node, name)
+
+    def walk(tree, node, path):
+        if tree is None:
+            return
+        kids = _children(tree)
+        if kids is None:
+            out[_SEP.join(path) or "leaf"] = node
+            return
+        for name, sub in kids:
+            walk(sub, child(node, name), path + (name,))
+
+    walk(tree_like, placements, ())
+    return out
+
+
+def _placed(t: torch.Tensor, mesh, pl) -> torch.Tensor:
+    """This rank's shard of the whole leaf ``t`` (host memory) under
+    placements ``pl`` on ``mesh``, as a DTensor on the mesh's device."""
+    from torch.distributed.tensor import DTensor
+
+    from ..models.layers import local_chunk
+    dev = torch.device(mesh.device_type, torch.cuda.current_device()) \
+        if mesh.device_type == "cuda" else torch.device(mesh.device_type)
+    local = local_chunk(t, mesh, pl).to(dev, copy=True).contiguous()
+    return DTensor.from_local(local, mesh, tuple(pl), run_check=False)
+
+
 def load_checkpoint(tree_like: PyTree, directory: "str | Path", step: int, *,
-                    device=None, verify_crc: bool = True
-                    ) -> Tuple[PyTree, Dict]:
+                    device=None, mesh=None, placements: PyTree = None,
+                    verify_crc: bool = True) -> Tuple[PyTree, Dict]:
     """Restore into the structure of ``tree_like``; returns (tree, meta).
+    Only the leaves ``tree_like`` names are read (a part of a train
+    state, say ``{"opt": {"mu": …}}``); one it names that the checkpoint
+    lacks raises ``KeyError``.
 
     Each leaf comes back as a tensor on ``device``, or, when ``device`` is
     None, on the device of the tree_like leaf it replaces (the CPU for a
-    leaf that is not a tensor)."""
+    leaf that is not a tensor).  With ``mesh`` (a ``DeviceMesh``) and
+    ``placements`` (``tree_like``'s structure with each leaf's DTensor
+    placements on that mesh, or None for a leaf that stays a tensor on
+    ``device``), every rank of the mesh calls it, and each leaf comes back
+    as a DTensor of which the rank holds its shard alone: the reference's
+    ``shardings``, onto any mesh."""
     d = Path(directory) / f"step_{step:010d}"
     manifest = json.loads((d / "manifest.json").read_text())
     assert manifest.get("complete"), f"incomplete checkpoint {d}"
     like = dict(_flatten_with_paths(tree_like))
+    layouts = _layouts(tree_like, placements) if mesh is not None else {}
     out: Dict[str, Any] = {}
     for name, rec in manifest["leaves"].items():
+        if name not in like:    # a leaf tree_like does not ask for
+            continue
         parts = []
         for c in rec["chunks"]:
             raw = (d / c["file"]).read_bytes()
@@ -189,6 +253,9 @@ def load_checkpoint(tree_like: PyTree, directory: "str | Path", step: int, *,
             parts.append(np.load(io.BytesIO(raw)))
         arr = np.concatenate(parts, axis=0) if len(parts) > 1 else parts[0]
         t = _decode(arr.reshape(rec["shape"]), rec["dtype"])
+        if layouts.get(name) is not None:
+            out[name] = _placed(t, mesh, layouts[name])
+            continue
         target = device if device is not None else (
             like[name].device if isinstance(like.get(name), torch.Tensor)
             else None)
@@ -221,12 +288,65 @@ def latest_step(directory: "str | Path") -> Optional[int]:
     return max(steps) if steps else None
 
 
-def _to_host(tree: PyTree) -> PyTree:
-    """A copy of ``tree`` whose tensors live in host memory."""
-    values = {name: leaf.detach().to("cpu", copy=True)
-              if isinstance(leaf, torch.Tensor) else np.array(leaf)
-              for name, leaf in _flatten_with_paths(tree)}
-    return _rebuild(tree, values)
+def _mesh_of(tree: PyTree):
+    """The ``DeviceMesh`` of the tree's first DTensor leaf, or None."""
+    from torch.distributed.tensor import DTensor
+    return next((leaf.device_mesh for _, leaf in _flatten_with_paths(tree)
+                 if isinstance(leaf, DTensor)), None)
+
+
+def gather_to_first(x) -> Optional[torch.Tensor]:
+    """The DTensor ``x`` gathered whole into host memory on its mesh's
+    first rank (mesh coordinate 0 …; None on the others, which every rank
+    of the mesh calls with it): each rank sends its local shard there
+    (``dist.gather``, host tensors on gloo), which places it by the
+    rank's coordinate, so only the first rank receives.  The mesh spans
+    the world, and ``x`` holds no partial sums."""
+    import torch.distributed as dist
+
+    from ..models.layers import local_chunk
+    mesh = x.device_mesh
+    if any(p.is_partial() for p in x.placements):
+        raise ValueError(f"gather_to_first: partial placements {x.placements}")
+    ranks = mesh.mesh.flatten().tolist()
+    if len(ranks) != dist.get_world_size():
+        raise ValueError(f"gather_to_first: a mesh of {len(ranks)} ranks in "
+                         f"a world of {dist.get_world_size()}")
+    local = x.to_local().detach()
+    if dist.get_backend() == "gloo":
+        local = local.to("cpu", copy=True)
+    local = local.contiguous()
+    first = ranks[0]
+    if dist.get_rank() != first:
+        dist.gather(local, dst=first)
+        return None
+    parts = [torch.empty_like(local) for _ in ranks]
+    dist.gather(local, gather_list=parts, dst=first)
+    full = torch.empty(x.shape, dtype=x.dtype)
+    for r, part in zip(ranks, parts):
+        coord = (mesh.mesh == r).nonzero()[0].tolist()
+        local_chunk(full, mesh, x.placements, coord).copy_(part)
+    return full
+
+
+def _to_host(tree: PyTree, keep: bool = True) -> Optional[PyTree]:
+    """A copy of ``tree`` whose tensors live in host memory.  A DTensor
+    leaf is gathered whole into the mesh's first rank first, one leaf at
+    a time (every rank of its mesh calls this, :func:`gather_to_first`);
+    with ``keep`` False (the other ranks) None comes back."""
+    from torch.distributed.tensor import DTensor
+    values = {}
+    for name, leaf in _flatten_with_paths(tree):
+        if isinstance(leaf, DTensor):
+            value = gather_to_first(leaf)      # a fresh tensor in host memory
+        elif isinstance(leaf, torch.Tensor):
+            value = leaf.detach().to("cpu", copy=True)
+        else:
+            value = np.array(leaf)
+        if keep:
+            values[name] = value
+        del value
+    return _rebuild(tree, values) if keep else None
 
 
 class CheckpointManager:
@@ -252,6 +372,10 @@ class CheckpointManager:
     def save(self, tree: PyTree, step: int, meta: Optional[Dict] = None
              ) -> None:
         self.wait()  # one in-flight save at a time
+        mesh = _mesh_of(tree)
+        if mesh is not None:
+            self._save_sharded(tree, step, meta, mesh)
+            return
         snap = _to_host(tree)
 
         def work():
@@ -271,12 +395,30 @@ class CheckpointManager:
                 err, self._error = self._error, None
                 raise err
 
-    def restore_latest(self, tree_like: PyTree, device=None):
+    def _save_sharded(self, tree: PyTree, step: int, meta, mesh) -> None:
+        """A tree of DTensors: gathered leaf by leaf on every rank of the
+        mesh, written by its first rank, then a barrier."""
+        import torch.distributed as dist
+        writer = all(c == 0 for c in mesh.get_coordinate())
+        snap = _to_host(tree, keep=writer)
+        if writer:
+            save_checkpoint(snap, self.directory, step, meta=meta,
+                            chunks=self.chunks)
+            self._prune()
+        del snap
+        dist.barrier()
+
+    def restore_latest(self, tree_like: PyTree, device=None, *, mesh=None,
+                       placements: PyTree = None):
+        """(step, tree, meta) of the latest complete checkpoint (see
+        :func:`load_checkpoint` for ``device``, ``mesh`` and
+        ``placements``), or None."""
         step = latest_step(self.directory)
         if step is None:
             return None
         tree, meta = load_checkpoint(tree_like, self.directory, step,
-                                     device=device)
+                                     device=device, mesh=mesh,
+                                     placements=placements)
         return step, tree, meta
 
     def _prune(self) -> None:

@@ -379,6 +379,15 @@ def staged_collectives():
         yield
 
 
+def staged_if_shared():
+    """:func:`staged_collectives` where DTensor's collectives would carry
+    CUDA tensors over gloo (ranks sharing a card), else a null context."""
+    if torch.cuda.is_available() and dist.is_initialized() and \
+            dist.get_backend() == "gloo":
+        return staged_collectives()
+    return contextlib.nullcontext()
+
+
 def broadcast(t: torch.Tensor, src: int, pg=None) -> None:
     """``t`` from group rank ``src`` to every rank of ``pg``, in place; on
     gloo a CUDA tensor goes through a host copy."""

@@ -20,16 +20,21 @@ MODEL_FLOPS / devices) and the dominant term; the lines also go to
 counts are closed forms, not a compiler's count of each scan body once, so
 no layer differencing is needed.
 
-``--execute`` runs one serving cell's sharded step for real instead
-(``launch.sharded.serve_rank``: weights and inputs from seed 0, a prefill
+``--execute`` runs one cell's sharded step for real instead, on W =
+mesh-size gloo ranks started by ``launch.spawn.spawn_workers``: on the
+card by default, or with ``--device cpu``.  A serving cell runs
+``launch.sharded.serve_rank`` (weights and inputs from seed 0, a prefill
 cell's batch, in ``data.family_batch``'s layout with vlm's patches or
 encdec's frames, prefilled after one untimed warm-up, a decode cell's one
-step at its last slot) on W = mesh-size gloo ranks started by
-``launch.spawn.spawn_workers``: on the card by default, or with
-``--device cpu``; it adds the wall time of the step, each rank's weight
-bytes and peak memory, and the collectives by kind
-(``analysis.comms``).  Every family of the zoo runs; a train cell is
-refused (sharded training is ROADMAP queue 1).
+step at its last slot), and every family of the zoo runs.  A train cell
+of the dense family runs ``launch.sharded.train_rank``: weights and a
+batch with labels from seed 0, the config's ``grad_accum``
+micro-batches, one untimed warm step and then the timed step.  It adds
+the wall time of the step, each rank's weight bytes (and for a train
+cell its gradient and optimizer-state bytes, the loss and the grad norm)
+and peak memory, and the collectives by kind (``analysis.comms``; a
+train cell's split into forward, backward and optimizer).  A train cell
+of another family is refused (ROADMAP queue 1, item 15b).
 """
 
 from __future__ import annotations
@@ -106,23 +111,27 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, opt: bool = False,
     return rec
 
 
+TRAIN_FAMILIES = ("dense",)   # sharded training; the others: ROADMAP 15b
+
+
 def execute(arch: str, shape_name: str, mesh: str, device=None,
             overrides: Optional[dict] = None) -> dict:
-    """One cell's sharded serving step run on W ranks (see the
-    docstring): a prefill cell prefills its (batch, seq) prompts, a decode
-    cell decodes one step at the last of its seq slots.  ``overrides``
-    replaces fields of the config (a depth cut), under the policy of the
-    config as registered (a cut would lower ``param_count`` and flip
-    ``default_flags``)."""
+    """One cell's sharded step run on W ranks (see the docstring): a
+    prefill cell prefills its (batch, seq) prompts, a decode cell decodes
+    one step at the last of its seq slots, a train cell takes a warm step
+    and a timed one.  ``overrides`` replaces fields of the config (a depth
+    cut), under the policy of the config as registered (a cut would lower
+    ``param_count`` and flip ``default_flags``)."""
     import numpy as np
     import torch
 
     from ..data import family_batch
     from ..device import resolve_device
     from ..models import SHAPES, cell_is_applicable, resolve_config
-    from .sharded import serve_rank
+    from .sharded import serve_rank, train_rank
     from .sharding import default_flags
     from .spawn import spawn_workers
+    from .specs import microbatched
 
     dev = resolve_device(device)               # raises without a card
     cfg = resolve_config(arch)
@@ -131,13 +140,41 @@ def execute(arch: str, shape_name: str, mesh: str, device=None,
     ok, why = cell_is_applicable(cfg, shape)
     if not ok:
         raise ValueError(f"{arch} × {shape_name}: {why}")
-    if shape.kind not in ("prefill", "decode"):
-        raise ValueError(f"--execute runs the serving cells, not {shape.kind} "
-                         f"(sharded training is ROADMAP queue 1)")
+    if shape.kind == "train" and cfg.family not in TRAIN_FAMILIES:
+        raise ValueError(f"--execute trains the {', '.join(TRAIN_FAMILIES)} "
+                         f"family on a mesh, not {cfg.family} ({arch}): "
+                         f"ROADMAP queue 1, item 15b")
     dims = tuple(int(n) for n in mesh.split("x"))
     axes = ("data", "model") if len(dims) == 2 else ("pod", "data", "model")
     world = int(np.prod(dims))
     B, S = shape.global_batch, shape.seq_len
+    device_name = torch.cuda.get_device_name(0) if dev.type == "cuda" else "cpu"
+    if shape.kind == "train":
+        n_micro, mb = microbatched(shape, cfg.grad_accum)
+        batch = family_batch(cfg, B, S, torch.Generator().manual_seed(SEED),
+                             train=True)
+        batch = {k: (v.float() if v.is_floating_point() else v).numpy()
+                 .reshape((n_micro, mb) + tuple(v.shape[1:]))
+                 for k, v in batch.items()}
+        t0 = time.time()
+        ranks = spawn_workers(train_rank, world, backend="gloo",
+                              device=dev.type,
+                              args=(arch, dims, axes, [batch, batch], flags,
+                                    SEED, None, None, overrides),
+                              timeout=TIMEOUT_S)
+        rec = {"arch": arch, "shape": shape_name, "mesh": mesh,
+               "world": world, "backend": "gloo", "device": dev.type,
+               "device_name": device_name, "micro_batches": [n_micro, mb],
+               "spawn_and_run_s": time.time() - t0,
+               "loss": ranks[0]["steps"][-1]["loss"],
+               "grad_norm": ranks[0]["steps"][-1]["grad_norm"],
+               "ranks": [{**{k: v for k, v in r.items() if k != "steps"},
+                          "warm_wall_s": r["steps"][0]["wall_s"],
+                          "wall_s": r["steps"][-1]["wall_s"],
+                          "collectives": r["steps"][-1]["collectives"]}
+                         for r in ranks]}
+        print(json.dumps(rec, default=str), flush=True)
+        return rec
     if shape.kind == "decode":
         rng = np.random.default_rng(SEED)
         prompts, dec, start = None, rng.integers(0, cfg.vocab, (B, 1)), S - 1
@@ -151,9 +188,7 @@ def execute(arch: str, shape_name: str, mesh: str, device=None,
                                 prompts, dec, S, True, start, overrides),
                           timeout=TIMEOUT_S)
     rec = {"arch": arch, "shape": shape_name, "mesh": mesh, "world": world,
-           "backend": "gloo", "device": dev.type,
-           "device_name": torch.cuda.get_device_name(0)
-           if dev.type == "cuda" else "cpu",
+           "backend": "gloo", "device": dev.type, "device_name": device_name,
            "spawn_and_run_s": time.time() - t0,
            "ranks": [{k: v for k, v in r.items() if not k.endswith("_logits")}
                      for r in ranks]}
@@ -174,7 +209,7 @@ def main(argv=None) -> int:
                     help="apply the --opt policy of the arch")
     ap.add_argument("--out", type=Path, default=OUT)
     ap.add_argument("--execute", action="store_true",
-                    help="run one cell's sharded serving steps on ranks")
+                    help="run one cell's sharded step on ranks")
     ap.add_argument("--mesh", default="2x2",
                     help="--execute: the mesh, e.g. 2x2, 1x4, 2x2x2")
     ap.add_argument("--device", default=None,

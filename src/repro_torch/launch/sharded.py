@@ -1,7 +1,8 @@
-"""Sharded serving on a mesh of ranks: the model's parameters, the cache
-and the batch as DTensors laid out by the sharding rules, and the serving
-steps run on them.  The counterpart of the reference running the step that
-its dry run lowers with ``in_shardings`` (``launch/dryrun.py``).
+"""Sharded serving and training on a mesh of ranks: the model's
+parameters, the cache, the AdamW moments and the batch as DTensors laid
+out by the sharding rules, and the steps run on them.  The counterpart of
+the reference running the step that its dry run lowers with
+``in_shardings`` (``launch/dryrun.py``).
 
     mesh = device_mesh(make_mesh((2, 2), ("data", "model")))   # 4 ranks
     rules = build_rules(cfg, mesh)
@@ -32,14 +33,27 @@ its dry run lowers with ``in_shardings`` (``launch/dryrun.py``).
   ``launch.specs`` says, and the encoder's and the cross attention run on
   each rank's heads.
 
-:func:`serve_rank` is one rank of a sharded serving run (spawned by
-``launch.spawn.spawn_workers`` or a ``RankPool``): build, prefill, decode,
-and report.
+- Training (the dense family): the model opts into gradients
+  (``model.requires_grad_(True)``), :func:`shard_opt_state` lays the f32
+  moments out by ``launch.specs.opt_rules`` (ZeRO-1: ``embed`` over the
+  data axes), :func:`place_batch` splits each micro-batch over the data
+  axes, and ``sharded_step(model, "train")`` runs ``make_train_step``
+  with autograd on (:func:`on_mesh` with ``grad``): the backward's
+  collectives are DTensor's, the gradients stay in the layout the
+  backward gives them (partial sums over the data axes) until
+  ``optim.adamw`` moves each to its moment's layout.
+
+:func:`serve_rank` is one rank of a sharded serving run and
+:func:`train_rank` one of a sharded training run (spawned by
+``launch.spawn.spawn_workers`` or a ``RankPool``): build, run the steps,
+report; :func:`train_rank` also checkpoints the sharded train state and
+restores it onto its mesh's layouts.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import logging
 import time
 from typing import Callable, Dict, Optional, Sequence
@@ -120,14 +134,18 @@ def shard_model(model: Model, rules: ShardingRules, mesh,
 def place_batch(model: Model, mesh, batch: Dict[str, torch.Tensor],
                 kind: str) -> Dict[str, torch.Tensor]:
     """A batch (every rank holding the whole of it) as DTensors, laid out
-    as ``launch.specs`` lays out the step's batch."""
+    as ``launch.specs`` lays out the step's batch; a train batch of
+    (n_micro, mb, …) leaves keeps n_micro replicated and splits mb."""
     from ..models.config import ShapeConfig
-    B = batch["tokens"].shape[0]
-    S = 1 if kind == "decode" else batch["tokens"].shape[-1] + (
+    tokens = batch["tokens"]
+    micro = kind == "train" and tokens.dim() == 3
+    B = tokens.shape[0] * (tokens.shape[1] if micro else 1)
+    S = 1 if kind == "decode" else tokens.shape[-1] + (
         model.cfg.n_patches if model.cfg.family == "vlm" else 0)
     shape = ShapeConfig("run", S, B, kind)
     lay = batch_shardings(model.cfg, shape, mesh, model.rules,
-                          batch_struct(model.cfg, shape))
+                          batch_struct(model.cfg, shape,
+                                       tokens.shape[0] if micro else 1))
     return {k: distribute(v, mesh, lay[k].placements) for k, v in batch.items()}
 
 
@@ -151,33 +169,69 @@ def make_cache(model: Model, mesh, batch_size: int, capacity: int) -> dict:
     return out
 
 
-def on_mesh(fn: Callable) -> Callable:
-    """``fn`` run on DTensors: no autograd, plain tensors made inside it
-    (positions, masks) taken as replicated, and, for gloo ranks sharing a
-    card, the collectives gloo refuses on CUDA tensors staged through the
-    host (``core.distributed.staged_collectives``)."""
-    import contextlib
-
-    import torch.distributed as dist
+def on_mesh(fn: Callable, grad: bool = False) -> Callable:
+    """``fn`` run on DTensors: no autograd (with ``grad``, autograd on: a
+    train step), plain tensors made inside it (positions, masks) taken as
+    replicated, and, for gloo ranks sharing a card, the collectives gloo
+    refuses on CUDA tensors staged through the host
+    (``core.distributed.staged_collectives``).  The staging is a dispatch
+    mode, which the autograd engine carries into the backward it runs on
+    the card's own thread, so the backward's collectives are staged too."""
     from torch.distributed.tensor.experimental import implicit_replication
 
-    from ..core.distributed import staged_collectives
+    from ..core.distributed import staged_if_shared
 
+    @functools.wraps(fn)
     def run(*args, **kwargs):
-        staged = staged_collectives() if torch.cuda.is_available() and \
-            dist.get_backend() == "gloo" else contextlib.nullcontext()
-        with torch.no_grad(), implicit_replication(), staged:
+        with torch.set_grad_enabled(grad), implicit_replication(), \
+                staged_if_shared():
             return fn(*args, **kwargs)
     return run
 
 
-def sharded_step(model: Model, kind: str) -> Callable:
-    """``launch.steps.step_for(model, kind)`` ("prefill" or "decode") on a
-    model placed by :func:`shard_model`, for DTensor inputs placed by
-    :func:`place_batch` and :func:`make_cache`."""
-    from .steps import step_for
+def shard_opt_state(model: Model, rules: ShardingRules, mesh, flags=None):
+    """Zero AdamW moments (f32) for the parameters of a model placed by
+    :func:`shard_model`, as DTensors in ``launch.specs.opt_rules``'
+    layout (ZeRO-1 with ``flags.zero1``: the ``embed`` dim over the data
+    axes even where the weights do not split it); each rank allocates its
+    shard alone.  The step is a plain int32 0 on every rank."""
+    from torch.distributed.tensor import DTensor
+
+    from ..optim.adamw import AdamWState
+    from .sharding import default_flags
+    from .specs import opt_rules
+    orules = opt_rules(rules, mesh, flags or default_flags(model.cfg))
+    defs = model.param_defs()
+    dev = _device(mesh)
+
+    def zeros():
+        out = {}
+        for name, p in model.named_parameters():
+            pl = placements(orules.spec_for(defs[name]), mesh)
+            full = torch.empty(p.shape, dtype=torch.float32, device="meta")
+            local = torch.zeros(local_chunk(full, mesh, pl).shape,
+                                dtype=torch.float32, device=dev)
+            out[name] = DTensor.from_local(local, mesh, pl, run_check=False)
+        return out
+
+    return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
+                      mu=zeros(), nu=zeros())
+
+
+def sharded_step(model: Model, kind: str,
+                 phase: Optional[Callable] = None) -> Callable:
+    """``launch.steps.step_for(model, kind)`` on a model placed by
+    :func:`shard_model`: "prefill" or "decode" for DTensor inputs placed
+    by :func:`place_batch` and :func:`make_cache`, or "train"
+    (``make_train_step(model, phase=phase)``, the model opted into
+    gradients) for a train batch placed by :func:`place_batch` and the
+    moments of :func:`shard_opt_state`."""
+    from .steps import make_train_step, step_for
+    if kind == "train":
+        return on_mesh(make_train_step(model, phase=phase), grad=True)
     if kind not in ("prefill", "decode"):
-        raise ValueError(f"sharded_step serves 'prefill' or 'decode', not {kind!r}")
+        raise ValueError(f"sharded_step runs 'train', 'prefill' or 'decode', "
+                         f"not {kind!r}")
     return on_mesh(step_for(model, kind))
 
 
@@ -207,34 +261,15 @@ def serve_rank(group, arch: str, mesh_shape, axes, flags=None, seed=0,
     bytes, peak memory (on the card), collectives by kind a step, and the
     messages it staged through the host."""
     from ..analysis.comms import collective_bytes
-    from ..convert import model_params_from_numpy
     from ..core import distributed
-    from .mesh import device_mesh, make_mesh
-    from .sharding import PolicyFlags, build_rules
 
-    cfg = resolve_config(arch)
-    if overrides:
-        cfg = dataclasses.replace(cfg, **overrides)
-    # DTensor logs a warning at every redistribution of a value partial over
-    # both mesh dims (FSDP's contractions), one line a call on every rank
-    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(
-        logging.ERROR)
     dev = group.device
-    mesh = device_mesh(make_mesh(mesh_shape, axes), device=dev)
-    rules = build_rules(cfg, mesh, PolicyFlags(**flags) if flags else None)
     cuda = dev.type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats()
-    model = Model(cfg, device="meta")
-    if tree is not None:
-        model.load_state_dict(model_params_from_numpy(cfg, tree, "cpu"),
-                              assign=True)
-    if dtype is not None:
-        model = model.to(getattr(torch, dtype))
-    shard_model(model, rules, mesh, seed=None if tree is not None else seed)
-    weight_bytes = sum(p.to_local().numel() * p.element_size()
-                       for p in model.parameters())
-    out = {"rank": group.rank, "weight_bytes": weight_bytes,
+    cfg, mesh, _, _, model = _build(group, arch, mesh_shape, axes, flags,
+                                    seed, tree, dtype, overrides)
+    out = {"rank": group.rank, "weight_bytes": _local_bytes(model.parameters()),
            "mesh": list(mesh_shape), "flags": flags or "default"}
     staged = distributed.host_staged
 
@@ -291,6 +326,188 @@ def serve_rank(group, arch: str, mesh_shape, axes, flags=None, seed=0,
     if cuda:
         out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
     return out
+
+
+def _build(group, arch, mesh_shape, axes, flags, seed, tree, dtype,
+           overrides):
+    """(cfg, mesh, rules, policy flags, model placed by :func:`shard_model`)
+    for a rank entry: ``arch`` with ``overrides``, weights from ``seed``
+    or the reference tree ``tree``, cast to ``dtype``."""
+    from ..convert import model_params_from_numpy
+    from .mesh import device_mesh, make_mesh
+    from .sharding import PolicyFlags, build_rules, default_flags
+
+    cfg = resolve_config(arch)
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
+    # DTensor logs a warning at every redistribution of a value partial over
+    # both mesh dims (FSDP's contractions), one line a call on every rank
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(
+        logging.ERROR)
+    mesh = device_mesh(make_mesh(mesh_shape, axes), device=group.device)
+    policy = PolicyFlags(**flags) if flags else default_flags(cfg)
+    rules = build_rules(cfg, mesh, policy)
+    model = Model(cfg, device="meta")
+    if tree is not None:
+        model.load_state_dict(model_params_from_numpy(cfg, tree, "cpu"),
+                              assign=True)
+    if dtype is not None:
+        model = model.to(getattr(torch, dtype))
+    shard_model(model, rules, mesh, seed=None if tree is not None else seed)
+    return cfg, mesh, rules, policy, model
+
+
+def _local_bytes(tensors) -> int:
+    from torch.distributed.tensor import DTensor
+    return sum((t.to_local() if isinstance(t, DTensor) else t).numel()
+               * t.element_size() for t in tensors)
+
+
+def _train_layouts(model: Model, opt_state) -> dict:
+    """The placements of a sharded train state ``{"params", "opt"}`` (the
+    tree :func:`train_rank` checkpoints), for ``checkpoint.load_checkpoint``
+    and ``serve.elastic.elastic_restore`` onto the state's mesh."""
+    from ..optim.adamw import AdamWState
+    return {"params": {k: tuple(p.placements)
+                       for k, p in model.named_parameters()},
+            "opt": AdamWState(step=None,
+                              mu={k: tuple(m.placements)
+                                  for k, m in opt_state.mu.items()},
+                              nu={k: tuple(v.placements)
+                                  for k, v in opt_state.nu.items()})}
+
+
+def train_rank(group, arch: str, mesh_shape, axes, batches, flags=None,
+               seed: int = 0, tree=None, dtype=None,
+               overrides: Optional[dict] = None, gather: Sequence[str] = (),
+               save_dir=None, restore_dir=None,
+               check_restore: bool = False) -> dict:
+    """One rank of a sharded training run over the current process group:
+    ``arch`` (with ``overrides``) on the mesh ``mesh_shape``/``axes`` under
+    the policy ``flags`` (default: the config's), weights from ``seed`` (or
+    the reference tree ``tree``, every rank holding all of it) cast to
+    ``dtype``, opted into gradients; AdamW moments by
+    :func:`shard_opt_state` (ZeRO-1 with ``flags``' ``zero1``); one train
+    step (``sharded_step(model, "train")``, AdamW's defaults) per entry of
+    ``batches`` (dicts of numpy arrays with labels, (n_micro, mb, …) or
+    (B, …), every rank holding all of it), placed by :func:`place_batch`.
+
+    With ``restore_dir`` the train state is first restored from its
+    latest checkpoint onto this mesh's layouts (``elastic_restore``); with
+    ``save_dir`` it is saved there after the first step (a checkpoint of
+    ``{"params": {name: …}, "opt": AdamWState}``, meta ``{"step"}``);
+    with ``check_restore`` the first rank then restores that checkpoint
+    onto one process (its host memory, no mesh) and holds every leaf
+    ``torch.equal`` to the one gathered from the mesh.
+
+    → rank 0: each step's loss, grad norm and step count, the parameters
+    and moments of ``gather`` ("params", "mu", "nu") gathered whole (numpy,
+    f32) after the last step, the restore check's result; every rank: its
+    build, save and restore-check seconds, its wall per step, its bytes of
+    weights, f32 gradient accumulators and optimizer state (mu, nu and the
+    step, as ``launch.specs.argument_bytes`` counts ``opt_state``), its
+    peak memory (on the card),
+    its collectives by kind a step, split into forward, backward and
+    optimizer, and the messages it staged through the host."""
+    from ..analysis.comms import Phases, collective_bytes
+    from ..checkpoint import CheckpointManager
+    from ..core import distributed
+    from ..serve.elastic import elastic_restore
+
+    dev = group.device
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, mesh, rules, policy, model = _build(group, arch, mesh_shape, axes,
+                                             flags, seed, tree, dtype,
+                                             overrides)
+    model.requires_grad_(True)
+    state = shard_opt_state(model, rules, mesh, policy)
+    params = dict(model.named_parameters())
+    if restore_dir is not None:
+        got = elastic_restore(CheckpointManager(restore_dir),
+                              {"params": params, "opt": state},
+                              mesh=mesh, placements=_train_layouts(
+                                  model, state))
+        if got is None:
+            raise FileNotFoundError(f"no checkpoint in {restore_dir}")
+        _, restored, _ = got
+        with torch.no_grad():
+            for k, p in params.items():
+                p.to_local().copy_(restored["params"][k].to_local())
+        state = restored["opt"]
+    phases = Phases()
+    step = sharded_step(model, "train", phases)
+    out = {"rank": group.rank, "mesh": list(mesh_shape),
+           "flags": dataclasses.asdict(policy),
+           "build_s": time.perf_counter() - t0,
+           "weight_bytes": _local_bytes(params.values()),
+           "opt_state_bytes": _local_bytes([state.step, *state.mu.values(),
+                                            *state.nu.values()]),
+           "steps": []}
+    staged = distributed.host_staged
+    for i, b in enumerate(batches):
+        batch = place_batch(model, mesh, {
+            k: torch.as_tensor(v).to(dev) for k, v in b.items()}, "train")
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (state, m), coll = collective_bytes(lambda: step(state, batch), phases)
+        if cuda:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out["steps"].append({"wall_s": wall, "loss": float(m["loss"]),
+                             "grad_norm": float(m["grad_norm"]),
+                             "step": int(m["step"]), "collectives": coll})
+        out["grad_bytes"] = step.stats["grad_bytes"]
+        if save_dir is not None and i == 0:
+            train = {"params": params, "opt": state}
+            t0 = time.perf_counter()
+            CheckpointManager(save_dir, async_write=False).save(
+                train, int(m["step"]), meta={"step": int(m["step"])})
+            out["save_s"] = time.perf_counter() - t0
+            if check_restore:
+                t0 = time.perf_counter()
+                out["restore_equal"] = _check_restore(group, save_dir, train)
+                out["restore_check_s"] = time.perf_counter() - t0
+    for name in gather:
+        leaves = params if name == "params" else getattr(state, name)
+        full = {k: _full(x) for k, x in leaves.items()}
+        if group.rank == 0:
+            out[name] = full
+    out["host_staged_messages"] = distributed.host_staged - staged
+    if cuda:
+        out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def _check_restore(group, directory, train) -> Optional[dict]:
+    """The latest checkpoint in ``directory`` restored onto one process
+    (the first rank's, in host memory), each leaf against the sharded
+    ``train`` leaf gathered whole into it (every rank takes part) → on the
+    first rank, {"equal": all leaves ``torch.equal``, "leaves": n,
+    "differ": names}; None on the others."""
+    from torch.distributed.tensor import DTensor
+
+    from ..checkpoint import CheckpointManager
+    from ..checkpoint.manager import _flatten_with_paths, gather_to_first
+    from ..serve.elastic import elastic_restore
+    first = group.rank == 0
+    restored = dict(_flatten_with_paths(elastic_restore(
+        CheckpointManager(directory), train, device="cpu")[1])) \
+        if first else None
+    differ, n = [], 0
+    for name, leaf in _flatten_with_paths(train):
+        if isinstance(leaf, DTensor):
+            leaf = gather_to_first(leaf)
+        if first:
+            n += 1
+            if not torch.equal(restored[name], leaf.cpu()):
+                differ.append(name)
+        del leaf
+    return {"equal": not differ, "leaves": n, "differ": differ} \
+        if first else None
 
 
 def gathered_params_rank(group, arch: str, mesh_shape, axes, seed: int) -> dict:

@@ -112,9 +112,12 @@ def _layout(rules: ShardingRules, mesh, shape_t, logical) -> Layout:
 def batch_shardings(cfg: ModelConfig, shape: ShapeConfig, mesh,
                     rules: ShardingRules,
                     structs: Dict[str, torch.Tensor]) -> Dict[str, Layout]:
+    """Each batch entry's layout: the batch dim over the data axes.  A
+    micro-batched train batch, (n_micro, mb, …) as ``batch_struct`` makes
+    it, keeps n_micro replicated and splits mb; the train step runs on
+    these layouts (``launch.sharded.place_batch``)."""
     logical_map = _DECODE_LOGICAL if shape.kind == "decode" else _BATCH_LOGICAL
-    micro = shape.kind == "train" and cfg.grad_accum > 1
-    # micro-batched: (n_micro, mb, …), n_micro replicated, mb the batch
+    micro = shape.kind == "train" and structs["tokens"].dim() == 3
     return {k: _layout(rules, mesh, v.shape,
                        ((None,) if micro else ()) + logical_map[k])
             for k, v in structs.items()}

@@ -9,6 +9,7 @@ gradients (``model.requires_grad_(True)``).
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, Optional
 
 import torch
@@ -17,17 +18,53 @@ from ..models import Model
 from ..optim.adamw import AdamWConfig, AdamWState, adamw_update
 
 
-def loss_and_grads(model: Model, params: Dict[str, torch.Tensor], batch):
+def loss_and_grads(model: Model, params: Dict[str, torch.Tensor], batch,
+                   phase: Optional[Callable] = None):
     """``model.train_loss(batch)`` and its gradients by parameter name, in
     the parameters' dtypes (``torch.autograd.grad``; no ``.grad`` is
-    set)."""
-    loss = model.train_loss(batch)
-    grads = torch.autograd.grad(loss, list(params.values()))
+    set).  ``phase(name)``, a context manager, marks the forward and the
+    backward (``analysis.comms.Phases``)."""
+    phase = phase or _no_phase
+    with phase("forward"):
+        loss = model.train_loss(batch)
+    with phase("backward"):
+        grads = torch.autograd.grad(loss, list(params.values()))
     return loss.detach(), dict(zip(params, grads))
 
 
-def make_train_step(model: Model, opt_cfg: Optional[AdamWConfig] = None
-                    ) -> Callable:
+def _no_phase(name: str):
+    return contextlib.nullcontext()
+
+
+def _f32_zeros(x: torch.Tensor) -> torch.Tensor:
+    """f32 zeros of ``x``'s shape in its layout: a DTensor's placements,
+    partial sums included (each rank allocating its local tensor alone)."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    return DTensor.from_local(
+        torch.zeros(x.to_local().shape, dtype=torch.float32, device=x.device),
+        x.device_mesh, x.placements, run_check=False, shape=x.shape,
+        stride=x.stride())
+
+
+def _local(x: torch.Tensor) -> torch.Tensor:
+    from torch.distributed.tensor import DTensor
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
+def _as_layout(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``x`` in ``like``'s placements, where both are DTensors (a later
+    micro-batch's gradient in the accumulator's layout; a no-op when they
+    agree, as they do for the same step)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(x, DTensor) and tuple(x.placements) != tuple(like.placements):
+        return x.redistribute(x.device_mesh, like.placements)
+    return x
+
+
+def make_train_step(model: Model, opt_cfg: Optional[AdamWConfig] = None,
+                    phase: Optional[Callable] = None) -> Callable:
     """train_step(opt_state, batch) → (opt_state, metrics).
 
     ``batch`` leaves are (B, …) or (n_micro, mb, …); micro-batches run in
@@ -35,34 +72,56 @@ def make_train_step(model: Model, opt_cfg: Optional[AdamWConfig] = None
     are divided by n_micro (``optim.adaptive_accumulate`` is the adaptive
     variant the training loop uses with ``--adaptive``).  Then one AdamW
     step.  metrics: ``loss``, ``grad_norm`` (pre-clip) and ``step``, as
-    0-d tensors on the model's device."""
+    0-d tensors on the model's device.
+
+    On a mesh (parameters and moments DTensors, ``launch.sharded``) the
+    same step runs on each rank's shards: a gradient comes in the layout
+    DTensor's backward gives it (partial sums over the data axes for a
+    weight the data ranks replicate), the f32 accumulators keep that
+    layout (no communication a micro-batch), and ``adamw_update`` moves
+    each to its moment's layout once a step.  The metrics are replicated:
+    plain tensors, equal on every rank.  ``phase(name)`` marks the
+    forward, the backward and the optimizer (``analysis.comms.Phases``);
+    the loss, a replicated DTensor, is returned as its local value.
+    ``train_step.stats["grad_bytes"]`` is the bytes of this process's
+    gradients (the f32 accumulators) in the last step."""
     opt_cfg = opt_cfg or AdamWConfig()
+    stats = {"grad_bytes": 0}
     params = dict(model.named_parameters())
+    phase = phase or _no_phase
 
     def train_step(opt_state: AdamWState, batch):
         tokens = batch["tokens"]
         if tokens.dim() == 3:  # (n_micro, mb, S): accumulate in f32
             n_micro = tokens.shape[0]
-            grads = {k: torch.zeros(p.shape, dtype=torch.float32,
-                                    device=p.device) for k, p in params.items()}
+            grads = None
             loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
             for i in range(n_micro):
                 lo, g = loss_and_grads(model, params,
-                                       {k: v[i] for k, v in batch.items()})
+                                       {k: v[i] for k, v in batch.items()},
+                                       phase)
+                if grads is None:   # in the gradients' layout
+                    grads = {k: _f32_zeros(x) for k, x in g.items()}
                 for k, x in g.items():
-                    grads[k].add_(x.float())
+                    _local(grads[k]).add_(_local(_as_layout(x, grads[k]))
+                                          .float())
                 del g
                 loss = loss + lo
             for x in grads.values():
-                x.div_(n_micro)
+                _local(x).div_(n_micro)
             loss = loss / n_micro
         else:
-            loss, grads = loss_and_grads(model, params, batch)
-        _, opt_state, gnorm = adamw_update(grads, opt_state, params, opt_cfg)
+            loss, grads = loss_and_grads(model, params, batch, phase)
+        stats["grad_bytes"] = sum(_local(x).numel() * x.element_size()
+                                  for x in grads.values())
+        with phase("optimizer"):
+            _, opt_state, gnorm = adamw_update(grads, opt_state, params,
+                                               opt_cfg)
         del grads
-        return opt_state, {"loss": loss, "grad_norm": gnorm,
+        return opt_state, {"loss": _local(loss), "grad_norm": gnorm,
                            "step": opt_state.step}
 
+    train_step.stats = stats
     return train_step
 
 

@@ -66,8 +66,15 @@ def local_heads(fn, q, k, v, head: int):
     qwen3-moe's 4 on 16, recurrentgemma's 1), the local call slices the kv
     heads its q heads read: q head h reads kv head h // (H/KV), so the
     local GQA groups stay whole.  A rank whose heads straddle two groups
-    raises (:func:`_kv_block`)."""
-    from torch.distributed.tensor import Replicate, Shard
+    raises (:func:`_kv_block`).
+
+    Under autograd the narrowed k/v's gradients differ by rank: each rank
+    holds the part its q heads give.  On each mesh dim where q's heads
+    are split and k/v replicated, their gradients are therefore partial
+    sums (``in_grad_placements``), which the backward of the redistribution
+    above reduces over that dim; labelling them replicated would keep one
+    rank's part and drop the others' with no error."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
     mesh = q.device_mesh
@@ -91,8 +98,11 @@ def local_heads(fn, q, k, v, head: int):
             kl, vl = kl.narrow(head, lo, count), vl.narrow(head, lo, count)
         return fn(ql, kl, vl)
 
+    kv_grad = tuple(Partial() if qp == Shard(head) and kp == Replicate()
+                    else kp for qp, kp in zip(q_pl, kv_pl))
     return local_map(local, out_placements=list(q_pl),
                      in_placements=(q_pl, kv_pl, kv_pl),
+                     in_grad_placements=(q_pl, kv_grad, kv_grad),
                      device_mesh=mesh)(q, k, v)
 
 

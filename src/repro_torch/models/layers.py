@@ -190,13 +190,15 @@ def local_shape(shape: Sequence[int], spec: Spec, mesh) -> Tuple[int, ...]:
     return tuple(out)
 
 
-def shard_range(mesh, pl: Sequence, dim: int, size: int) -> Tuple[int, int]:
-    """(first index, length) of this rank's block of dim ``dim``, of
-    ``size``, of a tensor laid out by placements ``pl`` on the
-    ``DeviceMesh`` ``mesh``: the dim chunked by each mesh dim that shards
-    it, outermost first, as DTensor lays shards out."""
+def shard_range(mesh, pl: Sequence, dim: int, size: int,
+                coord: Optional[Sequence[int]] = None) -> Tuple[int, int]:
+    """(first index, length) of this rank's block (or the block of the
+    rank at mesh coordinate ``coord``) of dim ``dim``, of ``size``, of a
+    tensor laid out by placements ``pl`` on the ``DeviceMesh`` ``mesh``:
+    the dim chunked by each mesh dim that shards it, outermost first, as
+    DTensor lays shards out."""
     from torch.distributed.tensor import Shard
-    coord = mesh.get_coordinate()
+    coord = mesh.get_coordinate() if coord is None else coord
     first, n = 0, size
     for i, p in enumerate(pl):
         if p == Shard(dim):
@@ -208,12 +210,14 @@ def shard_range(mesh, pl: Sequence, dim: int, size: int) -> Tuple[int, int]:
     return first, n
 
 
-def local_chunk(full: torch.Tensor, mesh, pl: Sequence) -> torch.Tensor:
-    """This rank's shard of ``full`` under placements ``pl``
-    (:func:`shard_range` of every sharded dim).  A view of ``full``."""
+def local_chunk(full: torch.Tensor, mesh, pl: Sequence,
+                coord: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """This rank's shard of ``full`` (or the shard of the rank at mesh
+    coordinate ``coord``) under placements ``pl`` (:func:`shard_range` of
+    every sharded dim).  A view of ``full``."""
     from torch.distributed.tensor import Shard
     for d in sorted({p.dim for p in pl if isinstance(p, Shard)}):
-        first, n = shard_range(mesh, pl, d, full.shape[d])
+        first, n = shard_range(mesh, pl, d, full.shape[d], coord)
         full = full.narrow(d, first, n)
     return full
 
@@ -260,6 +264,26 @@ def whole(x: torch.Tensor, dims: Sequence[int] = ()) -> torch.Tensor:
     return x if pl == tuple(x.placements) else x.redistribute(x.device_mesh, pl)
 
 
+class _WholeGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return whole(g)
+
+
+def whole_grad(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as it is, whose gradient has its partial sums reduced before
+    it flows on: for a DTensor produced by a redistribution whose backward
+    cannot take partial sums (the vocab-masked partial of a sharded
+    embedding lookup)."""
+    from torch.distributed.tensor import DTensor
+    return _WholeGrad.apply(x) if isinstance(x, DTensor) and \
+        torch.is_grad_enabled() and x.requires_grad else x
+
+
 # ---------------------------------------------------------------------------
 # Numerics
 # ---------------------------------------------------------------------------
@@ -301,8 +325,12 @@ def swiglu(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                           vocab: int) -> torch.Tensor:
     """Token-mean CE on (…, V_padded) logits, in f32; the padded vocab tail
-    is masked and labels outside [0, vocab) count for nothing."""
-    lf = logits.float()
+    is masked and labels outside [0, vocab) count for nothing.  Logits
+    that are a vocab-sharded DTensor are gathered whole over the vocab
+    first (one all-gather of each rank's rows; DTensor cannot take the
+    label's logit from a vocab shard under autograd), and the loss comes
+    back replicated."""
+    lf = whole(logits, (logits.dim() - 1,)).float()
     if lf.shape[-1] > vocab:
         mask = torch.arange(lf.shape[-1], device=lf.device) < vocab
         lf = torch.where(mask, lf, -1e30)
@@ -311,4 +339,6 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     picked = torch.gather(lf, -1, labels.clamp(0, lf.shape[-1] - 1)[..., None])[..., 0]
     valid = (labels >= 0) & (labels < vocab)
     ce = torch.where(valid, lse - picked, 0.0)
-    return torch.sum(ce) / torch.clamp(torch.sum(valid), min=1)
+    # on a mesh the sums are partial over the batch's ranks: reduced before
+    # the clamp and the quotient, so every rank holds the loss whole
+    return whole(torch.sum(ce)) / torch.clamp(whole(torch.sum(valid)), min=1)

@@ -74,7 +74,7 @@ from .attention import attn_decode, flash_attention, local_heads
 from .config import ModelConfig
 from .layers import (ParamDef, Params, constrain, gather_seq, init_leaf,
                      register_params, rms_norm, rotary, shard_range,
-                     softmax_cross_entropy, swiglu)
+                     softmax_cross_entropy, swiglu, whole_grad)
 from .moe import moe_defs, moe_ffn
 from .rglru import RGLRUState, rglru_block, rglru_decode_step, rglru_defs
 from .ssm import MambaState, mamba_block, mamba_decode_step, mamba_defs
@@ -396,8 +396,9 @@ class Model(nn.Module):
         w = w.redistribute(w.device_mesh, tuple(
             Replicate() if p == Shard(1) else p for p in w.placements))
         x = F.embedding(tokens, w)
-        return x.redistribute(x.device_mesh, tuple(
-            Replicate() if p.is_partial() else p for p in x.placements))
+        # the lookup's masked partial sums take a gradient only whole
+        return whole_grad(x.redistribute(x.device_mesh, tuple(
+            Replicate() if p.is_partial() else p for p in x.placements)))
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         if self.cfg.tie_embeddings:

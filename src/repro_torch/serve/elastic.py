@@ -44,12 +44,17 @@ PyTree = Any
 
 
 def elastic_restore(manager: CheckpointManager, tree_like: PyTree,
-                    device=None) -> Optional[Tuple[int, PyTree, dict]]:
+                    device=None, *, mesh=None, placements: PyTree = None
+                    ) -> Optional[Tuple[int, PyTree, dict]]:
     """Restore the latest checkpoint onto ``device`` (each leaf on its
-    tree_like leaf's device when None).  Returns (step, tree, meta) or
-    None.  The chunks are keyed by global slices, so the world size may
-    change between the save and the restore."""
-    return manager.restore_latest(tree_like, device=device)
+    tree_like leaf's device when None), or, with ``mesh`` and
+    ``placements`` (the layouts computed for the NEW mesh, the reference's
+    ``new_shardings``), as DTensors of which each rank of the mesh keeps
+    its shard.  Returns (step, tree, meta) or None.  The chunks are keyed
+    by global slices, so the world size and the layout may change between
+    the save and the restore."""
+    return manager.restore_latest(tree_like, device=device, mesh=mesh,
+                                  placements=placements)
 
 
 def _redistribute(stacked: torch.Tensor, new_world: int) -> torch.Tensor:

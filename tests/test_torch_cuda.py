@@ -561,6 +561,52 @@ def test_reduced_family_on_two_gloo_ranks_on_card(cuda_device, arch, start):
                                       steps[2].argmax(-1))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dense_train_step_on_two_gloo_ranks_on_card(cuda_device, dtype):
+    """h2o-danube-3-4b-reduced's train step (2 micro-batches of (1, 40))
+    on the (1, 2) mesh of 2 gloo ranks sharing the card, against one
+    process on the card from the same weights (seed 0): the loss, the
+    grad norm and each leaf's ``mu`` after the step (the clipped
+    gradient) within 1e-4 (relative; ``mu`` of each leaf's largest
+    magnitude) in f32, within the bf16 gates of ``chip_smoke.py``'s
+    train-mesh path (1e-2, 5e-2, 0.15) in bf16.  Every collective of the
+    step, the backward's on the autograd engine's own thread too, is
+    staged through the host (gloo takes no CUDA tensor there)."""
+    from repro_torch.launch.sharded import train_rank
+    from repro_torch.launch.spawn import spawn_workers
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import Model, resolve_config
+    from repro_torch.optim import adamw_init
+    arch = "h2o-danube-3-4b-reduced"
+    cfg = resolve_config(arch)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 1, 41)
+                                             ).astype(np.int32)
+    batch = {"tokens": toks[..., :-1].copy(), "labels": toks[..., 1:].copy()}
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    model = Model(cfg, device=cuda_device).init(gen).to(getattr(torch, dtype))
+    model.requires_grad_(True)
+    state = adamw_init(dict(model.named_parameters()))
+    state, m = make_train_step(model)(state, {
+        k: torch.as_tensor(v, device=cuda_device) for k, v in batch.items()})
+    ranks = spawn_workers(train_rank, 2, backend="gloo", device="cuda",
+                          args=(arch, (1, 2), ("data", "model"), [batch], None,
+                                0, None, dtype, None, ("mu",)),
+                          timeout=600)
+    tol = {"loss": 1e-4, "grad_norm": 1e-4, "mu": 1e-4} if dtype == "float32" \
+        else {"loss": 1e-2, "grad_norm": 5e-2, "mu": 0.15}
+    got = ranks[0]["steps"][0]
+    for key in ("loss", "grad_norm"):
+        assert abs(got[key] - float(m[key])) <= tol[key] * abs(float(m[key]))
+    for k, v in state.mu.items():
+        exp = v.cpu().numpy()
+        err = np.abs(ranks[0]["mu"][k] - exp).max()
+        assert err <= tol["mu"] * np.abs(exp).max(), (k, err)
+    for r in ranks:
+        coll = r["steps"][0]["collectives"]
+        assert coll["by_phase"]["backward"]["count"] > 0
+        assert r["host_staged_messages"] >= coll["count"]
+
+
 # ------------------------------------------------ the backward kernels
 
 
