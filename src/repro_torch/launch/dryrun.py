@@ -26,15 +26,14 @@ card by default, or with ``--device cpu``.  A serving cell runs
 ``launch.sharded.serve_rank`` (weights and inputs from seed 0, a prefill
 cell's batch, in ``data.family_batch``'s layout with vlm's patches or
 encdec's frames, prefilled after one untimed warm-up, a decode cell's one
-step at its last slot), and every family of the zoo runs.  A train cell
-of the dense family runs ``launch.sharded.train_rank``: weights and a
-batch with labels from seed 0, the config's ``grad_accum``
-micro-batches, one untimed warm step and then the timed step.  It adds
-the wall time of the step, each rank's weight bytes (and for a train
-cell its gradient and optimizer-state bytes, the loss and the grad norm)
-and peak memory, and the collectives by kind (``analysis.comms``; a
-train cell's split into forward, backward and optimizer).  A train cell
-of another family is refused (ROADMAP queue 1, item 15b).
+step at its last slot).  A train cell runs ``launch.sharded.train_rank``:
+weights and a batch with labels from seed 0, the config's
+``grad_accum`` micro-batches, one untimed warm step and then the timed
+step.  Every family of the zoo runs, serving and training.  It adds the
+wall time of the step, each rank's weight bytes (and for a train cell
+its gradient and optimizer-state bytes, the loss and the grad norm) and
+peak memory, and the collectives by kind (``analysis.comms``; a train
+cell's split into forward, backward and optimizer).
 """
 
 from __future__ import annotations
@@ -111,9 +110,6 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, opt: bool = False,
     return rec
 
 
-TRAIN_FAMILIES = ("dense",)   # sharded training; the others: ROADMAP 15b
-
-
 def execute(arch: str, shape_name: str, mesh: str, device=None,
             overrides: Optional[dict] = None) -> dict:
     """One cell's sharded step run on W ranks (see the docstring): a
@@ -140,10 +136,6 @@ def execute(arch: str, shape_name: str, mesh: str, device=None,
     ok, why = cell_is_applicable(cfg, shape)
     if not ok:
         raise ValueError(f"{arch} × {shape_name}: {why}")
-    if shape.kind == "train" and cfg.family not in TRAIN_FAMILIES:
-        raise ValueError(f"--execute trains the {', '.join(TRAIN_FAMILIES)} "
-                         f"family on a mesh, not {cfg.family} ({arch}): "
-                         f"ROADMAP queue 1, item 15b")
     dims = tuple(int(n) for n in mesh.split("x"))
     axes = ("data", "model") if len(dims) == 2 else ("pod", "data", "model")
     world = int(np.prod(dims))

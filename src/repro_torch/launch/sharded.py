@@ -33,7 +33,7 @@ the reference running the step that its dry run lowers with
   ``launch.specs`` says, and the encoder's and the cross attention run on
   each rank's heads.
 
-- Training (the dense family): the model opts into gradients
+- Training, every family: the model opts into gradients
   (``model.requires_grad_(True)``), :func:`shard_opt_state` lays the f32
   moments out by ``launch.specs.opt_rules`` (ZeRO-1: ``embed`` over the
   data axes), :func:`place_batch` splits each micro-batch over the data
@@ -41,7 +41,12 @@ the reference running the step that its dry run lowers with
   with autograd on (:func:`on_mesh` with ``grad``): the backward's
   collectives are DTensor's, the gradients stay in the layout the
   backward gives them (partial sums over the data axes) until
-  ``optim.adamw`` moves each to its moment's layout.
+  ``optim.adamw`` moves each to its moment's layout.  Where a
+  ``local_map`` reads an input whole beside rank-local rows, groups or
+  channels (moe's router, expert weights and combine weights, the
+  causal convolution's weights, the ssm readout's C, narrowed k/v), it
+  declares that input's gradient a partial sum
+  (``in_grad_placements``), so that the backward reduces it.
 
 :func:`serve_rank` is one rank of a sharded serving run and
 :func:`train_rank` one of a sharded training run (spawned by
@@ -139,13 +144,15 @@ def place_batch(model: Model, mesh, batch: Dict[str, torch.Tensor],
     from ..models.config import ShapeConfig
     tokens = batch["tokens"]
     micro = kind == "train" and tokens.dim() == 3
-    B = tokens.shape[0] * (tokens.shape[1] if micro else 1)
     S = 1 if kind == "decode" else tokens.shape[-1] + (
         model.cfg.n_patches if model.cfg.family == "vlm" else 0)
-    shape = ShapeConfig("run", S, B, kind)
-    lay = batch_shardings(model.cfg, shape, mesh, model.rules,
-                          batch_struct(model.cfg, shape,
-                                       tokens.shape[0] if micro else 1))
+    # one micro-batch's (mb, …) structs, each led by n_micro (1 too)
+    shape = ShapeConfig("run", S, tokens.shape[1 if micro else 0], kind)
+    structs = batch_struct(model.cfg, shape, 1)
+    if micro:
+        structs = {k: v.expand((tokens.shape[0],) + tuple(v.shape))
+                   for k, v in structs.items()}
+    lay = batch_shardings(model.cfg, shape, mesh, model.rules, structs)
     return {k: distribute(v, mesh, lay[k].placements) for k, v in batch.items()}
 
 
@@ -381,7 +388,8 @@ def train_rank(group, arch: str, mesh_shape, axes, batches, flags=None,
                seed: int = 0, tree=None, dtype=None,
                overrides: Optional[dict] = None, gather: Sequence[str] = (),
                save_dir=None, restore_dir=None,
-               check_restore: bool = False) -> dict:
+               check_restore: bool = False,
+               inspect: Optional[Callable] = None) -> dict:
     """One rank of a sharded training run over the current process group:
     ``arch`` (with ``overrides``) on the mesh ``mesh_shape``/``axes`` under
     the policy ``flags`` (default: the config's), weights from ``seed`` (or
@@ -396,9 +404,11 @@ def train_rank(group, arch: str, mesh_shape, axes, batches, flags=None,
     latest checkpoint onto this mesh's layouts (``elastic_restore``); with
     ``save_dir`` it is saved there after the first step (a checkpoint of
     ``{"params": {name: …}, "opt": AdamWState}``, meta ``{"step"}``);
-    with ``check_restore`` the first rank then restores that checkpoint
-    onto one process (its host memory, no mesh) and holds every leaf
-    ``torch.equal`` to the one gathered from the mesh.
+    with ``check_restore`` every rank then restores that checkpoint onto
+    one process (its host memory, no mesh) and holds its block of every
+    leaf ``torch.equal`` to the restored one (:func:`_check_restore`).  ``inspect(params,
+    opt_state)``, when given, runs on every rank after the last step, on
+    its DTensors; its result is the rank's ``inspected``.
 
     → rank 0: each step's loss, grad norm and step count, the parameters
     and moments of ``gather`` ("params", "mu", "nu") gathered whole (numpy,
@@ -471,6 +481,8 @@ def train_rank(group, arch: str, mesh_shape, axes, batches, flags=None,
                 t0 = time.perf_counter()
                 out["restore_equal"] = _check_restore(group, save_dir, train)
                 out["restore_check_s"] = time.perf_counter() - t0
+    if inspect is not None:
+        out["inspected"] = inspect(params, state)
     for name in gather:
         leaves = params if name == "params" else getattr(state, name)
         full = {k: _full(x) for k, x in leaves.items()}
@@ -483,31 +495,40 @@ def train_rank(group, arch: str, mesh_shape, axes, batches, flags=None,
 
 
 def _check_restore(group, directory, train) -> Optional[dict]:
-    """The latest checkpoint in ``directory`` restored onto one process
-    (the first rank's, in host memory), each leaf against the sharded
-    ``train`` leaf gathered whole into it (every rank takes part) → on the
-    first rank, {"equal": all leaves ``torch.equal``, "leaves": n,
-    "differ": names}; None on the others."""
+    """The latest checkpoint in ``directory`` restored onto one process on
+    every rank (its host memory, no mesh; the chunks' CRCs checked on the
+    first rank), each rank's block of every ``train`` leaf (its shard of
+    a DTensor, a plain leaf whole) held ``torch.equal`` to the same block
+    of the restored leaf: the ranks' blocks cover every element, and no
+    leaf is gathered.  Each rank holds the whole restored state in its
+    host memory at once: the world times the checkpoint's size on the
+    host.  → on the first rank, {"equal": all leaves ``torch.equal``,
+    "leaves": n, "differ": names}; None on the others."""
+    import torch.distributed as dist
     from torch.distributed.tensor import DTensor
 
-    from ..checkpoint import CheckpointManager
-    from ..checkpoint.manager import _flatten_with_paths, gather_to_first
-    from ..serve.elastic import elastic_restore
+    from ..checkpoint.manager import (_flatten_with_paths, latest_step,
+                                      load_checkpoint)
     first = group.rank == 0
-    restored = dict(_flatten_with_paths(elastic_restore(
-        CheckpointManager(directory), train, device="cpu")[1])) \
-        if first else None
+    restored, _ = load_checkpoint(train, directory, latest_step(directory),
+                                  device="cpu", verify_crc=first)
+    restored = dict(_flatten_with_paths(restored))
     differ, n = [], 0
     for name, leaf in _flatten_with_paths(train):
+        n += 1
+        full = restored.pop(name)
         if isinstance(leaf, DTensor):
-            leaf = gather_to_first(leaf)
-        if first:
-            n += 1
-            if not torch.equal(restored[name], leaf.cpu()):
-                differ.append(name)
-        del leaf
-    return {"equal": not differ, "leaves": n, "differ": differ} \
-        if first else None
+            full = local_chunk(full, leaf.device_mesh, leaf.placements)
+            leaf = leaf.to_local()
+        if not torch.equal(full, leaf.detach().cpu()):
+            differ.append(name)
+        del full
+    every = [None] * group.world if first else None
+    dist.gather_object(differ, every, dst=0)
+    if not first:
+        return None
+    differ = sorted({name for d in every for name in d})
+    return {"equal": not differ, "leaves": n, "differ": differ}
 
 
 def gathered_params_rank(group, arch: str, mesh_shape, axes, seed: int) -> dict:

@@ -252,6 +252,23 @@ def gather_seq(x: torch.Tensor) -> torch.Tensor:
         Replicate() if p == Shard(1) else p for p in x.placements))
 
 
+def residual(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """x + y.  On a sequence-parallel stream x (a DTensor with its sequence
+    sharded), a block's output y is first moved to x's layout: the
+    reduce-scatter the add would make itself, made explicit so that its
+    backward gathers the gradient before the block's last product; left
+    to the add, the backward hands that product a sequence-sharded
+    gradient to flatten over (B, S), which DTensor refuses on torch 2.11.
+    Anywhere else the add as it is (its own layout choice, the same bits
+    as before)."""
+    from torch.distributed.tensor import DTensor, Shard
+    if isinstance(x, DTensor) and isinstance(y, DTensor) and \
+            Shard(1) in x.placements and \
+            tuple(y.placements) != tuple(x.placements):
+        y = y.redistribute(x.device_mesh, x.placements)
+    return x + y
+
+
 def whole(x: torch.Tensor, dims: Sequence[int] = ()) -> torch.Tensor:
     """A DTensor with the dims ``dims`` whole on every rank and its partial
     sums reduced (a product that contracted a split dim: one all-reduce);

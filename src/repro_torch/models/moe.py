@@ -19,6 +19,13 @@ where the group size does not divide a rank's tokens, as at the reduced
 sizes) is routed whole: its tokens are gathered over the data ranks
 first, since capacity positions count over the whole group.  The aux
 loss is the mean over every group's, the ranks' means summed.
+Under autograd (sharded training) each ``local_map`` that reads an input
+whole beside split groups, tokens or experts declares that input's
+gradient a partial sum, which the backward reduces: the router beside
+split groups, an expert weight gathered whole beside split tokens, the
+activations beside a split N of the weight, the combine weights beside
+split experts.  An input whose every rank computes on the same data (a
+group routed whole on every data rank) keeps a replicated gradient.
 The routing is the reference's
 exactly: choice ranks are processed in order and tokens in sequence order,
 tokens past an expert's capacity are dropped for it, and top-k ties break
@@ -208,7 +215,11 @@ def _on_groups(fn, logits, k: int, capacity: int, n_out: int):
     out = local_map(lambda lg: fn(lg, k, capacity),
                     out_placements=(pl,) * n_out + (means, means),
                     in_placements=(pl,), device_mesh=mesh)(logits)
-    frac, mprob = (m.full_tensor() / shards for m in out[n_out:])
+    # reduced as DTensors, so that the aux loss's gradient flows back
+    # through the mesh (a plain ``full_tensor`` would take a DTensor one)
+    whole_pl = (Replicate(),) * mesh.ndim
+    frac, mprob = (m.redistribute(mesh, whole_pl) / shards
+                   for m in out[n_out:])
     return (*out[:n_out], frac, mprob)
 
 
@@ -247,30 +258,38 @@ def _mesh_tokens(y, x_shape, rows):
 
 def _router_logits(xg, router):
     """(G, g, E) f32 router logits: on a mesh, each rank's groups against
-    the whole router."""
-    from torch.distributed.tensor import DTensor
+    the whole router, whose gradient is then each rank's groups' part: a
+    partial sum over the mesh dims that split the groups."""
+    from torch.distributed.tensor import DTensor, Partial, Shard
     from torch.distributed.tensor.experimental import local_map
     if not isinstance(xg, DTensor):
         return (xg.to(router.dtype) @ router).float()
     pl = tuple(xg.placements)
     router = whole(router, range(router.dim()))
-    if isinstance(router, DTensor):
-        router = router.to_local()
+    r_pl = tuple(router.placements)
+    r_grad = tuple(Partial() if p == Shard(0) else r
+                   for p, r in zip(pl, r_pl))
     return local_map(lambda xl, r: (xl.to(r.dtype) @ r).float(),
-                     out_placements=list(pl), in_placements=(pl, None),
+                     out_placements=list(pl), in_placements=(pl, r_pl),
+                     in_grad_placements=(pl, r_grad),
                      device_mesh=xg.device_mesh)(xg, router)
 
 
-def _local(fn, out_pl, *ts):
+def _local(fn, out_pl, *ts, grad_pl=None):
     """``fn`` on the local shards of the DTensors ``ts`` (each already laid
     out as it needs), its output laid out by ``out_pl``; on plain tensors,
-    ``fn`` itself."""
+    ``fn`` itself.  ``grad_pl`` gives the inputs' gradient placements
+    where one differs from its layout (a partial sum), None for the
+    layout."""
     from torch.distributed.tensor import DTensor
     from torch.distributed.tensor.experimental import local_map
     if not isinstance(ts[0], DTensor):
         return fn(*ts)
-    return local_map(fn, out_placements=list(out_pl),
-                     in_placements=tuple(tuple(t.placements) for t in ts),
+    in_pl = tuple(tuple(t.placements) for t in ts)
+    grad_pl = in_pl if grad_pl is None else tuple(
+        p if g is None else g for p, g in zip(in_pl, grad_pl))
+    return local_map(fn, out_placements=list(out_pl), in_placements=in_pl,
+                     in_grad_placements=grad_pl,
                      device_mesh=ts[0].device_mesh)(*ts)
 
 
@@ -300,6 +319,17 @@ def _gather_layout(ye, groups_pl, g_dim: int, e_dim: int):
     return ye, first, n, out
 
 
+def _own_experts_grad(out, w) -> tuple:
+    """The gradient placements of the combine weights ``w``, read whole by
+    the gather back to the tokens whose output is laid out by ``out``
+    (:func:`_gather_layout`): each rank weighs only its own experts'
+    slots, so on every mesh dim that splits the experts (``out``
+    partial) its gradient is a partial sum."""
+    from torch.distributed.tensor import Partial
+    return tuple(Partial() if o.is_partial() else p
+                 for o, p in zip(out, w.placements))
+
+
 def _expert_mm(eq: str, x, w, e_dim: int):
     """``torch.einsum(eq, x, w)`` of activations x (experts on dim
     ``e_dim``, the contraction last) and an expert weight w (E, K, N).  On
@@ -310,29 +340,35 @@ def _expert_mm(eq: str, x, w, e_dim: int):
     dim; where x is whole and w's K split (FSDP's d into ``w1``/``w3``),
     x takes its slice and the sum is partial, so a group routed whole (a
     decode step's) gathers no weights; split token dims take w whole
-    (FSDP's weights gathered), as does every other dim."""
+    (FSDP's weights gathered), as does every other dim.
+
+    Under autograd an input whole on a mesh dim along which the ranks
+    compute different parts has a partial-sum gradient there: x's where
+    w's N is split (each rank's N columns give their part), w's where
+    the tokens are split (each rank's tokens give theirs)."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     if not isinstance(x, DTensor):
         return torch.einsum(eq, x, w)
     last = x.dim() - 1
-    x_pl, w_pl, out_pl = [], [], []
+    rows = []       # per mesh dim: x's, w's, the output's, x's and w's grad
     for xp, wp in zip(x.placements, w.placements):
         if xp == Shard(e_dim):
-            x_pl.append(xp), w_pl.append(Shard(0)), out_pl.append(xp)
+            rows.append((xp, Shard(0), xp, xp, Shard(0)))
         elif xp == Shard(last):
-            x_pl.append(xp), w_pl.append(Shard(1)), out_pl.append(Partial())
+            rows.append((xp, Shard(1), Partial(), xp, Shard(1)))
         elif wp == Shard(2) and xp == Replicate():
-            x_pl.append(xp), w_pl.append(wp), out_pl.append(Shard(last))
+            rows.append((xp, wp, Shard(last), Partial(), wp))
         elif wp == Shard(1) and xp == Replicate():
-            x_pl.append(Shard(last)), w_pl.append(wp), out_pl.append(Partial())
+            rows.append((Shard(last), wp, Partial(), Shard(last), wp))
         elif isinstance(xp, Shard):
-            x_pl.append(xp), w_pl.append(Replicate()), out_pl.append(xp)
+            rows.append((xp, Replicate(), xp, xp, Partial()))
         else:
-            x_pl.append(Replicate()), w_pl.append(Replicate())
-            out_pl.append(Replicate())
+            rows.append((Replicate(),) * 5)
+    x_pl, w_pl, out_pl, x_grad, w_grad = zip(*rows)
     mesh = x.device_mesh
     return _local(lambda xl, wl: torch.einsum(eq, xl, wl), out_pl,
-                  x.redistribute(mesh, x_pl), w.redistribute(mesh, w_pl))
+                  x.redistribute(mesh, x_pl), w.redistribute(mesh, w_pl),
+                  grad_pl=(x_grad, w_grad))
 
 
 def _group_size(T: int, cfg, group_size: int) -> int:
@@ -395,7 +431,8 @@ def _moe_onehot(p, xg, cfg, g: int, constrain):
         return torch.einsum("egcd,gsec->gsd", ye, comb.to(dt)), aux
     ye, first, n, out = _gather_layout(ye, groups_pl, 1, 0)
     y = _local(lambda yl, cl: torch.einsum(
-        "egcd,gsec->gsd", yl, cl[:, :, first:first + n].to(dt)), out, ye, comb)
+        "egcd,gsec->gsd", yl, cl[:, :, first:first + n].to(dt)), out, ye, comb,
+        grad_pl=(None, _own_experts_grad(out, comb)))
     return y, aux
 
 
@@ -449,6 +486,8 @@ def moe_ffn_sorted(p, xg: torch.Tensor, cfg, constrain=_no_constraint
     if not groups_pl:
         return gather(ye, slots, 0, E), aux
     ye, first, n, out = _gather_layout(ye, groups_pl, 0, 1)
+    grad_pl = (None,) + tuple(_own_experts_grad(out, t) if f == "sw" else None
+                              for f, t in slots._asdict().items())
     y = _local(lambda yl, *sl: gather(yl, SortedSlots(*sl), first, n), out,
-               ye, *slots)
+               ye, *slots, grad_pl=grad_pl)
     return y, aux

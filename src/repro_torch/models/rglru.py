@@ -16,7 +16,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .layers import ParamDef, gather_seq, rms_norm, whole
+from .layers import ParamDef, gather_seq, residual, rms_norm, whole
 from .ssm import causal_conv1d, linear_scan
 
 _C = 8.0
@@ -87,12 +87,12 @@ def rglru_block(p, x: torch.Tensor, cfg,
     hs = linear_scan(a, b, h0=state.h if state is not None else None)
     out = (hs.to(x.dtype) * gate) @ whole(p["w_out"], (1,))
     if not return_state:
-        return x + out
+        return residual(x, out)
     if tail is None:
         tail = torch.zeros((x.shape[0], _K - 1, u.shape[-1]), dtype=x.dtype,
                            device=x.device)
     new_tail = torch.cat([tail, u_raw], dim=1)[:, -(_K - 1):, :]
-    return x + out, RGLRUState(h=hs[:, -1], conv_tail=new_tail)
+    return residual(x, out), RGLRUState(h=hs[:, -1], conv_tail=new_tail)
 
 
 def rglru_decode_step(p, x: torch.Tensor, state: RGLRUState, cfg

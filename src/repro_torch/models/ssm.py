@@ -15,7 +15,11 @@ sequence-sharded input gathered), so the kernels see plain local
 tensors.  ``x_proj`` contracts the split ``inner``, so its partial output
 is reduced once, as GSPMD does.  Under FSDP the projections' ``embed``
 dim is gathered before the products, so the batch rows stay split over
-the data axes through the block.
+the data axes through the block.  Under autograd the inputs that these
+``local_map`` calls read whole beside split rows or channels (the
+convolution's w and b beside split batch rows, the readout's C beside
+split channels) take partial-sum gradients; the scans' a, b and h0 are
+laid out as their lanes, so their gradients are each rank's own.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
-from .layers import ParamDef, gather_seq, rms_norm, whole
+from .layers import ParamDef, gather_seq, residual, rms_norm, whole
 
 
 def linear_scan(a: torch.Tensor, b: torch.Tensor,
@@ -78,8 +82,9 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     """Depthwise causal conv, x (B, S, C), w (K, C), b (C,), as K shifted
     adds in f32; ``tail`` (B, K−1, C) is the context before x.  On
     DTensors, on each rank's lanes (:func:`_lanes`), w and b split as the
-    channels."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
+    channels and whole elsewhere: on a mesh dim that splits the batch rows
+    each rank's w and b gradients are its rows' part, a partial sum."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
     if not isinstance(x, DTensor):
         return _conv(x, w, b, tail)
@@ -90,11 +95,14 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     args = [x.redistribute(mesh, pl), w.redistribute(mesh, w_pl),
             b.redistribute(mesh, b_pl)]
     in_pl = [pl, w_pl, b_pl]
+    grad_pl = [pl] + [tuple(Partial() if p == Shard(0) else q
+                            for p, q in zip(pl, wb)) for wb in (w_pl, b_pl)]
     if tail is not None:
         args.append(tail.redistribute(mesh, pl))
         in_pl.append(pl)
+        grad_pl.append(pl)
     return local_map(_conv, out_placements=list(pl), in_placements=tuple(in_pl),
-                     device_mesh=mesh)(*args)
+                     in_grad_placements=tuple(grad_pl), device_mesh=mesh)(*args)
 
 
 def _conv(x, w, b, tail=None):
@@ -113,8 +121,9 @@ def _conv(x, w, b, tail=None):
 def _readout(h: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
     """y = Σ_n h[…, d, n] · C[…, n] (f32), h (B, S, D, N) or (B, D, N).  On
     a mesh, on each rank's batch rows and channels (C's batch rows as
-    h's, its N whole)."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
+    h's, its N whole); on a mesh dim that splits the channels D each
+    rank's C gradient is its channels' part, a partial sum."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
     eq = "bsdn,bsn->bsd" if h.dim() == 4 else "bdn,bn->bd"
     if not isinstance(h, DTensor):
@@ -123,8 +132,11 @@ def _readout(h: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
     h_pl = tuple(p if isinstance(p, Shard) and p.dim < h.dim() - 1
                  else Replicate() for p in h.placements)
     c_pl = tuple(Shard(0) if p == Shard(0) else Replicate() for p in h_pl)
+    c_grad = tuple(Partial() if p == Shard(h.dim() - 2) else q
+                   for p, q in zip(h_pl, c_pl))
     return local_map(lambda hl, cl: torch.einsum(eq, hl, cl.float()),
                      out_placements=list(h_pl), in_placements=(h_pl, c_pl),
+                     in_grad_placements=(h_pl, c_grad),
                      device_mesh=mesh)(h.redistribute(mesh, h_pl),
                                        C.redistribute(mesh, c_pl))
 
@@ -218,12 +230,12 @@ def mamba_block(p, x: torch.Tensor, cfg,
     y = y.to(x.dtype) * F.silu(z)
     out = y @ whole(p["out_proj"], (1,))
     if not return_state:
-        return x + out
+        return residual(x, out)
     if tail is None:
         tail = torch.zeros((x.shape[0], cfg.ssm_conv - 1, cfg.dinner),
                            dtype=x.dtype, device=x.device)
     new_tail = torch.cat([tail, x_in], dim=1)[:, -(cfg.ssm_conv - 1):, :]
-    return x + out, MambaState(h=hs[:, -1], conv_tail=new_tail)
+    return residual(x, out), MambaState(h=hs[:, -1], conv_tail=new_tail)
 
 
 def mamba_decode_step(p, x: torch.Tensor, state: MambaState, cfg

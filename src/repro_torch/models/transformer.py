@@ -73,8 +73,8 @@ from ..device import resolve_device
 from .attention import attn_decode, flash_attention, local_heads
 from .config import ModelConfig
 from .layers import (ParamDef, Params, constrain, gather_seq, init_leaf,
-                     register_params, rms_norm, rotary, shard_range,
-                     softmax_cross_entropy, swiglu, whole_grad)
+                     register_params, residual, rms_norm, rotary,
+                     shard_range, softmax_cross_entropy, swiglu, whole_grad)
 from .moe import moe_defs, moe_ffn
 from .rglru import RGLRUState, rglru_block, rglru_decode_step, rglru_defs
 from .ssm import MambaState, mamba_block, mamba_decode_step, mamba_defs
@@ -242,7 +242,8 @@ class Model(nn.Module):
             o = o.transpose(1, 2)
         else:
             o = _attn_bidir(q, k, v)
-        return x + o.reshape(B, S, H * hd) @ p["wo"].reshape(H * hd, d)
+        return residual(x, o.reshape(B, S, H * hd)
+                        @ p["wo"].reshape(H * hd, d))
 
     def _cross_seq(self, p, x, mem):
         """Cross attention of the decoder stream x (B, S, d) on the
@@ -257,21 +258,22 @@ class Model(nn.Module):
         k = (mem @ p["wk"].reshape(d, KV * hd)).view(B, Sm, KV, hd)
         v = (mem @ p["wv"].reshape(d, KV * hd)).view(B, Sm, KV, hd)
         o = _attn_bidir(q, k, v)
-        return x + o.reshape(B, S, H * hd) @ p["wo"].reshape(H * hd, d)
+        return residual(x, o.reshape(B, S, H * hd)
+                        @ p["wo"].reshape(H * hd, d))
 
     def _mlp(self, p, x):
         """The SwiGLU block on (B, S, d) or, in decode, (B, d) (whose hidden
         the reference leaves unconstrained)."""
         hidden = (lambda t: self._constrain(t, ("batch", None, "ffn_act"))) \
             if x.dim() == 3 else None
-        return x + swiglu(gather_seq(rms_norm(x, p["ln"])), p["w1"], p["w3"],
-                          p["w2"], hidden)
+        return residual(x, swiglu(gather_seq(rms_norm(x, p["ln"])), p["w1"],
+                                  p["w3"], p["w2"], hidden))
 
     def _moe(self, p, x):
         """The MoE block on (B, S, d) → (x', aux loss)."""
         y, aux = moe_ffn(p, gather_seq(rms_norm(x, p["ln"])), self.cfg,
                          constrain=self._constrain)
-        return x + y, aux
+        return residual(x, y), aux
 
     # ------------------------------------------------------- backbone (seq)
     def _remat_kwargs(self, x: torch.Tensor):
@@ -408,9 +410,10 @@ class Model(nn.Module):
     def train_loss(self, batch) -> torch.Tensor:
         """Token-mean cross entropy of ``batch`` (``data.family_batch``'s
         layout, with labels) plus 0.01 · the moe aux loss; vlm scores only
-        the text positions."""
+        the text positions.  On a mesh a sequence-sharded stream is
+        gathered whole before the unembedding (``gather_seq``)."""
         x, aux = self._forward(batch)
-        x = rms_norm(x, self.final_norm)
+        x = gather_seq(rms_norm(x, self.final_norm))
         labels = batch["labels"]
         if self.cfg.family == "vlm":
             x = x[:, -labels.shape[1]:]

@@ -607,6 +607,60 @@ def test_dense_train_step_on_two_gloo_ranks_on_card(cuda_device, dtype):
         assert r["host_staged_messages"] >= coll["count"]
 
 
+TRAIN_FAMILY_ARCHS = {"moe": "mixtral-8x22b-reduced",
+                      "ssm": "falcon-mamba-7b-reduced",
+                      "hybrid": "recurrentgemma-2b-reduced",
+                      "vlm": "internvl2-76b-reduced",
+                      "encdec": "seamless-m4t-large-v2-reduced"}
+
+
+@pytest.mark.parametrize("family", list(TRAIN_FAMILY_ARCHS))
+def test_family_train_step_on_two_gloo_ranks_on_card(cuda_device, family):
+    """A reduced config of each family other than dense: its f32 train
+    step (2 micro-batches of (1, 40) in ``data.family_batch``'s layout:
+    vlm's 8 patches, encdec's 10 frames) on the (1, 2) mesh of 2 gloo
+    ranks sharing the card, against one process on the card from the same
+    weights (seed 0): the loss, the grad norm and each leaf's ``mu``
+    within 1e-4 (relative; ``mu`` of each leaf's largest magnitude).  The
+    kernels run inside the ranks on local tensors (``flash_attention``,
+    ``rglru_scan``, ``ssm_scan`` and their backwards), and the moe
+    router's, the convolutions' and the readout's gradients are the
+    partial sums their ``local_map`` declares."""
+    from repro_torch.data import family_batch
+    from repro_torch.launch.sharded import train_rank
+    from repro_torch.launch.spawn import spawn_workers
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import Model, resolve_config
+    from repro_torch.optim import adamw_init
+    arch = TRAIN_FAMILY_ARCHS[family]
+    cfg = resolve_config(arch)
+    drawn = family_batch(cfg, 2, 40, torch.Generator().manual_seed(0),
+                         train=True)
+    batch = {k: (v.float() if v.is_floating_point() else v).numpy()
+             .reshape((2, 1) + tuple(v.shape[1:])) for k, v in drawn.items()}
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    model = Model(cfg, device=cuda_device).init(gen).float()
+    model.requires_grad_(True)
+    state = adamw_init(dict(model.named_parameters()))
+    state, m = make_train_step(model)(state, {
+        k: torch.as_tensor(v, device=cuda_device) for k, v in batch.items()})
+    ranks = spawn_workers(train_rank, 2, backend="gloo", device="cuda",
+                          args=(arch, (1, 2), ("data", "model"), [batch], None,
+                                0, None, "float32", None, ("mu",)),
+                          timeout=600)
+    got = ranks[0]["steps"][0]
+    for key in ("loss", "grad_norm"):
+        assert abs(got[key] - float(m[key])) <= 1e-4 * abs(float(m[key])), key
+    for k, v in state.mu.items():
+        exp = v.cpu().numpy()
+        err = np.abs(ranks[0]["mu"][k] - exp).max()
+        assert err <= 1e-4 * np.abs(exp).max(), (k, err)
+    for r in ranks:
+        coll = r["steps"][0]["collectives"]
+        assert coll["by_phase"]["backward"]["count"] > 0
+        assert r["host_staged_messages"] >= coll["count"]
+
+
 # ------------------------------------------------ the backward kernels
 
 

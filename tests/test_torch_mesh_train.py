@@ -27,14 +27,15 @@
 - remat "full" and "dots" on (2, 2): bit-equal to no remat, the
   backward's collectives more (the forward's, recomputed).
 - Checkpoints: the (2, 2) state after step 1 restores onto one process
-  ``torch.equal`` to the leaves gathered from the mesh (on the ranks),
+  ``torch.equal`` to the mesh's leaves (on every rank, its blocks),
   onto the (1, 4) mesh bit-equal to the checkpoint, and one more step on
   (2, 2) after the restore equals the uninterrupted run's step 2 bit for
   bit; the reference's ``load_checkpoint`` reads the mesh's checkpoint.
 - ``dryrun.execute`` of a train cell on 2 spawned CPU ranks, with a depth
   cut: a rank's optimizer-state bytes equal ``argument_bytes``'
-  ``opt_state`` per device; a moe train cell is refused, naming ROADMAP
-  item 15b.
+  ``opt_state`` per device; the same for a moe train cell
+  (``tests/test_torch_mesh_train_families.py`` holds the other families'
+  sharded steps).
 The reference side is computed once per module."""
 
 import dataclasses
@@ -324,12 +325,30 @@ def test_dryrun_execute_runs_a_train_cell_with_a_depth_cut(monkeypatch):
         assert r["grad_bytes"] > 0
 
 
-def test_dryrun_execute_refuses_a_moe_train_cell(monkeypatch):
+def test_dryrun_execute_runs_a_moe_train_cell_with_a_depth_cut(monkeypatch):
+    """``--execute``'s cell runner on a moe train cell of (8, 16) on the
+    (2, 1) mesh of 2 CPU ranks, mixtral-8x22b-reduced cut to 1 layer: a
+    warm step and a timed one of its grad_accum 8 micro-batches (of 1);
+    each rank's weight and optimizer-state bytes are the dry run's per
+    device."""
     from repro_torch.launch.dryrun import execute
-    from repro_torch.models import SHAPES, ShapeConfig
-    monkeypatch.setitem(SHAPES, "tiny", ShapeConfig("tiny", 16, 4, "train"))
-    with pytest.raises(ValueError, match="15b"):
-        execute("mixtral-8x22b-reduced", "tiny", "1x2", "cpu")
+    from repro_torch.models import SHAPES
+    shape = ShapeConfig("tiny", 16, 8, "train")
+    monkeypatch.setitem(SHAPES, "tiny", shape)
+    arch = "mixtral-8x22b-reduced"
+    rec = execute(arch, "tiny", "2x1", "cpu", overrides={"n_layers": 1})
+    assert (rec["world"], rec["device"], rec["micro_batches"]) == (2, "cpu", [8, 1])
+    assert np.isfinite(rec["loss"]) and rec["grad_norm"] > 0
+    full = resolve_config(arch)
+    cut = dataclasses.replace(full, n_layers=1)
+    mesh = make_mesh((2, 1), AXES)
+    kwargs, shardings, _, _ = input_specs(cut, shape, mesh, default_flags(full))
+    arg = argument_bytes(kwargs, shardings, mesh)
+    for r in rec["ranks"]:
+        assert r["opt_state_bytes"] == arg["opt_state"]
+        assert r["weight_bytes"] == arg["params"]
+        assert r["wall_s"] > 0 and r["warm_wall_s"] > 0
+        assert r["grad_bytes"] > 0
 
 
 def test_elastic_restart_example_runs_on_the_cpu(capsys):
