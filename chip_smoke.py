@@ -154,37 +154,56 @@ and the script exits non-zero:
                  width (4 of 64 layers), 3 steps each (the first cold);
                  the training CLI
                  (``launch/train.py``'s ``main``) on smollm-360m: 4 steps,
-                 a run preempted at 2 and resumed with the same losses and
-                 final checkpoint, and an ``--adaptive`` run.
+                 and a run preempted at 2 and resumed with the same losses
+                 and final checkpoint (its ``--adaptive`` run is phase
+                 16's ``train_adaptive_torch``).
+16. examples   — (runs after phase 13, in this process) the examples'
+                 analogues (``examples/*_torch.py``), each ``main(argv)``
+                 called with its output captured (``EXAMPLE_RUNS``):
+                 quickstart (its OK line); kadabra_bc on ER n = 300,
+                 ε = 0.05 and on the 17 × 17 grid at W = 8 (each
+                 strategy's max error ≤ ε); instances_demo at LOCAL W = 4
+                 and INDEXED W = 4 (each instance's error ≤ its ε);
+                 serve_adaptive's four flows (both pools drain 2 queries,
+                 the second shrinks a session, 64 tokens generated, a
+                 finite adaptive eval); train_adaptive on lm-100m
+                 (124,667,904 parameters) at sequence 128 for 60 steps
+                 with ``--adaptive`` (micro-batches ≤ 4, finite losses,
+                 checkpoints at steps 50 and 60, their bytes and the
+                 seconds they block).  A line a run: its wall and the
+                 figures it printed.
 14. zoo-mesh   — the model zoo on a mesh (``launch/sharded.py``,
-                 ``launch/pipeline.py``): h2o-danube-3-4b at full width and
-                 depth (seed 0, bf16) in this process — prefill B = 2,
-                 S = 4096, 2 decode steps from an empty cache at
-                 positions 2047 and 2048 (across the model ranks' halves
-                 of the slots), its 24
-                 blocks over 4 micro-batches of (1, 2048) in a loop —, then
-                 one pool of 4 gloo ranks sharing the card: the same
-                 prefill and decode steps on the (data 2, model 2) mesh,
-                 the weights drawn shard by shard from seed 0, under the
-                 default flags (a warm-up prefill, then the timed one and
-                 2 decode steps), each logit within
-                 the bf16 gate of the one-process run's;
-                 ``flash_attention`` on each rank's local heads
-                 (1, 16, 4096, 120) kv 4, every call held against its
-                 plain version; the GPipe pipeline over 4 stages of 6
-                 blocks, bit-equal to the loop (``torch.equal``, else the
-                 phase fails); then on the same ranks qwen3-moe-235b-a22b
-                 (2 layers), recurrentgemma-2b (5), falcon-mamba-7b (1),
-                 internvl2-76b (1) and seamless-m4t-large-v2 (4 + 4) at
-                 full width under their full configs' default flags, each
-                 against the same prefill and 2 decode steps in this
-                 process, within the bf16 gate, every kernel call on the
-                 ranks held against its plain version (recurrentgemma's
-                 and falcon-mamba's each new kernel, shape and type:
-                 ``ZOO_SCAN_ONCE``).  Wall per step, weight bytes and peak
-                 memory per rank, the collectives by kind
-                 (``analysis.comms``), moe's dropped share.  The pool of
-                 4 ranks is spawned once for phases 14 and 15.
+                 ``launch/pipeline.py``): h2o-danube-3-4b at full width
+                 cut in depth (seed 0, bf16; ``ZOO_DANUBE``) in this
+                 process, then on one pool of 4 gloo ranks sharing the
+                 card, the weights drawn shard by shard from seed 0,
+                 under the default flags: 4 blocks on the (data 2,
+                 model 2) mesh (a warm-up prefill, then the timed
+                 prefill B = 2, S = 4096, and 2 decode steps from an
+                 empty cache of 4096 slots at positions 2047 and 2048,
+                 across the model ranks' halves of the slots) and 2
+                 blocks on the (data 1, model 4) mesh (8 q heads and 2 kv
+                 heads a rank; prefill B = 1, S = 2048, the same decode
+                 steps), each logit within the bf16 gate of the
+                 one-process run's; GPipe pipelines of one block a stage
+                 over the 4 blocks (4 stages, 4 micro-batches of (1,
+                 2048)) and the 2 blocks (ranks 0–1, 2 micro-batches of
+                 (1, 1024)), each bit-equal to the blocks in a loop
+                 (``torch.equal``, else the phase fails); every
+                 ``flash_attention`` call on the ranks held against its
+                 plain version; then on the same ranks
+                 qwen3-moe-235b-a22b (2 layers), recurrentgemma-2b (5),
+                 falcon-mamba-7b (1), internvl2-76b (1) and
+                 seamless-m4t-large-v2 (4 + 4) at full width under their
+                 full configs' default flags, each against the same
+                 prefill and 2 decode steps in this process, within the
+                 bf16 gate, every kernel call on the ranks held against
+                 its plain version (recurrentgemma's and falcon-mamba's
+                 each new kernel, shape and type: ``ZOO_SCAN_ONCE``).
+                 Wall per step, weight bytes and peak memory per rank, the
+                 collectives by kind (``analysis.comms``), moe's dropped
+                 share.  The pool of 4 ranks is spawned once for phases
+                 14 and 15.
 15. train-mesh — sharded training of every family
                  (``launch/sharded.py`` ``train_rank``, AdamW on
                  DTensors, ZeRO-1, ``TRAIN_MESH_CASES``): h2o-danube-3-4b
@@ -200,29 +219,26 @@ and the script exits non-zero:
                  full config's default policy; each step's loss within
                  1e-2 and grad norm within 5e-2 (relative) of this
                  process's, each leaf's ``mu`` after the last step within
-                 0.15 of its largest magnitude; seamless's train state
-                 saved after its step and restored onto one process
-                 ``torch.equal`` to the mesh's leaves (on every rank, its
-                 blocks); every kernel call on the ranks, forward and
-                 backward, held against its plain version (remat's
-                 recompute of a forward call, on bit-equal arguments,
-                 bit-equal to the compared call's result); mixtral's
-                 ranks replay the one-process top-k choices, each rank's
-                 own differing in at most 3 % of its rows.
-                 A line a model: a rank's step wall, weight, gradient
-                 and optimizer-state bytes, peak memory, collectives by
-                 kind (forward, backward, optimizer), host-staged
-                 messages, moe's dropped share.
-16. kernels    — every kernel (the three backward kernels too) with its
-                 launches on the twelve paths (phases 5–6, 7, 8, 9, 9a
+                 0.15 of its largest magnitude; every kernel call on the
+                 ranks, forward and backward, held against its plain
+                 version (remat's recompute of a forward call, on
+                 bit-equal arguments, bit-equal to the compared call's
+                 result); mixtral's ranks replay the one-process top-k
+                 choices, each rank's own differing in at most 3 % of its
+                 rows.  A line a model: a rank's step wall, weight,
+                 gradient and optimizer-state bytes, peak memory,
+                 collectives by kind (forward, backward, optimizer),
+                 host-staged messages, moe's dropped share.
+17. kernels    — every kernel (the three backward kernels too) with its
+                 launches on the thirteen paths (phases 5–6, 7, 8, 9, 9a
                  and 9b — this process's and its worker processes' —, 10,
-                 11, 12, 13, 14 and 15), each counted from 0 just before
-                 its path;
+                 11, 12, 13, 16, 14 and 15), each counted from 0 just
+                 before its path;
                  each path's line also splits its kernel calls by shape (the
                  kernels line repeats ``flash_attention``'s on the
                  families path).
 
-While phases 5–15 run, in this process and in the worker processes of 9a,
+While phases 5–16 run, in this process and in the worker processes of 9a,
 9b, 14 and 15, the kernels behind ``kernels.ops`` (forward and backward) are
 wrapped so that their calls are held against the plain versions on the
 same tensors:
@@ -239,6 +255,7 @@ import contextlib
 import gc
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -2925,19 +2942,20 @@ def phase_families(torch):
 
 # phase 14: the model zoo on a mesh of 4 gloo ranks sharing the card
 ZOO_MESH, ZOO_AXES = (2, 2), ("data", "model")
-ZOO_PREFILL = (2, 4096)     # B, S: the batch over "data", the heads over "model"
-ZOO_DECODE = 2              # decode steps from an empty cache of S slots,
-ZOO_DECODE_START = 2047     # at positions 2047 …: across the model ranks'
-                            # halves of the slots (2048 each)
-# (name, policy flags, decode steps, warm-up prefill, depth or None for all
-# 24 blocks): the default decodes 2 (8 before the other families joined
-# the phase, 4 before phase 15 trained every family).  danube under fsdp +
-# sp (12, then 6 blocks of its own) left once phase 15 trained every
-# family: the other families serve and train under fsdp + sp on the ranks
-# here and in phase 15
-ZOO_FLAGS = (("default", None, ZOO_DECODE, True, None),)
-PIPE_STAGES = 4
-PIPE_MICRO = (4, 1, 2048)   # M micro-batches of (1, 2048)
+ZOO_PREFILL = (2, 4096)     # the prompts drawn: (B, S) of the largest case
+ZOO_DECODE = 2              # decode steps from an empty cache of 4096 slots,
+ZOO_DECODE_START = 2047     # at positions 2047 and 2048: across two model
+                            # ranks' shares of the slots on either mesh
+# danube's cases on the ranks: (name, mesh, prefill (B, S), warm-up
+# prefill, blocks, GPipe (stages, (M, mb, S) micro-batches) of one block a
+# stage), each at full width under the default flags, cut in depth for
+# the time limit (every block is the same layer; phases 12 and 13 run all
+# 24 in one process).  On (1, 4) a rank holds 8 q heads and 2 kv heads
+ZOO_DANUBE = (
+    ("default", (2, 2), (2, 4096), True, 4, (4, (4, 1, 2048))),
+    ("model 4", (1, 4), (1, 2048), False, 2, (2, (2, 1, 1024))),
+)
+DANUBE_CUT_PARAMS = {4: 865_109_760, 2: 555_436_800}
 ZOO_TIMEOUT_S = 900.0
 
 
@@ -2971,200 +2989,202 @@ ZOO_SCAN_ONCE = ("hybrid", "ssm")
 
 
 def zoo_inputs():
-    """The serving cell's prompts (B, S) and decode tokens (B, ZOO_DECODE)."""
+    """The serving cases' prompts (2, 4096) and decode tokens (2,
+    ZOO_DECODE); a case takes its leading (B, S) of them."""
     import numpy as np
     rng = np.random.default_rng(14)
     B, S = ZOO_PREFILL
     return (rng.integers(0, 32000, (B, S)), rng.integers(0, 32000, (B, ZOO_DECODE)))
 
 
-def pipe_input(torch, d, device):
-    """The pipeline's M micro-batches of activations, (M, 1, 2048, d) bf16,
-    the same from seed 14 on every process of the card."""
+def pipe_input(torch, micro, d, device):
+    """A pipeline's M micro-batches of activations, ``micro`` (M, mb, S) +
+    (d,) in bf16, the same from seed 14 on every process of the card."""
     gen = torch.Generator(device=device)
     gen.manual_seed(14)
-    return (torch.randn(PIPE_MICRO + (d,), generator=gen, device=device)
+    return (torch.randn(tuple(micro) + (d,), generator=gen, device=device)
             * 0.02).to(torch.bfloat16)
 
 
+def danube_cut(blocks):
+    import dataclasses
+
+    from repro_torch.models import resolve_config
+    return dataclasses.replace(resolve_config(DANUBE_ARCH), n_layers=blocks)
+
+
 def zoo_mesh_rank(group, prompts, dec, out_dir):
-    """One of phase 14's ranks: h2o-danube-3-4b on the (2, 2) mesh under
-    each of ``ZOO_FLAGS`` (``serve_rank``: shards drawn from seed 0, a
-    warm prefill, the timed prefill, ``ZOO_DECODE`` decode steps and the
-    serving step), then its stage of the GPipe pipeline (layers
-    [6·rank, 6·rank + 6) of the same weights); rank 0 writes the
-    pipeline's output to ``out_dir``.  Every kernel call is held against
-    its plain version (``probed``)."""
+    """One of phase 14's ranks: h2o-danube-3-4b in each case of
+    ``ZOO_DANUBE``: on the case's mesh (``serve_rank``: shards drawn from
+    seed 0, with a warm prefill if asked, the timed prefill, ``ZOO_DECODE``
+    decode steps and the serving step), then the case's GPipe pipeline on
+    the first ``stages`` ranks, one block of the same weights a stage;
+    rank 0 writes each pipeline's output to ``out_dir``.  Every kernel call
+    is held against its plain version (``probed``)."""
     import numpy as np
     import torch
 
     from repro_torch.core import distributed
     from repro_torch.launch.pipeline import DecoderLayer, pipeline_forward
     from repro_torch.launch.sharded import draw_params, serve_rank
-    from repro_torch.models import Model, resolve_config
+    from repro_torch.models import Model
 
     out = {}
     with probed(group, every=True) as (report, check):
-        for name, flags, steps, warm, layers in ZOO_FLAGS:
-            out[name] = serve_rank(group, DANUBE_ARCH, ZOO_MESH, ZOO_AXES, flags,
-                                   0, None, None, prompts, dec[:, :steps],
-                                   ZOO_PREFILL[1], warm, ZOO_DECODE_START,
-                                   layers and {"n_layers": layers})
+        for name, mesh, (B, S), warm, blocks, (stages, micro) in ZOO_DANUBE:
+            out[name] = serve_rank(group, DANUBE_ARCH, mesh, ZOO_AXES, None,
+                                   0, None, None, prompts[:B, :S],
+                                   dec[:B, :ZOO_DECODE], ZOO_PREFILL[1], warm,
+                                   ZOO_DECODE_START, {"n_layers": blocks})
             torch.cuda.empty_cache()
-        cfg = resolve_config(DANUBE_ARCH)
-        L, S, sid = cfg.n_layers, PIPE_STAGES, group.rank
-        lo, hi = sid * L // S, (sid + 1) * L // S
-        torch.cuda.reset_peak_memory_stats()
-        model = draw_params(
-            Model(cfg, device="meta"), 0, group.device,
-            lambda n, full: full if n.startswith("layers.")
-            and lo <= int(n.split(".")[1]) < hi else None)
-        x = pipe_input(torch, cfg.d_model, group.device)
-        staged = distributed.host_staged
-        torch.cuda.synchronize()
-        t0 = time.time()
-        y = pipeline_forward(DecoderLayer(cfg), model.layers, x, group)
-        torch.cuda.synchronize()
-        out["pipeline"] = {
-            "wall_s": time.time() - t0, "layers": [lo, hi],
-            "host_staged_messages": distributed.host_staged - staged,
-            "weight_bytes": sum(p.numel() * p.element_size()
-                                for n, p in model.named_parameters()
-                                if p.device.type == "cuda"),
-            "peak_mem_bytes": torch.cuda.max_memory_allocated()}
-        if group.rank == 0:
-            np.save(Path(out_dir) / "pipeline.npy",
-                    y.view(torch.int16).cpu().numpy())
-        del model, x, y
-    torch.cuda.empty_cache()
+            # every rank makes the stages' group; the others sit it out
+            pg = distributed.process_group(range(stages))
+            if pg is None:
+                continue
+            cfg, sid = danube_cut(blocks), group.rank
+            lo, hi = sid * blocks // stages, (sid + 1) * blocks // stages
+            torch.cuda.reset_peak_memory_stats()
+            model = draw_params(
+                Model(cfg, device="meta"), 0, group.device,
+                lambda n, full: full if n.startswith("layers.")
+                and lo <= int(n.split(".")[1]) < hi else None)
+            x = pipe_input(torch, micro, cfg.d_model, group.device)
+            staged = distributed.host_staged
+            torch.cuda.synchronize()
+            t0 = time.time()
+            y = pipeline_forward(DecoderLayer(cfg), model.layers, x, pg)
+            torch.cuda.synchronize()
+            out[name]["pipeline"] = {
+                "wall_s": time.time() - t0, "layers": [lo, hi],
+                "host_staged_messages": distributed.host_staged - staged,
+                "weight_bytes": sum(p.numel() * p.element_size()
+                                    for n, p in model.named_parameters()
+                                    if p.device.type == "cuda"),
+                "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+            if group.rank == 0:
+                np.save(Path(out_dir) / f"pipeline-{name}.npy",
+                        y.view(torch.int16).cpu().numpy())
+            del model, x, y
+            torch.cuda.empty_cache()
     return out, report
 
 
 def phase_zoo_mesh(torch, pool, rank_reports):
     """Phase 14: the model zoo on a mesh (``launch/sharded.py``,
-    ``launch/pipeline.py``).  h2o-danube-3-4b at full width and depth in
-    one process (seed 0): prefill ``ZOO_PREFILL``, ``ZOO_DECODE`` decode
-    steps from ``ZOO_DECODE_START``, and its 24 blocks over ``PIPE_MICRO`` in
-    a loop; then one ``RankPool`` of 4 gloo ranks sharing the card: the
-    same prefill and decode steps sharded on the (data 2, model 2) mesh
-    under each of ``ZOO_FLAGS`` (``zoo_mesh_rank``), each logit within the
-    bf16 gate of phases 10–12 (``SERVE_GATES``) of the one-process run's;
-    the GPipe pipeline over 4 stages, bit-equal to the loop
-    (``torch.equal``); and on the same ranks the other five families
-    (``zoo_families``).  ``pool`` is the ``RankPool`` of 4 gloo ranks on
-    the card that phases 14 and 15 share.  The ranks' reports (launches,
-    comparisons, calls by shape) go to ``rank_reports``."""
-    import dataclasses
-
+    ``launch/pipeline.py``).  h2o-danube-3-4b at full width in each case
+    of ``ZOO_DANUBE``, cut in depth, in one process (seed 0): the case's
+    prefill, ``ZOO_DECODE`` decode steps from ``ZOO_DECODE_START``, and its
+    blocks over the pipeline's micro-batches in a loop; then on the ranks
+    of ``pool`` (``zoo_mesh_rank``) the same prefill and decode steps
+    sharded on the case's mesh, each logit within the bf16 gate of phases
+    10–12 (``SERVE_GATES``) of the one-process run's, and the GPipe
+    pipeline, bit-equal to the loop (``torch.equal``); then on the same
+    ranks the other five families (``zoo_families``).  ``pool`` is the
+    ``RankPool`` of 4 gloo ranks on the card that phases 14 and 15 share.
+    The ranks' reports (launches, comparisons, calls by shape) go to
+    ``rank_reports``."""
     from repro_torch.launch.pipeline import DecoderLayer
-    from repro_torch.models import Model
 
     path = "zoo-mesh"
     prompts, dec = zoo_inputs()
-    model = serve_model(torch, DANUBE_ARCH, path, DANUBE_PARAMS)
-    cfg = model.cfg
-    B, S = ZOO_PREFILL
-    single, single_wall = {}, {}
-    with torch.inference_mode():
-        toks = torch.as_tensor(prompts, device="cuda")
-        model.prefill({"tokens": toks})                   # warm-up
-        for _, _, steps, _, layers in ZOO_FLAGS:
-            # a depth cut is a model of its own: the residual projections'
-            # init scale depends on the depth
-            cut = model if layers is None else Model(
-                dataclasses.replace(cfg, n_layers=layers), device="cuda").init(
-                    torch.Generator(device="cuda").manual_seed(0))
+    single, single_wall, loops = {}, {}, {}
+    for name, _, (B, S), warm, blocks, (_, micro) in ZOO_DANUBE:
+        model = serve_model(torch, DANUBE_ARCH, path, DANUBE_CUT_PARAMS[blocks],
+                            layers=blocks)
+        with torch.inference_mode():
+            toks = torch.as_tensor(prompts[:B, :S], device="cuda")
+            if warm:
+                model.prefill({"tokens": toks})
             torch.cuda.synchronize()
             t0 = time.time()
-            logits = {"prefill": cut.prefill({"tokens": toks}).float()}
+            logits = {"prefill": model.prefill({"tokens": toks}).float()}
             torch.cuda.synchronize()
             wall = {"prefill": time.time() - t0, "decode": []}
-            cache = cut.init_cache(B, S)
+            cache = model.init_cache(B, ZOO_PREFILL[1])
             lgs = []
-            for t in range(steps):
+            for t in range(ZOO_DECODE):
                 t0 = time.time()
-                cache, lg = cut.decode_step(cache, {
-                    "tokens": torch.as_tensor(dec[:, t], device="cuda"),
+                cache, lg = model.decode_step(cache, {
+                    "tokens": torch.as_tensor(dec[:B, t], device="cuda"),
                     "pos": torch.full((B,), ZOO_DECODE_START + t,
                                       dtype=torch.int32, device="cuda")})
                 lgs.append(lg.float())
                 torch.cuda.synchronize()
                 wall["decode"].append(time.time() - t0)
             logits["decode"] = torch.stack(lgs)
-            single[layers] = {k: v.cpu().numpy() for k, v in logits.items()}
-            single_wall[layers] = wall
-            del cache, lgs, cut
-        layer = DecoderLayer(cfg)
-        x = pipe_input(torch, cfg.d_model, "cuda")
-        t0 = time.time()
-        loop = []
-        for m in range(x.shape[0]):
-            y = x[m]
-            for lp in model.layers:
-                y = layer(lp, y)
-            loop.append(y)
-        loop = torch.stack(loop)
-        torch.cuda.synchronize()
-        pipeline_loop_s = time.time() - t0
-        loop = loop.cpu()
-    del model, x
-    torch.cuda.empty_cache()
-    emit({"phase": path, "step": "one process", "arch": cfg.name,
-          "prefill": [B, S], "decode_steps": ZOO_DECODE,
-          "decode_start": ZOO_DECODE_START,
-          "wall_s": {f"{layers or cfg.n_layers} blocks": w
-                     for layers, w in single_wall.items()},
-          "pipeline_loop_s": pipeline_loop_s})
+            single[name] = {k: v.cpu().numpy() for k, v in logits.items()}
+            layer = DecoderLayer(model.cfg)
+            x = pipe_input(torch, micro, model.cfg.d_model, "cuda")
+            t0 = time.time()
+            loop = []
+            for m in range(x.shape[0]):
+                y = x[m]
+                for lp in model.layers:
+                    y = layer(lp, y)
+                loop.append(y)
+            loop = torch.stack(loop)
+            torch.cuda.synchronize()
+            wall["pipeline_loop"] = time.time() - t0
+            loops[name] = loop.cpu()
+            single_wall[name] = wall
+        del model, cache, lgs, lg, logits, x, y, loop
+        torch.cuda.empty_cache()
+    emit({"phase": path, "step": "one process", "arch": DANUBE_ARCH,
+          "cases": {c[0]: {"prefill": list(c[2]), "blocks": c[4]}
+                    for c in ZOO_DANUBE},
+          "decode_steps": ZOO_DECODE, "decode_start": ZOO_DECODE_START,
+          "wall_s": single_wall})
 
     failed = zoo_danube_ranks(torch, pool, prompts, dec, single, single_wall,
-                              loop, pipeline_loop_s, rank_reports)
+                              loops, rank_reports)
     failed += zoo_families(torch, pool, rank_reports)
     if failed:
         raise AssertionError("zoo-mesh: " + "; ".join(failed))
 
 
-def zoo_danube_ranks(torch, pool, prompts, dec, single, single_wall, loop,
-                     pipeline_loop_s, rank_reports) -> list:
-    """Phase 14's danube runs on the pool's ranks (``zoo_mesh_rank``)
-    against the one-process ``single`` logits (by depth) and the pipeline
-    against the ``loop``; emits their lines → the failed gates."""
+def zoo_danube_ranks(torch, pool, prompts, dec, single, single_wall, loops,
+                     rank_reports) -> list:
+    """Phase 14's danube cases on the pool's ranks (``zoo_mesh_rank``)
+    against the one-process ``single`` logits and each pipeline against
+    the ``loops`` (by case); emits their lines → the failed gates."""
     import math
     import tempfile
 
     import numpy as np
 
     path = "zoo-mesh"
-    B, S = ZOO_PREFILL
     with tempfile.TemporaryDirectory(prefix="chip_smoke_zoo_") as tmp:
         t0 = time.time()
         out = pool.call(zoo_mesh_rank, prompts, dec, tmp)
         ranks_s = time.time() - t0
-        piped = torch.from_numpy(np.load(Path(tmp) / "pipeline.npy")).view(
-            torch.bfloat16)
+        piped = {c[0]: torch.from_numpy(np.load(Path(tmp) / f"pipeline-{c[0]}.npy")
+                                        ).view(torch.bfloat16)
+                 for c in ZOO_DANUBE}
     rank_reports += [report for _, report in out]
     ranks = [r for r, _ in out]
     flash_by_rank = [rep["by_shape"].get("flash_attention", {})
                      for _, rep in out]
     failed = []
-    for name, flags, steps, warm, layers in ZOO_FLAGS:
+    for name, mesh, (B, S), warm, blocks, (stages, micro) in ZOO_DANUBE:
         r0 = ranks[0][name]
-        exp = single[layers]
+        exp = single[name]
         errs = {key: float(np.abs(r0[f"{key}_logits"] - exp[key]).max())
                 / float(np.abs(exp[key]).max()) for key in exp}
         agree = float((r0["prefill_logits"].argmax(-1)
                        == exp["prefill"].argmax(-1)).mean())
         emit({"phase": path, "step": "sharded serving", "arch": DANUBE_ARCH,
-              "mesh": dict(zip(ZOO_AXES, ZOO_MESH)), "flags": name,
-              "blocks": layers or "all",
-              "depth_cut": layers and f"{layers} blocks (the time limit)",
+              "case": name, "mesh": dict(zip(ZOO_AXES, mesh)),
+              "flags": "default", "blocks": blocks,
+              "depth_cut": f"{blocks} of 24 blocks (the time limit)",
               "processes": "4 gloo ranks on one card, not a multi-GPU number",
-              "prefill": [B, S], "decode_steps": steps,
-              "decode_start": ZOO_DECODE_START, "warm_prefill": warm,
+              "prefill": [B, S], "decode_steps": ZOO_DECODE,
+              "decode_start": ZOO_DECODE_START, "cache_slots": ZOO_PREFILL[1],
+              "warm_prefill": warm,
               "rel_err": errs, "gate_rel": SERVE_GATES["bf16"],
               "prefill_argmax_agree": agree,
               "prefill_wall_s": [r[name]["prefill"]["wall_s"] for r in ranks],
               "decode_wall_s": [r[name]["decode"]["wall_s"] for r in ranks],
-              "one_process_wall_s": single_wall[layers],
+              "one_process_wall_s": single_wall[name],
               "weight_bytes": [r[name]["weight_bytes"] for r in ranks],
               "peak_mem_bytes": [r[name].get("peak_mem_bytes") for r in ranks],
               "host_staged_messages": [r[name]["host_staged_messages"]
@@ -3177,14 +3197,22 @@ def zoo_danube_ranks(torch, pool, prompts, dec, single, single_wall, loop,
         if not all(math.isfinite(e) and e <= SERVE_GATES["bf16"]
                    for e in errs.values()):
             failed.append(f"{name}: {errs}")
-    equal = torch.equal(piped, loop)
-    diff = float((piped.float() - loop.float()).abs().max())
-    rel = diff / float(loop.float().abs().max())
-    emit({"phase": path, "step": "pipeline", "arch": DANUBE_ARCH,
-          "stages": PIPE_STAGES, "micro_batches": list(PIPE_MICRO),
-          "equal": equal, "max_abs_diff": diff,
-          "rel_diff": rel, "ranks": [r["pipeline"] for r in ranks],
-          "loop_wall_s": pipeline_loop_s, "danube_ranks_s": ranks_s,
+        loop = loops[name]
+        equal = torch.equal(piped[name], loop)
+        diff = float((piped[name].float() - loop.float()).abs().max())
+        rel = diff / float(loop.float().abs().max())
+        emit({"phase": path, "step": "pipeline", "arch": DANUBE_ARCH,
+              "case": name, "stages": stages, "blocks": blocks,
+              "micro_batches": list(micro), "equal": equal,
+              "max_abs_diff": diff, "rel_diff": rel,
+              "ranks": [r[name].get("pipeline") for r in ranks],
+              "loop_wall_s": single_wall[name]["pipeline_loop"]})
+        # bit-equal: every micro-batch meets the same kernels on the same
+        # shapes in the same order as in the loop
+        if not equal:
+            failed.append(f"{name}: the pipeline differs from the loop by "
+                          f"{diff} ({rel} of its scale)")
+    emit({"phase": path, "step": "danube ranks", "danube_ranks_s": ranks_s,
           "flash_attention_calls_by_rank": flash_by_rank,
           "flash_attention_compared_by_rank": [rep["compared"]["flash_attention"]
                                                for _, rep in out],
@@ -3192,11 +3220,6 @@ def zoo_danube_ranks(torch, pool, prompts, dec, single, single_wall, loop,
               rep["max_err"]["flash_attention"] for _, rep in out],
           # the ranks' walls above include these comparisons
           "plain_compare_s_by_rank": [rep["compare_s"] for _, rep in out]})
-    # bit-equal: every micro-batch meets the same kernels on the same
-    # shapes in the same order as in the loop
-    if not equal:
-        failed.append(f"pipeline differs from the loop by {diff} "
-                      f"({rel} of its scale)")
     if any(not f for f in flash_by_rank):
         failed.append(f"a rank launched no flash_attention: {flash_by_rank}")
     return failed
@@ -3335,8 +3358,7 @@ def zoo_families(torch, pool, rank_reports) -> list:
 
 # phase 15: sharded training of every family on phase 14's RankPool.
 # (arch, config overrides: a depth cut (every width kept) and remat "full",
-# (n_micro, mb, S) with one row a data rank, steps, whether the train state
-# is saved after step 1 and restored onto one process), each under the full
+# (n_micro, mb, S) with one row a data rank, steps), each under the full
 # config's default flags (passed explicitly: a depth cut lowers
 # param_count, which would flip them), the weights drawn from seed 0 in
 # bf16.  Four ranks of a family at full depth would hold its weights,
@@ -3344,18 +3366,16 @@ def zoo_families(torch, pool, rank_reports) -> list:
 # reference (~14 B a parameter: 41 GB for one mixtral layer)
 TRAIN_MESH_CASES = (
     # two steps: the second's loss and grad norm see AdamW's sharded update
-    (DANUBE_ARCH, {"n_layers": 2, "remat": "full"}, (2, 2, 2048), 2, False),
-    ("mixtral-8x22b", {"n_layers": 1, "remat": "full"}, (1, 2, 2048), 1, False),
-    ("falcon-mamba-7b", {"n_layers": 2, "remat": "full"}, (1, 2, 2048), 1,
-     False),
+    (DANUBE_ARCH, {"n_layers": 2, "remat": "full"}, (2, 2, 2048), 2),
+    ("mixtral-8x22b", {"n_layers": 1, "remat": "full"}, (1, 2, 2048), 1),
+    ("falcon-mamba-7b", {"n_layers": 2, "remat": "full"}, (1, 2, 2048), 1),
     # one unit: 2 recurrent blocks and 1 local attention
-    ("recurrentgemma-2b", {"n_layers": 3, "remat": "full"}, (1, 2, 2048), 1,
-     False),
+    ("recurrentgemma-2b", {"n_layers": 3, "remat": "full"}, (1, 2, 2048), 1),
     # 256 patches + 1792 tokens
-    ("internvl2-76b", {"n_layers": 1, "remat": "full"}, (1, 2, 2048), 1, False),
+    ("internvl2-76b", {"n_layers": 1, "remat": "full"}, (1, 2, 2048), 1),
     # 2 + 2 layers, 512 frames
     ("seamless-m4t-large-v2", {"n_layers": 2, "enc_layers": 2,
-                               "remat": "full"}, (1, 2, 2048), 1, True),
+                               "remat": "full"}, (1, 2, 2048), 1),
 )
 TRAIN_MESH_GATES = {"loss": 1e-2, "grad_norm": 5e-2, "mu": 0.15}  # relative
 # the share of a rank's (group, token) rows whose own top-k choices differ
@@ -3452,13 +3472,10 @@ def moe_topk_replay(torch, table: dict):
         moe._top_k = top_k
 
 
-def train_mesh_rank(group, arch, overrides, flags, batches, mu_dir, ckpt_dir,
-                    topi=None):
+def train_mesh_rank(group, arch, overrides, flags, batches, mu_dir, topi=None):
     """One of phase 15's pool ranks: ``train_rank`` of ``arch`` cut to
     ``overrides`` on the (2, 2) mesh (shards drawn from seed 0, bf16), one
-    step a batch; with ``ckpt_dir`` the train state saved there after step
-    1 and restored onto each rank's process against its blocks of the
-    mesh's leaves; the moments after the last step held against the one-
+    step a batch; the moments after the last step held against the one-
     process ones (``moment_errors``); every kernel call held against its
     plain version (``probed``; remat's recompute of a forward call to
     the compared call's result), the one-hot dispatch's dropped tokens
@@ -3474,9 +3491,9 @@ def train_mesh_rank(group, arch, overrides, flags, batches, mu_dir, ckpt_dir,
     with probed(group, every=True, recompute=True) as (report, _), \
             moe_drops(torch) as drops, replay as replayed:
         out = train_rank(group, arch, ZOO_MESH, ZOO_AXES, batches, flags, 0,
-                         None, None, overrides, (), ckpt_dir, None,
-                         ckpt_dir is not None,
-                         lambda params, state: moment_errors(mu_dir, state))
+                         None, None, overrides,
+                         inspect=lambda params, state: moment_errors(mu_dir,
+                                                                     state))
     out["moe_routing"] = drops["by_group"]
     out["topk_replayed"] = replayed
     gc.collect()
@@ -3486,8 +3503,7 @@ def train_mesh_rank(group, arch, overrides, flags, batches, mu_dir, ckpt_dir,
 
 def phase_train_mesh(torch, pool, rank_reports, check):
     """Phase 15: sharded training of every family (``launch/sharded.py``
-    ``train_rank``, ``optim/adamw.py`` on DTensors,
-    ``checkpoint/manager.py``), one ``TRAIN_MESH_CASES`` entry after the
+    ``train_rank``, ``optim/adamw.py`` on DTensors), one ``TRAIN_MESH_CASES`` entry after the
     other (``train_mesh_case``); fails if any case failed its gates."""
     failed = []
     for case in TRAIN_MESH_CASES:
@@ -3497,7 +3513,7 @@ def phase_train_mesh(torch, pool, rank_reports, check):
 
 
 def train_mesh_case(torch, pool, rank_reports, check, arch, overrides, layout,
-                    steps, restore) -> list:
+                    steps) -> list:
     """One case of phase 15: ``arch`` at full width cut to ``overrides``
     (bf16, seed 0): ``steps`` steps of ``make_train_step`` on ``layout``
     in this process (its kernel calls not compared: ``check.paused``),
@@ -3507,9 +3523,8 @@ def train_mesh_case(torch, pool, rank_reports, check, arch, overrides, layout,
     kernel call on the ranks, forward and backward, held against its plain
     version (``train_mesh_rank``). Gates (``TRAIN_MESH_GATES``): each
     step's loss and grad norm relative to this process's, and each leaf's
-    ``mu`` after the last step within 0.15 of its largest magnitude; with
-    ``restore``, the checkpoint after step 1 restored onto one process
-    ``torch.equal`` to the mesh's leaves; for moe, each rank's share of
+    ``mu`` after the last step within 0.15 of its largest magnitude; for
+    moe, each rank's share of
     rows whose own top-k choices differ within
     ``TRAIN_MESH_TOPK_DIFFER``.  One line a case → the failed gates."""
     import dataclasses
@@ -3563,8 +3578,7 @@ def train_mesh_case(torch, pool, rank_reports, check, arch, overrides, layout,
         parent_reserved = torch.cuda.memory_reserved()
         t0 = time.time()
         out = pool.call(train_mesh_rank, arch, overrides, flags, host,
-                        str(mu_dir), str(Path(tmp) / "ckpt") if restore else None,
-                        table["topi"])
+                        str(mu_dir), table["topi"])
         ranks_s = time.time() - t0
     rank_reports += [report for _, report in out]
     ranks = [r for r, _ in out]
@@ -3609,10 +3623,6 @@ def train_mesh_case(torch, pool, rank_reports, check, arch, overrides, layout,
         "mu_save_s": mu_save_s, "ranks_s": ranks_s,
         "this_process_reserved_bytes_beside_ranks": parent_reserved,
         "case_s": time.time() - t_case}
-    if restore:
-        line["restore_onto_one_process"] = r0.get("restore_equal") or {}
-        line["save_s"] = [r["save_s"] for r in ranks]
-        line["restore_check_s"] = [r["restore_check_s"] for r in ranks]
     if cfg.family == "moe":
         g = min(cfg.moe_group, layout[1] * layout[2])
         mesh = [sum(r["moe_routing"].get(g, [0, 0])[i] for r in ranks)
@@ -3640,9 +3650,6 @@ def train_mesh_case(torch, pool, rank_reports, check, arch, overrides, layout,
             failed.append(f"{cfg.name}: the ranks' own top-k choices differ "
                           f"from one process's in {shares} of their rows "
                           f"(gate {TRAIN_MESH_TOPK_DIFFER})")
-    if restore and not line["restore_onto_one_process"].get("equal"):
-        failed.append(f"{cfg.name}: the restore onto one process differs: "
-                      f"{line['restore_onto_one_process']}")
     return failed
 
 
@@ -3791,8 +3798,9 @@ def train_cli(torch):
     ``CLI_CKPT_EVERY`` (past the run's end: only the final one); the same
     preempted (and checkpointed) at ``CLI_PREEMPT`` and resumed,
     whose losses from there on and final checkpoint (parameters, moments,
-    step: the chunks' CRCs) must equal the uninterrupted run's; one
-    ``--adaptive`` run with up to 4 micro-batches a step."""
+    step: the chunks' CRCs) must equal the uninterrupted run's.  Its
+    ``--adaptive`` run left for phase 16, where ``train_adaptive_torch``
+    drives ``--adaptive`` on lm-100m."""
     import io
     import re
     import shutil
@@ -3822,7 +3830,6 @@ def train_cli(torch):
                             "--preempt-at", str(CLI_PREEMPT))
         res, l_res, w_res = run("--ckpt-dir", str(tmp / "b"), "--resume",
                                 "--ckpt-every", str(CLI_CKPT_EVERY))
-        adaptive, l_ad, w_ad = run("--adaptive", "--micro", "4")
 
         def crcs(run_dir):  # the final checkpoint's chunk checksums
             man = json.loads((tmp / run_dir / f"step_{CLI_STEPS:010d}" /
@@ -3833,27 +3840,22 @@ def train_cli(torch):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     same = {s: l_full.get(s) == l for s, l in l_res.items()}
-    micro = re.findall(r"micro=(\d+) rel_sem=(\S+)", adaptive)
     emit({"phase": "train", "step": "cli", "args": list(CLI_ARGS),
           "steps": CLI_STEPS, "ckpt_every": CLI_CKPT_EVERY,
           "cut": "20 steps, a checkpoint every 10, preempted at 5 → "
-                 "4, none but the final one, 2 (the time limit)",
+                 "4, none but the final one, 2 (the time limit); the "
+                 "--adaptive run → phase 16's train_adaptive_torch",
           "preempt_at": CLI_PREEMPT, "wall_s": {"full": w_full, "preempted": w_pre,
-                                                 "resumed": w_res, "adaptive": w_ad},
+                                                 "resumed": w_res},
           "losses_full": l_full, "losses_resumed": l_res,
           "resumed_equal": all(same.values()) and len(same) == CLI_STEPS - CLI_PREEMPT,
           "final_checkpoints_equal": same_ckpt,
-          "adaptive_micro_used": [int(m) for m, _ in micro],
-          "adaptive_rel_sem": [float(r) for _, r in micro],
-          "last_lines": [full.splitlines()[-1], res.splitlines()[-1],
-                         adaptive.splitlines()[-1]]})
+          "last_lines": [full.splitlines()[-1], res.splitlines()[-1]]})
     if "PREEMPTION" not in pre or f"resumed at step {CLI_PREEMPT}" not in res \
             or sorted(l_res) != list(range(CLI_PREEMPT, CLI_STEPS)) \
             or not all(same.values()) or not same_ckpt:
         raise AssertionError(f"train CLI: resume after preemption is not the "
                              f"uninterrupted run: {l_full} vs {l_res}")
-    if len(micro) != CLI_STEPS or "done" not in adaptive:
-        raise AssertionError("train CLI --adaptive: missing step lines")
 
 
 def phase_train(torch):
@@ -3898,6 +3900,221 @@ def phase_train(torch):
     torch.cuda.empty_cache()
 
     train_cli(torch)
+
+
+# phase 16: the examples' analogues (examples/*_torch.py), each one's
+# main() called in this process on the card: (example, arguments), the
+# reference docstrings' commands but instances_demo's --conformance,
+# which phase 7's run_all already runs
+EXAMPLES = ROOT / "examples"
+EXAMPLE_RUNS = (
+    ("quickstart_torch", ()),
+    ("kadabra_bc_torch", ("--kind", "er", "--n", "300", "--eps", "0.05")),
+    ("kadabra_bc_torch", ("--kind", "grid", "--world", "8")),
+    ("instances_demo_torch", ()),
+    ("instances_demo_torch", ("--strategy", "indexed", "--world", "4")),
+    ("serve_adaptive_torch", ()),
+    # lm-100m at full width and the reference's full run's sequence
+    # length; 60 steps: the periodic checkpoint at step 50 and the final
+    # one (into a directory the phase removes)
+    ("train_adaptive_torch", ("--seq", "128", "--steps", "60")),
+)
+EXAMPLE_EPS = 0.05          # kadabra_bc's default ε
+SCRIPT_INSTANCES = ("kadabra-full", "wrs-full")   # phase 9 registers them
+EXAMPLE_TRAIN = (8, 4)      # train_adaptive's --batch and --micro defaults
+
+
+def example_quickstart(out, argv):
+    """quickstart_torch's τ, ω, max error and its OK line → (figures,
+    failures)."""
+    tau = re.search(r"stopped after τ = (\d+) samples \(ω cap was (\d+)\)", out)
+    err = re.search(r"max \|b̃ − b\| = (\S+)  \(ε = (\S+)\) (OK|MISS)$", out, re.M)
+    if not (tau and err):
+        return {}, ["no τ or max error line"]
+    return ({"tau": int(tau[1]), "omega": int(tau[2]), "max_err": float(err[1]),
+             "eps": float(err[2])}, [] if err[3] == "OK" else [err[0]])
+
+
+def example_kadabra_bc(out, argv):
+    """kadabra_bc_torch's preprocessing and its five strategies' rows,
+    each max error within ε."""
+    eps = float(argv[argv.index("--eps") + 1]) if "--eps" in argv else EXAMPLE_EPS
+    pre = re.search(r"VD ≤ (\d+), ω = (\d+) \((\S+)s\)", out)
+    rows = [{"strategy": s, "world": int(w), "tau": int(t), "epochs": int(e),
+             "max_err": float(x), "s": float(d)}
+            for s, w, t, e, x, d in re.findall(
+                r"^ *(lock|barrier|local|shared|indexed) +(\d+) +(\d+) +(\d+) "
+                r"+(\S+) +(\S+)s$", out, re.M)]
+    bad = [] if pre and len(rows) == 5 else [f"{len(rows)} of 5 strategy rows"]
+    bad += [f"{r['strategy']}: max error {r['max_err']} > ε {eps}"
+            for r in rows if not r["max_err"] <= eps]
+    return ({"vd_upper": int(pre[1]), "omega": int(pre[2]),
+             "preprocess_s": float(pre[3])} if pre else {}) | \
+        {"eps": eps, "rows": rows}, bad
+
+
+def example_instances_demo(out, argv):
+    """instances_demo_torch's six instances, each error within its ε."""
+    rows = [{"instance": n, "tau": int(t), "epochs": int(e), "err": float(x),
+             "eps": float(p), "s": float(w)}
+            for n, t, e, x, p, w in re.findall(
+                r"^([\w-]+) +\[\w+/W=\d+\] τ= *(\d+) epochs= *(\d+) err=(\S+) "
+                r"\(ε=(\S+)\) wall=(\S+)s$", out, re.M)]
+    bad = [] if len(rows) == 6 else [f"{len(rows)} of 6 instance rows"]
+    bad += [f"{r['instance']}: err {r['err']} > ε {r['eps']}"
+            for r in rows if not r["err"] <= r["eps"]]
+    return {"rows": rows}, bad
+
+
+def example_serve_adaptive(out, argv):
+    """serve_adaptive_torch's four flows: both pools drain 2 queries and
+    the second shrinks a session under pressure, generation makes 64
+    tokens, the adaptive eval's mean is finite."""
+    import math
+    drained = re.findall(r"\[serve\] pool drained: (\d+) queries, (\d+) ticks, "
+                         r"(\d+) samples in (\S+)s \((\d+) samples/s", out)
+    second = out.split("[example] placement-aware pool")[-1]
+    gen = re.search(r"\[serve\] generated (\d+) tokens in (\S+)s \((\S+) tok/s\)", out)
+    ev = re.search(r"\[serve\] adaptive eval: mean loss = (\S+) ± \S+ \(p ≥ \S+\) "
+                   r"after (\d+) samples \(stopped=(\w+), (\S+)s\)", out)
+    bad = [] if [d[0] for d in drained] == ["2", "2"] else [f"pools drained {drained}"]
+    if not re.search(r"\[serve\] tick \d+: shrunk \S+ W=\d+ → \d+ \(pressure\)", second):
+        bad.append("no shrunk line in the placement-aware pool")
+    if not (gen and gen[1] == "64"):
+        bad.append("no generated 64 tokens line")
+    if not (ev and math.isfinite(float(ev[1]))):
+        bad.append("no finite adaptive eval line")
+    return {"pools": [{"queries": int(q), "ticks": int(t), "samples": int(n),
+                       "s": float(s), "samples_per_s": int(r)}
+                      for q, t, n, s, r in drained],
+            "generate": gen and {"tokens": int(gen[1]), "s": float(gen[2]),
+                                 "tokens_per_s": float(gen[3])},
+            "adaptive_eval": ev and {"mean_loss": float(ev[1]),
+                                     "samples": int(ev[2]),
+                                     "stopped": ev[3] == "True",
+                                     "s": float(ev[4])}}, bad
+
+
+def example_train_adaptive(out, argv):
+    """train_adaptive_torch's logged steps (every 10th and the last): finite
+    losses, at most ``EXAMPLE_TRAIN[1]`` micro-batches; tokens/s of each
+    logged step from its micro-batches and wall."""
+    import math
+    steps = int(argv[argv.index("--steps") + 1])
+    seq = int(argv[argv.index("--seq") + 1])
+    batch, micro = EXAMPLE_TRAIN
+    rows = [{"step": int(s), "loss": float(l), "grad_norm": float(g),
+             "ms": int(ms), "micro": int(m), "rel_sem": float(r),
+             "tokens_per_s": int(m) * batch // micro * seq / (int(ms) / 1e3)}
+            for s, l, g, ms, m, r in re.findall(
+                r"\[train\] step +(\d+) loss=(\S+) gnorm=(\S+) +(\d+)ms "
+                r"micro=(\d+) rel_sem=(\S+)$", out, re.M)]
+    done = re.search(r"\[train\] done in (\S+)s; loss (\S+) → (\S+)", out)
+    logged = sorted(set(range(0, steps, 10)) | {steps - 1})
+    bad = [] if [r["step"] for r in rows] == logged and done else \
+        [f"logged steps {[r['step'] for r in rows]}, not {logged}"]
+    bad += [f"step {r['step']}: loss {r['loss']}, micro={r['micro']}"
+            for r in rows if not (math.isfinite(r["loss"])
+                                  and 1 <= r["micro"] <= micro)]
+    params = re.search(r"lm-100m: (\S+)M params", out)
+    return {"params_m": params and float(params[1]), "rows": rows,
+            "done_s": done and float(done[1])}, bad
+
+
+EXAMPLE_CHECKS = {"quickstart_torch": example_quickstart,
+                  "kadabra_bc_torch": example_kadabra_bc,
+                  "instances_demo_torch": example_instances_demo,
+                  "serve_adaptive_torch": example_serve_adaptive,
+                  "train_adaptive_torch": example_train_adaptive}
+
+
+@contextlib.contextmanager
+def checkpoint_seconds():
+    """Seconds that ``CheckpointManager.save`` (its copy to the host; the
+    write goes on in a thread) and ``wait`` (until the writes end) block
+    their caller, summed while the block runs: {"save_s", "wait_s",
+    "saves"}."""
+    from repro_torch.checkpoint import CheckpointManager
+    out = {"save_s": 0.0, "wait_s": 0.0, "saves": 0}
+    save, wait = CheckpointManager.save, CheckpointManager.wait
+
+    def timed(fn, key):
+        def call(*args, **kwargs):
+            t0 = time.time()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                out[key] += time.time() - t0
+                out["saves"] += key == "save_s"
+        return call
+
+    CheckpointManager.save = timed(save, "save_s")
+    CheckpointManager.wait = timed(wait, "wait_s")
+    try:
+        yield out
+    finally:
+        CheckpointManager.save, CheckpointManager.wait = save, wait
+
+
+def phase_examples(torch):
+    """Phase 16: the examples' analogues on the card.  Each of
+    ``EXAMPLE_RUNS`` is loaded from ``examples/`` and its ``main(argv)``
+    called in this process with its output captured, phase 9's instances
+    (``SCRIPT_INSTANCES``) out of the registry meanwhile; a non-zero exit
+    code or a missing or failed line (``EXAMPLE_CHECKS``) fails the phase.
+    train_adaptive_torch checkpoints into a temporary directory, which
+    must then hold steps 50 and 60, and which the phase removes.  One line
+    a run: its wall and the figures it printed; for train_adaptive_torch
+    also each checkpoint's bytes and the seconds its saves blocked the
+    run (``checkpoint_seconds``)."""
+    import importlib.util
+    import io
+    import shutil
+    import tempfile
+
+    from repro_torch.core import instances
+
+    failed = []
+    # the registry as a user's process has it: without phase 9's instances
+    own = {n: instances._REGISTRY.pop(n) for n in SCRIPT_INSTANCES
+           if n in instances._REGISTRY}
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_examples_"))
+    try:
+        for name, argv in EXAMPLE_RUNS:
+            argv = list(argv)
+            ckpt = tmp / name
+            if name == "train_adaptive_torch":
+                argv += ["--ckpt-dir", str(ckpt)]
+            spec = importlib.util.spec_from_file_location(
+                name, EXAMPLES / f"{name}.py")
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            buf = io.StringIO()
+            t0 = time.time()
+            with contextlib.redirect_stdout(buf), checkpoint_seconds() as saves:
+                rc = mod.main(argv)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            out = buf.getvalue()
+            figures, bad = EXAMPLE_CHECKS[name](out, argv)
+            if name == "train_adaptive_torch":
+                kept = {p.name: sum(f.stat().st_size for f in p.rglob("*")
+                                    if f.is_file())
+                        for p in sorted(ckpt.glob("step_*"))}
+                figures["checkpoints"] = {"bytes": kept, **saves}
+                if sorted(kept) != ["step_0000000050", "step_0000000060"]:
+                    bad.append(f"checkpoints {sorted(kept)}")
+            if rc != 0:
+                bad.insert(0, f"exit code {rc}")
+            emit({"phase": "examples", "example": name, "argv": argv,
+                  "rc": rc, "wall_s": wall, **figures, "failed": bad,
+                  **({"last_lines": out.splitlines()[-5:]} if bad else {})})
+            failed += [f"{name} {' '.join(argv)}: {b}" for b in bad]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        instances._REGISTRY.update(own)
+    if failed:
+        raise AssertionError("examples: " + "; ".join(failed))
 
 
 def main() -> int:
@@ -4049,6 +4266,10 @@ def main() -> int:
                               "ssm_scan_bwd"))
     emit({"phase": "train", "flash_attention_bwd_checks":
           check.flash_bwd_rows[checked_before:]})
+    torch.cuda.empty_cache()
+    by_path["examples"] = drive("examples", lambda: phase_examples(torch),
+                                ("frame_accum", "bfs_frontier", "alias_draw",
+                                 "flash_attention", "flash_attention_bwd"))
     torch.cuda.empty_cache()
     from repro_torch.launch.spawn import RankPool
     t0 = time.time()

@@ -11,6 +11,10 @@ import sys
 from pathlib import Path
 
 SRC = Path(__file__).resolve().parents[1] / "src"
+EXAMPLES = SRC.parent / "examples"
+ANALOGUES = ("quickstart_torch", "kadabra_bc_torch", "instances_demo_torch",
+             "serve_adaptive_torch", "train_adaptive_torch",
+             "elastic_restart_torch")
 
 _PROGRAM = """
 import sys
@@ -101,6 +105,43 @@ def test_port_imports_no_jax_and_no_reference():
     assert "RANKS_LEAKED []" in out.stdout, out.stdout
 
 
+_EXAMPLES_PROGRAM = """
+import importlib.util
+import sys
+import tempfile
+
+import torch
+torch.set_num_threads(1)  # beside the suite's parallel workers, as its ranks
+
+
+def example(name):  # examples/<name>.py, from the directory in argv[1]
+    spec = importlib.util.spec_from_file_location(name, f"{sys.argv[1]}/{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+assert example("quickstart_torch").main(["--device", "cpu"]) == 0
+with tempfile.TemporaryDirectory() as d:
+    assert example("train_adaptive_torch").main(
+        ["--steps", "2", "--batch", "4", "--seq", "16", "--micro", "2",
+         "--ckpt-dir", d, "--device", "cpu"]) == 0
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print("LEAKED", bad)
+"""
+
+
+def test_examples_import_no_jax_and_no_reference():
+    """quickstart_torch and train_adaptive_torch, run at their CPU test
+    sizes in a process of their own, import neither JAX nor the
+    reference."""
+    out = subprocess.run([sys.executable, "-c", _EXAMPLES_PROGRAM,
+                          str(EXAMPLES)], capture_output=True, text=True,
+                         timeout=300, env={**os.environ, "PYTHONPATH": str(SRC)})
+    assert out.returncode == 0, out.stderr
+    assert "\nLEAKED []" in out.stdout, out.stdout
+
+
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     from repro_torch.core.frames import FrameStrategy
     from repro_torch.graphs import (KadabraParams, bfs_sssp, erdos_renyi,
@@ -179,3 +220,19 @@ def test_ssm_model_defaults_to_cuda_and_raises_without_it(monkeypatch):
         model_params_from_numpy(cfg, {"layers": {"D": np.ones((2, 4), np.float32)}})
     with pytest.raises(RuntimeError, match="CUDA"):
         main(["--arch", "falcon-mamba-7b-reduced"])
+
+
+@pytest.mark.parametrize("name", ANALOGUES)
+def test_examples_default_to_cuda_and_raise_without_it(monkeypatch, name):
+    """Each example of the port, run without ``--device``, picks the card
+    and raises without one: none of them quietly runs on the CPU."""
+    import importlib.util
+
+    import repro_torch.models.config as config
+    monkeypatch.setitem(config._REGISTRY, "lm-100m", None)  # undone after
+    spec = importlib.util.spec_from_file_location(name, EXAMPLES / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mod.main([])
